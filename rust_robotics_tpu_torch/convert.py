@@ -1,0 +1,51 @@
+"""Carry the JAX package's arrays across to the port's tensors.
+
+The EKF has no learned weights; the state that crosses is the belief and the
+noise model. Each function takes numpy arrays as the JAX side holds them
+(`np.asarray` of a JAX array) and returns tensors on the given device
+(default `cuda`) and dtype. `belief_to_lanes`/`belief_from_lanes` switch a
+belief between the filter layout (mean [B, 4], cov [B, 4, 4]) and the scan
+kernel's lane-major layout (mean [4, B], cov [16, B]), as
+ekf_pallas.py:157-170 does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rust_robotics_tpu_torch._device import resolve_device
+from rust_robotics_tpu_torch.core.types import GaussianBelief
+
+
+def to_tensor(array, device=None, dtype=torch.float32):
+    """One numpy array -> a tensor on `device` in `dtype`."""
+    return torch.tensor(np.asarray(array), dtype=dtype, device=resolve_device(device))
+
+
+def belief_from_numpy(mean, cov, device=None, dtype=torch.float32) -> GaussianBelief:
+    """A JAX `GaussianBelief`'s mean [..., n] and cov [..., n, n]."""
+    return GaussianBelief(to_tensor(mean, device, dtype), to_tensor(cov, device, dtype))
+
+
+def noise_from_numpy(q, r, device=None, dtype=torch.float32):
+    """Q and R, each dense or given by its diagonal, -> dense (q, r)."""
+    q, r = (to_tensor(x, device, dtype) for x in (q, r))
+    return tuple(torch.diag(x) if x.ndim == 1 else x for x in (q, r))
+
+
+def lanes_from_numpy(*arrays, device=None, dtype=torch.float32):
+    """Lane-major arrays ([4, B], [16, B], [T, 2, B]) -> contiguous tensors."""
+    return tuple(to_tensor(a, device, dtype).contiguous() for a in arrays)
+
+
+def belief_to_lanes(belief: GaussianBelief):
+    """GaussianBelief (mean [B, 4], cov [B, 4, 4]) -> mean [4, B], cov [16, B]."""
+    b = belief.mean.shape[0]
+    return belief.mean.T.contiguous(), belief.cov.permute(1, 2, 0).reshape(16, b).contiguous()
+
+
+def belief_from_lanes(mean, cov) -> GaussianBelief:
+    """mean [4, B], cov [16, B] -> GaussianBelief (mean [B, 4], cov [B, 4, 4])."""
+    b = mean.shape[-1]
+    return GaussianBelief(mean.T, cov.reshape(4, 4, b).permute(2, 0, 1))

@@ -1,0 +1,66 @@
+"""Rules the port keeps: it imports neither JAX nor the JAX package (it
+keeps its own copy of what it needs), triton only inside the function that
+launches a kernel, and its entry points never fall back to the CPU
+unasked."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "rust_robotics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(tree):
+    """(module name, is top level) for every import in a module."""
+    top = set(map(id, tree.body))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module, id(node) in top
+
+
+def _forbidden(module, top_level):
+    root = module.split(".")[0]
+    if root in ("jax", "jaxlib") or root == "rust_robotics_tpu":
+        return True
+    return root == "triton" and top_level
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_nor_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m, top in _imports(tree) if _forbidden(m, top)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_rule_scan_sees_what_it_must():
+    tree = ast.parse(
+        "import jax.numpy as jnp\nfrom rust_robotics_tpu.core import angles\n"
+        "import rust_robotics_tpu_torch\nfrom rust_robotics_tpu_torch.ops import ekf_scan\n"
+        "import triton\ndef f():\n    import triton\n"
+    )
+    flagged = [m for m, top in _imports(tree) if _forbidden(m, top)]
+    assert flagged == ["jax.numpy", "rust_robotics_tpu.core", "triton"]
+    assert len(PORT_FILES) > 10
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+    from rust_robotics_tpu_torch import convert
+    from rust_robotics_tpu_torch.demos.ekf_localization import (
+        default_ekf_noise,
+        run_ekf_localization_demo,
+    )
+
+    if torch.cuda.is_available():
+        assert run_ekf_localization_demo(steps=3)["estimate"].is_cuda
+        return
+    for call in (lambda: run_ekf_localization_demo(steps=3), default_ekf_noise,
+                 lambda: convert.to_tensor([1.0, 2.0])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert run_ekf_localization_demo(steps=3, device="cpu")["estimate"].device.type == "cpu"
