@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU and check them.
 
 Run from the root of a checkout with one CUDA card: `python3 chip_smoke.py`.
 It imports only `rust_robotics_tpu_torch` (no JAX), builds every kernel from
@@ -9,17 +9,37 @@ any failure exits non-zero before the final line.
  1. print the card's name and power limit (nvidia-smi);
  2. fail without CUDA;
  3. turn TF32 off for matmuls and cuDNN;
- 4. build the kernels, print the build time and ptxas's resource report;
- 5. hold each kernel against its plain-PyTorch twin on the card;
- 6. the main path at full width: bench.py's batched-EKF workload (B=131072
-    filters, T=200 steps, f32), rebuilt from a numpy seed, through
-    `ekf_scan_lanes` on cuda, with launch counts reset just before; then
-    kernel and twin times (CUDA events, min over bursts) beside the bound;
+ 4. build the kernels (ekf_scan, wavefront_sweep, resample: one nvcc each,
+    all at once), print the build time and ptxas's resource report;
+ 5. hold the EKF scan kernel (B1) against its plain-PyTorch twin on the card;
+ 6. the EKF main path at full width: bench.py's batched-EKF workload
+    (B=131072 filters, T=200 steps, f32), rebuilt from a numpy seed,
+    through `ekf_scan_lanes` on cuda, with launch counts reset just before;
+    then kernel and twin times (CUDA events, min over bursts) beside the
+    bound;
  7. one batched `ekf_step` at B=1024 (dense Q and R) on cuda against CPU;
  8. the 330-step EKF localization demo on cuda at f64 against a numpy
     transcription of the reference semantics;
- 9. one JSON line `{"kernels": [...]}`;
-10. the last line, `{"ok": true, "device": {...}}`.
+ 9. the wavefront kernel (B2) against its twin, bitwise, launch by launch:
+    bench.py's grid shape (B=64 maps of 128x128, f32, 8-connected), f64,
+    the tiled variant at B=2 of 512x512, and at 32x32 the 4-connected,
+    corner-cutting and unbatched cases through the public entry;
+10. the grid main path at full width: bench.py's grid workload through
+    `wavefront_costs` (8 sweeps per launch) and `wavefront_costs_fused`
+    (16), counted; kernel, whole-call and twin times, sweeps, cells
+    relaxed/s and the bound; then `plan_grid` on cuda on the 64x64 walled
+    map of `bench_grid_planners`, equal to `plan_grid` on the CPU;
+11. the resampling kernel (B3) against its twin: B=8192 x P=1024 and
+    B=2048 x P=4096 in f32, a ragged B=4099 in f64, all mass on one
+    particle, and the P=1280 ValueError;
+12. the particle-filter main path at full width: a fleet of B=8192 filters
+    x P=1024 particles (and B=2048 x P=4096) for 20 steps of predict,
+    range update, `resample_if_needed_fused` and estimate, counted; then 3
+    plain `pf_step`s; then B3's times at bench.py's three shapes; last, a
+    torch.profiler breakdown of one grid call and one PF step (device busy
+    and idle share, top device consumers);
+13. one JSON line `{"kernels": [...]}`;
+14. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -32,12 +52,42 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from rust_robotics_tpu_torch.core.types import GaussianBelief
 from rust_robotics_tpu_torch.demos.ekf_localization import run_ekf_localization_demo
 from rust_robotics_tpu_torch.filters.kalman import ekf_step
+from rust_robotics_tpu_torch.filters.particle import (
+    init_particles,
+    pf_estimate,
+    pf_predict,
+    pf_step,
+    pf_update_ranges,
+    resample_if_needed_fused,
+)
+from rust_robotics_tpu_torch.models.motion import unicycle_propagate
 from rust_robotics_tpu_torch.ops import _build
 from rust_robotics_tpu_torch.ops.ekf_scan import ekf_scan_lanes, ekf_scan_plain
+from rust_robotics_tpu_torch.ops.resample import (
+    systematic_resample_gather,
+    systematic_resample_gather_plain,
+)
+from rust_robotics_tpu_torch.ops.wavefront_sweep import (
+    incoming_bits,
+    resident_fits,
+    sentinel,
+    wavefront_costs_fused,
+    wavefront_sweeps,
+    wavefront_sweeps_plain,
+)
+from rust_robotics_tpu_torch.planning.grid import grid_from_raster
+from rust_robotics_tpu_torch.planning.wavefront import (
+    SQRT2,
+    _incoming_masks,
+    _motions,
+    plan_grid,
+    wavefront_costs,
+)
 
 SEED = 0
 B, T, DT = 131072, 200, 0.1  # bench.py:34-51
@@ -59,6 +109,38 @@ CARDS = (
 # only terms the model's sparsity leaves non-zero: 118 adds/multiplies/
 # divides plus 4 sin/cos counted as one operation each.
 EKF_OPS_PER_STEP = 122
+
+# bench.py:154-159: B=64 maps of 128x128, 20 % blocked, goal at the far corner
+GRID_B, GRID_W, GRID_H = 64, 128, 128
+GRID_K = 16  # sweeps per launch of wavefront_costs_fused (wavefront_pallas.py:95)
+# per cell, per direction and per sweep: one add, one select, one min
+WAVEFRONT_OPS_PER_DIRECTION = 3
+
+# bench.py:182-221: resampling at D=4, pinned (B=256), saturated (B=8192)
+# and tiled (B=2048, P=4096)
+RESAMPLE_SHAPES = {"pinned": (256, 1024), "saturated": (8192, 1024), "tiled": (2048, 4096)}
+RESAMPLE_D = 4
+RESAMPLE_IDX_OFF_LIMIT = 1e-3  # share of draws whose index may differ (f32)
+# how far from its position a CDF boundary that a differing index crosses
+# may lie: the two f32 prefix sums of up to 4096 terms differ by their
+# summation order, a few units of 2^-24 times sqrt(P)
+RESAMPLE_CDF_ATOL = 1e-5
+# per particle: normalise, square-add, scan add, CDF divide, position
+# add+divide, and a log2(P)-step binary search
+RESAMPLE_OPS_PER_PARTICLE = 7
+
+# demos/benchmarks.py:245-271 (bench_particle_filter), for a fleet of filters
+PF_LANDMARKS = ((10.0, 0.0), (10.0, 10.0), (0.0, 15.0), (-5.0, 20.0))
+PF_DT, PF_U, PF_CONTROL_NOISE, PF_RANGE_NOISE, PF_SPREAD = 0.1, (1.0, 0.1), (0.1, 0.05), 0.2, 0.1
+PF_STEPS = 20
+# (filters, particles): B3b's shape, then B3a's, the main width, which the
+# plain pf_step run continues
+PF_FLEETS = ((2048, 4096), (8192, 1024))
+# The fleet's median position error after 20 steps must stay below this:
+# `run_pf_fleet` on the CPU at B=64, seeds 0-3, gave medians of
+# 0.0096-0.0118 (P=1024) and 0.0096-0.0102 (P=4096); 0.03 is 2.5 times
+# the largest.
+PF_MEDIAN_ERROR_LIMIT = 0.03
 
 
 def fail(msg: str):
@@ -129,6 +211,212 @@ def check_close(label, got, want, atol):
     return err
 
 
+def bitwise_equal(a, b):
+    """Same shape and the same bits (floats compared as integers)."""
+    as_int = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(as_int), b.view(as_int))
+
+
+def grid_workload(rng, b, w, h, device, p_blocked=0.2):
+    """bench.py:154-159 from a numpy seed: free = uniform > p_blocked, both
+    corners free, the goal at (w-1, h-1) in every map."""
+    free = rng.uniform(size=(b, w, h)) > p_blocked
+    free[:, 0, 0] = free[:, -1, -1] = True
+    goals = np.zeros((b, w, h), bool)
+    goals[:, -1, -1] = True
+    return torch.from_numpy(free).to(device), torch.from_numpy(goals).to(device)
+
+
+def sweep_operands(free, goals, dtype, connectivity=8, corner_cutting=False):
+    """(initial field, bit plane, costs) as `relax_wavefront` builds them."""
+    motions = _motions(connectivity, SQRT2)
+    bits = incoming_bits(_incoming_masks(free, motions, corner_cutting)).contiguous()
+    d0 = torch.full(free.shape, sentinel(dtype), dtype=dtype, device=free.device)
+    d0.masked_fill_(goals & free, 0.0)
+    return d0, bits, tuple(c for _, _, c in motions)
+
+
+def check_sweeps_bitwise(label, free, goals, dtype, k=GRID_K):
+    """Drive the convergence loop with the kernel and hold every launch's
+    field and flags to the twin's from the same input, bitwise."""
+    d, bits, costs = sweep_operands(free, goals, dtype)
+    launches = 0
+    changed = True
+    while changed and launches * k < free.shape[-2] * free.shape[-1]:
+        got, flags = wavefront_sweeps(d, bits, k, costs)
+        want, want_flags = wavefront_sweeps_plain(d, bits, k, costs)
+        if not (bitwise_equal(got, want) and torch.equal(flags, want_flags)):
+            fail(f"{label}: launch {launches} differs from the twin "
+                 f"(max|diff| {max_err(got, want)!r})")
+        d, changed, launches = got, bool(flags.any()), launches + 1
+    reached = int((d < sentinel(dtype)).sum())
+    print(f"{label}: {launches} launches of {k} sweeps, every field and flag bitwise equal "
+          f"to the twin (max|diff| = 0.0); {reached} cells reached")
+    return 0.0
+
+
+def check_random_bits(label, rng, shape, dtype, ndirs, device, k=5):
+    """One launch on a random field and a random bit plane, every bit set
+    at random (off-map directions included), against the twin, bitwise:
+    the kernel must ignore what the twin's padded shift ignores."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    d = rng.uniform(0.0, 50.0, size=shape).astype(npdt)
+    d[rng.uniform(size=shape) < 0.5] = sentinel(dtype)
+    d[rng.uniform(size=shape) < 0.02] = 0.0
+    bits = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    d, bits = torch.from_numpy(d).to(device), torch.from_numpy(bits).to(device)
+    costs = (1.0,) * 4 + (SQRT2,) * (ndirs - 4)
+    got, flags = wavefront_sweeps(d, bits, k, costs)
+    want, want_flags = wavefront_sweeps_plain(d, bits, k, costs)
+    if not (bitwise_equal(got, want) and torch.equal(flags, want_flags)):
+        fail(f"{label}: differs from the twin (max|diff| {max_err(got, want)!r})")
+    print(f"{label}: bitwise equal to the twin")
+
+
+def check_costs_equal(label, device, free, goals, **kw):
+    """The public entry on cuda against the same entry on the CPU (the
+    twin), bitwise, with the same inf pattern."""
+    got = wavefront_costs_fused(free.to(device), goals.to(device), **kw).cpu()
+    want = wavefront_costs_fused(free.cpu(), goals.cpu(), **kw)
+    if not bitwise_equal(got, want):
+        fail(f"{label}: cuda and cpu fields differ")
+    print(f"{label}: bitwise equal to the twin, {int(torch.isinf(got).sum())} unreachable cells")
+
+
+def wavefront_bound(sweeps, cells, ndirs, dtype, peaks):
+    """(bound_ms, bound_by) for `sweeps` sweeps over `cells` cells: the
+    field in and out and the bit plane once, against the add/select/min
+    operations over the peak rate."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    by_bytes = cells * (2 * itemsize + 1) / peaks["bytes_per_s"] * 1e3
+    ops = sweeps * cells * ndirs * WAVEFRONT_OPS_PER_DIRECTION
+    by_ops = ops / peaks["flops"][dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def resample_inputs(rng, b, p, d, dtype, device):
+    """bench.py:190-196 from a numpy seed: weights uniform + 1e-6, one
+    uniform per row, normal states [B, D, P]."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    w = rng.uniform(size=(b, p)).astype(npdt) + npdt(1e-6)
+    u = rng.uniform(size=(b,)).astype(npdt)
+    s = rng.standard_normal((b, d, p), dtype=npdt)
+    return tuple(torch.from_numpy(a).to(device) for a in (w, u, s))
+
+
+def check_resample(label, args, exact_idx):
+    """Kernel against twin on the same inputs: neff at rtol 1e-5; the
+    kernel's states are the states at its own indices, bitwise; indices
+    equal (f64), or (f32) different in at most 1e-3 of the draws, and then
+    only across CDF boundaries within RESAMPLE_CDF_ATOL of the position.
+
+    The kernel's block scan sums in another order than torch.cumsum, so
+    where a position falls on a boundary the index moves by one; where
+    particles of weight below the CDF's rounding sit at that boundary, the
+    CDF is flat there and the index moves over them too (by two or more)."""
+    weights, u, states = args
+    got_s, got_i, got_n = systematic_resample_gather(*args)
+    want_s, want_i, want_n = systematic_resample_gather_plain(*args)
+    torch.cuda.synchronize()
+    own = torch.gather(states, 2, got_i.long()[:, None, :].expand_as(states))
+    if not bitwise_equal(got_s, own):
+        fail(f"{label}: states are not the states at the kernel's indices")
+    neff_err = float(((got_n - want_n).abs() / want_n.abs()).max())
+    if not neff_err <= 1e-5:
+        fail(f"{label}: neff rtol {neff_err!r} > 1e-5")
+    off = got_i != want_i
+    share = float(off.double().mean())
+    diff = (got_i.long() - want_i.long()).abs()
+    worst = int(diff.max())
+    if exact_idx and share > 0:
+        fail(f"{label}: {int(off.sum())} indices differ from the twin's")
+    if share > RESAMPLE_IDX_OFF_LIMIT:
+        fail(f"{label}: {share!r} of indices differ (limit {RESAMPLE_IDX_OFF_LIMIT})")
+    # the boundaries a differing index crosses: twin CDF entries lo..hi-1
+    p = weights.shape[1]
+    wn = weights / weights.sum(-1, keepdim=True)
+    cum = torch.cumsum(wn, -1)
+    cum = cum / cum[:, -1:]
+    pos = (torch.arange(p, dtype=weights.dtype, device=weights.device) + u[:, None]) / p
+    lo = torch.minimum(got_i, want_i).long()
+    hi = torch.maximum(got_i, want_i).long() - 1
+    gap = torch.maximum((cum.gather(1, lo) - pos).abs(), (cum.gather(1, hi.clamp(min=0)) - pos).abs())
+    gap = float(gap[off].max()) if bool(off.any()) else 0.0
+    if not gap <= RESAMPLE_CDF_ATOL:
+        fail(f"{label}: a differing index crosses a CDF boundary {gap!r} from its position "
+             f"(limit {RESAMPLE_CDF_ATOL})")
+    print(f"{label}: neff rtol {neff_err!r}; states = gather at own idx (bitwise); "
+          f"{int(off.sum())} of {off.numel()} indices differ ({share!r}): "
+          f"{int((diff == 1).sum())} by one, {int((diff > 1).sum())} by more (max {worst}); "
+          f"largest |CDF boundary - position| crossed {gap!r}")
+    return {"neff_rtol": neff_err, "max_abs_err": float((got_n - want_n).abs().max()),
+            "idx_differ_share": share, "idx_max_abs_diff": worst, "cdf_gap_crossed": gap}
+
+
+def resample_bound(b, p, d, dtype, peaks):
+    """(bound_ms, bound_by, bytes): weights, u and states read once; states,
+    idx and neff written once; against the per-particle operations."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = itemsize * (b * p + b + 2 * b * d * p + b) + 4 * b * p
+    ops = b * p * (RESAMPLE_OPS_PER_PARTICLE + math.log2(p))
+    by_bytes = nbytes / peaks["bytes_per_s"] * 1e3
+    by_ops = ops / peaks["flops"][dtype] * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")), nbytes
+
+
+def run_pf_fleet(b, p, steps, device, seed=SEED):
+    """bench_particle_filter's problem (demos/benchmarks.py:245-271) for a
+    fleet of b filters x p particles, f32: every filter tracks the same
+    truth, from zeros, with u = (1.0, 0.1), ranges to the four landmarks
+    plus 0.05·sin(l + 0.3k), and its own particle noise from one seeded
+    generator. Each step is predict -> range update ->
+    `resample_if_needed_fused` -> estimate. Returns (belief, estimate,
+    position error [b])."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    landmarks = torch.tensor(PF_LANDMARKS, dtype=torch.float64)
+    truth = torch.zeros(4, dtype=torch.float64)
+    u = torch.tensor(PF_U, dtype=torch.float32, device=device)
+    lm = landmarks.to(device=device, dtype=torch.float32)
+    belief = init_particles(gen, torch.zeros(b, 4, device=device), PF_SPREAD, p)
+    for k in range(steps):
+        truth = unicycle_propagate(truth, torch.tensor(PF_U, dtype=torch.float64), PF_DT)
+        z = torch.linalg.norm(landmarks - truth[:2], dim=-1) \
+            + 0.05 * torch.sin(torch.arange(4.0, dtype=torch.float64) + 0.3 * k)
+        z = z.to(device=device, dtype=torch.float32).expand(b, -1)
+        belief = pf_predict(belief, u, PF_DT, PF_CONTROL_NOISE, gen)
+        belief = pf_update_ranges(belief, z, lm, PF_RANGE_NOISE)
+        belief = resample_if_needed_fused(belief, gen)
+        estimate = pf_estimate(belief)
+    err = torch.linalg.norm(estimate.mean[:, :2].double() - truth[:2].to(device), dim=-1)
+    return belief, estimate, err, (u, z, lm, gen)
+
+
+def device_breakdown(label, fn, top=6):
+    """Where one call's time goes: its host-clock time, then under
+    torch.profiler the device's busy time, the span from its first to its
+    last device event, the idle share of that span, and the `top` device
+    consumers by self time."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - start) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        fail(f"{label}: the profiler saw no device events")
+    busy_ms = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    span_ms = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
+    print(f"{label}: host clock {host_ms!r} ms; under the profiler device busy {busy_ms!r} ms of "
+          f"a {span_ms!r} ms span ({1 - busy_ms / span_ms:.3f} idle), {len(events)} device events")
+    consumers = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
+    for e in consumers[:top]:
+        print(f"  {e.self_device_time_total / 1e3!r} ms in {e.count} x {e.key[:90]}")
+
+
 def numpy_demo_golden(steps=330, dt=0.1):
     """The reference demo semantics in plain numpy, f64
     (render_gif_ekf_localization.rs:35-76 + ekf.rs:248-278)."""
@@ -190,13 +478,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 4. build every kernel, one nvcc per source, all at once
-    kernels = {"ekf_scan": ekf_scan_lanes}
+    kernels = {
+        "ekf_scan": ekf_scan_lanes,
+        "wavefront_sweep": wavefront_sweeps,
+        "resample": systematic_resample_gather,
+    }
     start = time.perf_counter()
     per_source = _build.build(list(kernels))
     print(f"build: {time.perf_counter() - start!r} s wall; per source {per_source}")
     for kname in kernels:
         for line in _build.build_log(kname).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(word in line for word in ("entry function", "registers", "spill", "smem")):
                 print(f"ptxas {kname}: {line.strip()}")
 
     # 5. each kernel against its twin on the card
@@ -223,10 +515,9 @@ def main() -> int:
     mean, cov = ekf_scan_lanes(*args, DT, Q, R)
     torch.cuda.synchronize()
     launches = {kname: fn.launches for kname, fn in kernels.items()}
-    print(f"main path launches: {launches}")
-    for kname, count in launches.items():
-        if count < 1:
-            fail(f"kernel {kname} was not launched on the main path")
+    print(f"EKF main path launches: {launches}")
+    if launches["ekf_scan"] < 1:
+        fail("kernel ekf_scan was not launched on the EKF main path")
     if mean.shape != (4, B) or cov.shape != (16, B):
         fail(f"main path shapes {tuple(mean.shape)}, {tuple(cov.shape)}")
     if not (torch.isfinite(mean).all() and torch.isfinite(cov).all()):
@@ -274,7 +565,227 @@ def main() -> int:
     if not err <= 1e-9:
         fail(f"demo differs from the numpy golden by {err!r}")
 
-    # 9. the kernels line
+    # 9. the wavefront kernel (B2) against its twin, launch by launch, bitwise
+    grid_rng = np.random.default_rng(SEED + 1)
+    free, goals = grid_workload(grid_rng, GRID_B, GRID_W, GRID_H, device)
+    b2_err = check_sweeps_bitwise(
+        f"wavefront_sweep f32 B={GRID_B} {GRID_W}x{GRID_H} 8-connected", free, goals, torch.float32)
+    check_sweeps_bitwise(f"wavefront_sweep f64 B=4 {GRID_W}x{GRID_H} 8-connected",
+                         free[:4], goals[:4], torch.float64)
+    big_free, big_goals = grid_workload(grid_rng, 2, 512, 512, device)
+    if resident_fits(512, 512, torch.float32):
+        fail("a 512x512 map should take the tiled variant")
+    check_sweeps_bitwise("wavefront_sweep f32 B=2 512x512 tiled variant", big_free, big_goals,
+                         torch.float32)
+    check_sweeps_bitwise("wavefront_sweep f64 B=2 512x512 tiled variant", big_free, big_goals,
+                         torch.float64)
+    del big_free, big_goals
+    # 37x29 takes the resident kernel; 131x127 is just too large for it
+    for w, h in ((37, 29), (131, 127)):
+        variant = "resident" if resident_fits(w, h, torch.float32) else "tiled"
+        for ndirs in (4, 8):
+            for dtype in (torch.float32, torch.float64):
+                check_random_bits(f"wavefront_sweep {variant} {ndirs} directions {dtype} "
+                                  f"B=3 {w}x{h} random bit plane", grid_rng, (3, w, h), dtype,
+                                  ndirs, device)
+    small_free, small_goals = grid_workload(grid_rng, 3, 32, 32, "cpu", p_blocked=0.25)
+    check_costs_equal("wavefront_costs_fused 32x32 4-connected", device, small_free, small_goals,
+                      connectivity=4)
+    check_costs_equal("wavefront_costs_fused 32x32 corner cutting", device, small_free,
+                      small_goals, corner_cutting=True)
+    check_costs_equal("wavefront_costs_fused 32x32 unbatched", device, small_free[0],
+                      small_goals[0])
+    check_costs_equal("wavefront_costs_fused 32x32 f64", device, small_free, small_goals,
+                      dtype=torch.float64)
+
+    # 10. the grid main path at full width, counted
+    grid_launches = {}
+    for entry, call, k in (("wavefront_costs", wavefront_costs, 8),
+                           ("wavefront_costs_fused", wavefront_costs_fused, GRID_K)):
+        for fn in kernels.values():
+            fn.launches = 0
+        costs = call(free, goals)
+        torch.cuda.synchronize()
+        grid_launches[entry] = {kname: fn.launches for kname, fn in kernels.items()}
+        print(f"grid main path ({entry}, {k} sweeps per launch) launches: {grid_launches[entry]}")
+        if grid_launches[entry]["wavefront_sweep"] < 1:
+            fail(f"kernel wavefront_sweep was not launched by {entry}")
+        if costs.shape != (GRID_B, GRID_W, GRID_H) or torch.isnan(costs).any():
+            fail(f"{entry}: bad field of shape {tuple(costs.shape)}")
+        if entry == "wavefront_costs":
+            first = costs
+        elif not bitwise_equal(costs, first):
+            fail("wavefront_costs and wavefront_costs_fused reach different fixpoints")
+    finite = costs[torch.isfinite(costs)]
+    if not bool((costs[:, -1, -1] == 0).all()) or finite.numel() < costs.numel() // 2:
+        fail("the grid main path's fields do not spread from the goals")
+    sweeps_run = {entry: grid_launches[entry]["wavefront_sweep"] * k
+                  for entry, k in (("wavefront_costs", 8), ("wavefront_costs_fused", GRID_K))}
+    d0, bits, costs8 = sweep_operands(free, goals, torch.float32)
+    d, changed, sweeps_needed = d0, True, 0
+    while changed:  # one sweep per launch: how many sweeps these maps need
+        d, flags = wavefront_sweeps(d, bits, 1, costs8)
+        changed = bool(flags.any())
+        sweeps_needed += changed
+    bench_sweeps = max(int(float(finite.max()) / 1.0), 1)  # bench.py:166-167
+    cells = GRID_B * GRID_W * GRID_H
+    grid_kernel_ms = time_ms(lambda: wavefront_sweeps(d0, bits, GRID_K, costs8), reps=20, bursts=5)
+    grid_plain_ms = time_ms(lambda: wavefront_sweeps_plain(d0, bits, GRID_K, costs8),
+                            reps=2, bursts=3)
+    call_s = {}
+    for entry, call in (("wavefront_costs", wavefront_costs),
+                        ("wavefront_costs_fused", wavefront_costs_fused)):
+        best = math.inf
+        for _ in range(3):
+            start = time.perf_counter()
+            call(free, goals)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - start)
+        call_s[entry] = best
+    grid_bound_ms, grid_bound_by = wavefront_bound(GRID_K, cells, 8, torch.float32, peaks)
+    fixpoint_bound_ms, fixpoint_bound_by = wavefront_bound(sweeps_needed, cells, 8,
+                                                           torch.float32, peaks)
+    relaxed = {entry: cells * bench_sweeps / s for entry, s in call_s.items()}
+    print(
+        f"wavefront_sweep B={GRID_B} {GRID_W}x{GRID_H} f32 K={GRID_K} on {card}: kernel "
+        f"{grid_kernel_ms!r} ms per launch, twin {grid_plain_ms!r} ms, bound {grid_bound_ms!r} ms "
+        f"({grid_bound_by}; {WAVEFRONT_OPS_PER_DIRECTION} operations per direction at the "
+        f"f32 peak of {peaks['flops'][torch.float32]:.3g}/s), "
+        f"{grid_bound_ms / grid_kernel_ms:.4f} of the bound")
+    print(
+        f"grid main path: sweeps needed {sweeps_needed}, run {sweeps_run}; whole calls (host "
+        f"clock, flag reads included) {call_s} s; bound of the needed sweeps "
+        f"{fixpoint_bound_ms!r} ms ({fixpoint_bound_by}); cells relaxed/s as bench.py counts "
+        f"them ({bench_sweeps} sweeps): {relaxed}")
+    del d, d0, bits, costs, first, finite
+
+    walled = np.ones((64, 64), bool)  # demos/benchmarks.py:69-83
+    walled[20:44, 20] = False
+    walled[20, 20:50] = False
+    for connectivity in (4, 8):
+        plans = {}
+        for dev in ("cpu", device):
+            grid = grid_from_raster(~walled, resolution=1.0, device=dev)
+            plans[str(dev)] = plan_grid(grid, (2.0, 2.0), (60.0, 60.0),
+                                        connectivity=connectivity)
+        (path_c, cost_c), (path_g, cost_g) = plans["cpu"], plans[str(device)]
+        if not (bitwise_equal(path_g.points.cpu(), path_c.points)
+                and torch.equal(path_g.mask.cpu(), path_c.mask) and float(cost_g) == float(cost_c)):
+            fail(f"plan_grid {connectivity}-connected on cuda differs from the CPU")
+        print(f"plan_grid 64x64 walled map {connectivity}-connected on cuda: cost {float(cost_g)!r}, "
+              f"{int(path_g.mask.sum())} cells, equal to the CPU")
+
+    # 11. the resampling kernel (B3) against its twin
+    rs_rng = np.random.default_rng(SEED + 2)
+    b3 = {}
+    for key, (rb, rp) in (("saturated", RESAMPLE_SHAPES["saturated"]),
+                          ("tiled", RESAMPLE_SHAPES["tiled"])):
+        args = resample_inputs(rs_rng, rb, rp, RESAMPLE_D, torch.float32, device)
+        b3[key] = check_resample(f"resample f32 B={rb} P={rp} D={RESAMPLE_D}", args, False)
+    args = resample_inputs(rs_rng, RAGGED_B, 1024, RESAMPLE_D, torch.float64, device)
+    b3["f64"] = check_resample(f"resample f64 B={RAGGED_B} P=1024 D={RESAMPLE_D}", args, True)
+    for rp, hot in ((1024, 37), (4096, 777)):
+        w = torch.full((2, rp), 1e-12, device=device)
+        w[:, hot] = 1.0
+        states = torch.randn(2, 3, rp, device=device)
+        _, idx, neff = systematic_resample_gather(w, torch.tensor([0.25, 0.75], device=device),
+                                                  states)
+        if not (bool((idx == hot).all()) and bool((neff < 1.5).all())):
+            fail(f"resample P={rp}: all mass on particle {hot} did not send every draw there")
+    print("resample: all mass on one particle sends every draw there (P=1024, P=4096)")
+    try:
+        systematic_resample_gather(*resample_inputs(rs_rng, 2, 1280, 2, torch.float32, device))
+    except ValueError as exc:
+        print(f"resample P=1280 raises ValueError: {exc}")
+    else:
+        fail("resample at P=1280 did not raise ValueError")
+    del args, w, states
+
+    # 12. the particle-filter main path at full width, counted
+    pf_launches = {}
+    for fb, fp in PF_FLEETS:
+        for fn in kernels.values():
+            fn.launches = 0
+        start = time.perf_counter()
+        belief, estimate, err, step_args = run_pf_fleet(fb, fp, PF_STEPS, device)
+        torch.cuda.synchronize()
+        fleet_s = time.perf_counter() - start
+        pf_launches[fp] = {kname: fn.launches for kname, fn in kernels.items()}
+        print(f"PF main path B={fb} P={fp} launches: {pf_launches[fp]}")
+        if pf_launches[fp]["resample"] < 1:
+            fail(f"kernel resample was not launched on the PF main path (P={fp})")
+        if not (torch.isfinite(belief.states).all() and torch.isfinite(estimate.mean).all()
+                and torch.isfinite(estimate.cov).all()):
+            fail(f"PF main path P={fp} produced non-finite values")
+        median = float(err.median())
+        print(f"PF main path B={fb} P={fp}: {PF_STEPS} steps in {fleet_s!r} s host clock; median "
+              f"position error {median!r} (limit {PF_MEDIAN_ERROR_LIMIT}), max {float(err.max())!r}")
+        if not median <= PF_MEDIAN_ERROR_LIMIT:
+            fail(f"PF fleet median error {median!r} > {PF_MEDIAN_ERROR_LIMIT}")
+    u, z, lm, gen = step_args
+    for _ in range(3):
+        belief, estimate = pf_step(belief, u, z, lm, PF_DT, gen, PF_CONTROL_NOISE, PF_RANGE_NOISE)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(estimate.mean).all() and torch.isfinite(belief.weights).all()):
+        fail("pf_step on cuda produced non-finite values")
+    print(f"pf_step x3 at B={fb} P={fp} on cuda: finite")
+
+    b3_times = {}
+    for key, (rb, rp) in RESAMPLE_SHAPES.items():
+        args = resample_inputs(rs_rng, rb, rp, RESAMPLE_D, torch.float32, device)
+        kernel_t = time_ms(lambda: systematic_resample_gather(*args), reps=20, bursts=5)
+        plain_t = time_ms(lambda: systematic_resample_gather_plain(*args), reps=3, bursts=3)
+        (bound_t, bound_by_t), nbytes = resample_bound(rb, rp, RESAMPLE_D, torch.float32, peaks)
+        b3_times[key] = {"ms": kernel_t, "plain_ms": plain_t, "bound_ms": bound_t,
+                         "bound_by": bound_by_t, "bytes": nbytes,
+                         "particles_per_s": rb * rp / (kernel_t * 1e-3)}
+        note = " (moves ~10 MB, which sits in the 50 MB L2)" if key == "pinned" else ""
+        print(f"resample {key} B={rb} P={rp} D={RESAMPLE_D} f32 on {card}: kernel {kernel_t!r} ms, "
+              f"twin {plain_t!r} ms, bound {bound_t!r} ms ({bound_by_t}, {nbytes} bytes){note}, "
+              f"{b3_times[key]['particles_per_s']!r} particles/s, "
+              f"{bound_t / kernel_t:.4f} of the bound")
+        del args
+
+    # where the two new main paths spend their time; last, because the
+    # profiler slows the small kernels timed after it
+    device_breakdown("grid main path, one wavefront_costs_fused call",
+                     lambda: wavefront_costs_fused(free, goals))
+
+    def pf_main_step():
+        stepped = pf_predict(belief, u, PF_DT, PF_CONTROL_NOISE, gen)
+        stepped = pf_update_ranges(stepped, z, lm, PF_RANGE_NOISE)
+        pf_estimate(resample_if_needed_fused(stepped, gen))
+
+    device_breakdown(f"PF main path, one step at B={fb} P={fp}", pf_main_step)
+    del free, goals, belief, estimate, err, step_args, u, z, lm, gen
+
+    # 13. the kernels line
+    no_library = "none: no single PyTorch call computes it"
+    resample_entries = [{
+        "name": "resample",
+        "route": "cuda",
+        "source": "rust_robotics_tpu_torch/csrc/resample.cu",
+        "replaces": replaces,
+        "launches": pf_launches[rp]["resample"],
+        "max_abs_err": b3[key]["max_abs_err"],
+        "neff_rtol": b3[key]["neff_rtol"],
+        "idx_differ_share": b3[key]["idx_differ_share"],
+        "idx_max_abs_diff": b3[key]["idx_max_abs_diff"],
+        "cdf_gap_crossed": b3[key]["cdf_gap_crossed"],
+        "max_abs_err_f64": b3["f64"]["max_abs_err"],
+        "ms": b3_times[key]["ms"],
+        "plain_ms": b3_times[key]["plain_ms"],
+        "bound_ms": b3_times[key]["bound_ms"],
+        "bound_by": b3_times[key]["bound_by"],
+        "library_ms": None,
+        "library": f"{no_library} (the resampler is cumsum + searchsorted + gather)",
+        "shape": {"B": RESAMPLE_SHAPES[key][0], "P": rp, "D": RESAMPLE_D, "dtype": "float32"},
+        "particles_per_s": b3_times[key]["particles_per_s"],
+        "card": card,
+    } for key, rp, replaces in (
+        ("saturated", 1024, "rust_robotics_tpu/ops/resample_pallas.py:109"),
+        ("tiled", 4096, "rust_robotics_tpu/ops/resample_pallas.py:164"),
+    )]
     print(json.dumps({"kernels": [{
         "name": "ekf_scan",
         "route": "cuda",
@@ -289,12 +800,33 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "library": no_library,
         "shape": {"B": B, "T": T, "dtype": "float32"},
         "updates_per_s": updates,
         "card": card,
-    }]}))
+    }, {
+        "name": "wavefront_sweep",
+        "route": "cuda",
+        "source": "rust_robotics_tpu_torch/csrc/wavefront_sweep.cu",
+        "replaces": "rust_robotics_tpu/ops/wavefront_pallas.py:39",
+        "launches": sum(c["wavefront_sweep"] for c in grid_launches.values()),
+        "launches_per_call": {e: c["wavefront_sweep"] for e, c in grid_launches.items()},
+        "max_abs_err": b2_err,
+        "ms": grid_kernel_ms,
+        "plain_ms": grid_plain_ms,
+        "bound_ms": grid_bound_ms,
+        "bound_by": grid_bound_by,
+        "library_ms": None,
+        "library": f"{no_library} (a masked min-plus stencil)",
+        "shape": {"B": GRID_B, "W": GRID_W, "H": GRID_H, "K": GRID_K, "dtype": "float32"},
+        "sweeps_needed": sweeps_needed,
+        "sweeps_run": sweeps_run,
+        "call_s": call_s,
+        "cells_relaxed_per_s": relaxed,
+        "card": card,
+    }, *resample_entries]}))
 
-    # 10. the result
+    # 14. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,7 @@
 """Carry the JAX package's arrays across to the port's tensors.
 
-The EKF has no learned weights; the state that crosses is the belief and the
-noise model. Each function takes numpy arrays as the JAX side holds them
+The system has no learned weights; what crosses is state: a Gaussian belief
+and its noise model, a particle cloud, an occupancy grid. Each function takes numpy arrays as the JAX side holds them
 (`np.asarray` of a JAX array) and returns tensors on the given device
 (default `cuda`) and dtype. `belief_to_lanes`/`belief_from_lanes` switch a
 belief between the filter layout (mean [B, 4], cov [B, 4, 4]) and the scan
@@ -16,6 +16,8 @@ import torch
 
 from rust_robotics_tpu_torch._device import resolve_device
 from rust_robotics_tpu_torch.core.types import GaussianBelief
+from rust_robotics_tpu_torch.filters.particle import ParticleBelief
+from rust_robotics_tpu_torch.planning.grid import GridMap
 
 
 def to_tensor(array, device=None, dtype=torch.float32):
@@ -32,6 +34,19 @@ def noise_from_numpy(q, r, device=None, dtype=torch.float32):
     """Q and R, each dense or given by its diagonal, -> dense (q, r)."""
     q, r = (to_tensor(x, device, dtype) for x in (q, r))
     return tuple(torch.diag(x) if x.ndim == 1 else x for x in (q, r))
+
+
+def particles_from_numpy(states, weights, device=None, dtype=torch.float32) -> ParticleBelief:
+    """A JAX `ParticleBelief`'s states [..., P, n] and weights [..., P]."""
+    return ParticleBelief(to_tensor(states, device, dtype), to_tensor(weights, device, dtype))
+
+
+def grid_from_numpy(blocked, min_x, min_y, resolution, device=None,
+                    dtype=torch.float32) -> GridMap:
+    """A JAX `GridMap`'s blocked raster [W, H] and its geometry scalars."""
+    device = resolve_device(device)
+    return GridMap(torch.tensor(np.asarray(blocked), dtype=torch.bool, device=device),
+                   *(to_tensor(x, device, dtype) for x in (min_x, min_y, resolution)))
 
 
 def lanes_from_numpy(*arrays, device=None, dtype=torch.float32):

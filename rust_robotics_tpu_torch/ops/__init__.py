@@ -9,3 +9,14 @@ from rust_robotics_tpu_torch.ops.ekf_scan import (  # noqa: F401
     ekf_scan_plain,
     ekf_scan_reference,
 )
+from rust_robotics_tpu_torch.ops.wavefront_sweep import (  # noqa: F401
+    incoming_bits,
+    wavefront_costs_fused,
+    wavefront_sweeps,
+    wavefront_sweeps_plain,
+)
+from rust_robotics_tpu_torch.ops.resample import (  # noqa: F401
+    resample_reference,
+    systematic_resample_gather,
+    systematic_resample_gather_plain,
+)

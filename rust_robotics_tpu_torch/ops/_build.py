@@ -25,6 +25,10 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # registers, spills and shared memory, into the .log
 )
 
+# The shared memory one block may use on sm_90 (227 KB, after
+# cudaFuncSetAttribute), the build's one target: what a kernel may hold there.
+SHARED_BYTES_PER_BLOCK = 232448
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 

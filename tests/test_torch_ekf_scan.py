@@ -118,6 +118,7 @@ def test_wrapper_rejects_bad_inputs():
         ekf_scan.ekf_scan_lanes(*meta, DT, Q, R)
 
 
+@pytest.mark.cuda
 def test_kernel_matches_twin_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode (chip_smoke.py runs it)")

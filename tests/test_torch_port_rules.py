@@ -50,17 +50,34 @@ def test_rule_scan_sees_what_it_must():
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+    import numpy as np
+
     from rust_robotics_tpu_torch import convert
     from rust_robotics_tpu_torch.demos.ekf_localization import (
         default_ekf_noise,
         run_ekf_localization_demo,
     )
+    from rust_robotics_tpu_torch.planning import grid
 
-    if torch.cuda.is_available():
-        assert run_ekf_localization_demo(steps=3)["estimate"].is_cuda
-        return
-    for call in (lambda: run_ekf_localization_demo(steps=3), default_ekf_noise,
-                 lambda: convert.to_tensor([1.0, 2.0])):
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            call()
-    assert run_ekf_localization_demo(steps=3, device="cpu")["estimate"].device.type == "cpu"
+    blocked = np.eye(4, 3, dtype=bool)
+    ox, oy = np.array([0.0, 4.0, 4.0]), np.array([0.0, 0.0, 3.0])
+    states, weights = np.zeros((2, 8, 4)), np.full((2, 8), 1 / 8)
+    host_data_calls = {
+        "run_ekf_localization_demo": lambda **kw: run_ekf_localization_demo(steps=3, **kw)["estimate"],
+        "default_ekf_noise": lambda **kw: default_ekf_noise(**kw)[0],
+        "convert.to_tensor": lambda **kw: convert.to_tensor([1.0, 2.0], **kw),
+        "convert.grid_from_numpy": lambda **kw: convert.grid_from_numpy(blocked, 0.0, 0.0, 1.0,
+                                                                        **kw).blocked,
+        "convert.particles_from_numpy": lambda **kw: convert.particles_from_numpy(
+            states, weights, **kw).states,
+        "grid_from_raster": lambda **kw: grid.grid_from_raster(blocked, **kw).blocked,
+        "grid_from_obstacle_points": lambda **kw: grid.grid_from_obstacle_points(
+            ox, oy, 1.0, 0.5, **kw).blocked,
+    }
+    for name, call in host_data_calls.items():
+        if torch.cuda.is_available():
+            assert call().is_cuda, name
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        assert call(device="cpu").device.type == "cpu", name
