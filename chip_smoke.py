@@ -9,8 +9,9 @@ any failure exits non-zero before the final line.
  1. print the card's name and power limit (nvidia-smi);
  2. fail without CUDA;
  3. turn TF32 off for matmuls and cuDNN;
- 4. build the kernels (ekf_scan, wavefront_sweep, resample: one nvcc each,
-    all at once), print the build time and ptxas's resource report;
+ 4. build the kernels (ekf_scan, wavefront_sweep, resample, cholesky: one
+    nvcc each, all at once), print the build time and ptxas's resource
+    report;
  5. hold the EKF scan kernel (B1) against its plain-PyTorch twin on the card;
  6. the EKF main path at full width: bench.py's batched-EKF workload
     (B=131072 filters, T=200 steps, f32), rebuilt from a numpy seed,
@@ -35,11 +36,22 @@ any failure exits non-zero before the final line.
 12. the particle-filter main path at full width: a fleet of B=8192 filters
     x P=1024 particles (and B=2048 x P=4096) for 20 steps of predict,
     range update, `resample_if_needed_fused` and estimate, counted; then 3
-    plain `pf_step`s; then B3's times at bench.py's three shapes; last, a
-    torch.profiler breakdown of one grid call and one PF step (device busy
-    and idle share, top device consumers);
-13. one JSON line `{"kernels": [...]}`;
-14. the last line, `{"ok": true, "device": {...}}`.
+    plain `pf_step`s; then B3's times at bench.py's three shapes;
+13. the blocked Cholesky (B4/B5) against the f64 factor (numpy) and its
+    twin: f32 at n = 1200, 1280, 2560 and 4001, f64 at 1200; the f32
+    solve's residual; `cholesky_blocked_large` (B5's entry) on its own
+    path at n = 2560, counted; kernel, twin and `torch.linalg.cholesky`
+    times at n = 64 (one diagonal block), 1200 and 2560 beside the bound;
+14. the BA main path at full width: 200 cameras x 2000 points (~76k
+    observations) through `bundle_adjust` in f32 on cuda (Schur,
+    reduced_solver "auto", so the n = 1200 retained system goes to B4),
+    counted, its reprojection RMSE in f64 numpy; the same in f64 with
+    reduced_solver "pallas_chol" (B4) and "dense", which must agree; one LM
+    iteration's device time by phase; last, a torch.profiler breakdown of
+    one grid call, one PF step and one BA iteration (device busy and idle
+    share, top device consumers);
+15. one JSON line `{"kernels": [...]}`;
+16. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -65,8 +77,17 @@ from rust_robotics_tpu_torch.filters.particle import (
     pf_update_ranges,
     resample_if_needed_fused,
 )
+from rust_robotics_tpu_torch.core.lie import se3_exp
 from rust_robotics_tpu_torch.models.motion import unicycle_propagate
+from rust_robotics_tpu_torch.nlls import SolverConfig
+from rust_robotics_tpu_torch.nlls import solver as nlls_solver
 from rust_robotics_tpu_torch.ops import _build
+from rust_robotics_tpu_torch.ops.cholesky import (
+    cholesky_blocked,
+    cholesky_blocked_large,
+    cholesky_blocked_plain,
+    cholesky_solve_blocked,
+)
 from rust_robotics_tpu_torch.ops.ekf_scan import ekf_scan_lanes, ekf_scan_plain
 from rust_robotics_tpu_torch.ops.resample import (
     systematic_resample_gather,
@@ -87,6 +108,11 @@ from rust_robotics_tpu_torch.planning.wavefront import (
     _motions,
     plan_grid,
     wavefront_costs,
+)
+from rust_robotics_tpu_torch.slam.bundle_adjustment import (
+    CameraIntrinsics,
+    build_bundle_adjustment,
+    bundle_adjust,
 )
 
 SEED = 0
@@ -141,6 +167,40 @@ PF_FLEETS = ((2048, 4096), (8192, 1024))
 # 0.0096-0.0118 (P=1024) and 0.0096-0.0102 (P=4096); 0.03 is 2.5 times
 # the largest.
 PF_MEDIAN_ERROR_LIMIT = 0.03
+
+# B4/B5: SPD inputs m·mᵀ + n·I. 1200 is the BA's retained size (200 cameras
+# x 6), 1280 the JAX kernel's padded size for it, 2560 the size docs/PERF.md
+# measured the JAX B5 at, 4001 ragged.
+CHOL_SIZES_F32 = (1200, 1280, 2560, 4001)
+CHOL_SIZE_F64 = 1200
+# 64 is one diagonal block (its serial column factor, no panel rows, no
+# update); 1200 and 2560 as above
+CHOL_TIMED = (64, 1200, 2560)
+CHOL_REL_F32 = 5e-5  # |L - L64| / max|L64| (tests/test_cholesky_pallas.py:100)
+# kernel against twin, both f32: each is within CHOL_REL_F32 of the f64
+# factor, so they are within twice that of each other
+CHOL_TWIN_REL_F32 = 2 * CHOL_REL_F32
+CHOL_ATOL_F64_PER_N = 1e-10  # tests/test_cholesky_pallas.py:22
+# ‖a·x − b‖ / ‖b‖ of the f32 solve: a = m·mᵀ + n·I has condition number
+# at most ~5 (the eigenvalues of m·mᵀ lie below ~4n), and a Cholesky solve's
+# backward error is of order n·u (u = 2^-24) times that: ~3.6e-4 at
+# n = 1200; the limit is that bound, rounded up.
+CHOL_SOLVE_REL_F32 = 5e-4
+
+# The BA main path at full width: 200 keyframes x 2000 landmarks, the size
+# of a visual-SLAM map's loop-closure refinement. Cameras 0.1 m apart along
+# x, looking along +z at points 5-9 m away; camera i sees point p when
+# |0.1·i − x_p| <= 2 (about 40 cameras per point).
+BA_CAMERAS, BA_POINTS, BA_WINDOW = 200, 2000, 2.0
+BA_INTRINSICS = (400.0, 400.0, 320.0, 240.0)  # as the JAX tests use
+BA_FIXED = 2  # fixes scale as well as pose (tests/test_vio_gradients.py:90)
+BA_ITERATIONS = 20
+BA_CAMERA_NOISE, BA_POINT_NOISE = 0.01, 0.05
+# f32 final reprojection RMSE limit in px: ten times the f32 floor of ~1e-4 px
+# at pixel coordinates ~300 (300 * 2^-24 = 2e-5 px per coordinate and
+# evaluation, a few times that after the solve)
+BA_RMSE_LIMIT_F32 = 1e-3
+BA_F64_ATOL = 1e-8  # pallas_chol against dense, cameras and points
 
 
 def fail(msg: str):
@@ -456,6 +516,166 @@ def numpy_demo_golden(steps=330, dt=0.1):
     return np.array(est)
 
 
+def spd(rng, n, dtype):
+    """m·mᵀ + n·I from a numpy seed, computed in f64, cast to dtype."""
+    m = rng.standard_normal((n, n))
+    a = m @ m.T + n * np.eye(n)
+    return a.astype(np.float32 if dtype == torch.float32 else np.float64)
+
+
+def cholesky_bound(n, dtype, peaks):
+    """(bound_ms, bound_by): n³/3 operations at the peak rate against the
+    matrix read once and the factor written once (2·n²·itemsize bytes)."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    by_ops = n**3 / 3 / peaks["flops"][dtype] * 1e3
+    by_bytes = 2 * n * n * itemsize / peaks["bytes_per_s"] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_cholesky(label, a_np, device):
+    """The kernel (through `cholesky_blocked`) against the f64 factor and
+    against the twin on the card; returns {rel_f64, max_abs_err, ...}."""
+    a = torch.from_numpy(a_np).to(device)
+    got = cholesky_blocked(a)
+    want = cholesky_blocked_plain(a)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and got.shape == a.shape):
+        fail(f"{label}: non-finite factor or shape {tuple(got.shape)}")
+    upper = float(torch.triu(got, 1).abs().max())
+    if upper != 0.0:
+        fail(f"{label}: strict upper triangle not zero (max {upper!r})")
+    ref = np.linalg.cholesky(a_np.astype(np.float64))
+    scale = float(np.abs(ref).max())
+    rel64 = float(np.abs(got.double().cpu().numpy() - ref).max()) / scale
+    err = max_err(got, want)
+    out = {"rel_f64": rel64, "max_abs_err": err, "twin_rel": err / scale}
+    if a.dtype == torch.float32:
+        if not (rel64 <= CHOL_REL_F32 and err / scale <= CHOL_TWIN_REL_F32):
+            fail(f"{label}: rel err {rel64!r} to the f64 factor (limit {CHOL_REL_F32}) or "
+                 f"{err / scale!r} to the twin (limit {CHOL_TWIN_REL_F32})")
+    elif not err <= CHOL_ATOL_F64_PER_N * a.shape[0]:
+        fail(f"{label}: max|kernel - twin| {err!r} > {CHOL_ATOL_F64_PER_N * a.shape[0]!r}")
+    print(f"{label}: upper triangle 0; rel err to the f64 factor {rel64!r}; "
+          f"max|kernel - twin| {err!r} ({err / scale!r} relative)")
+    return out
+
+
+def ba_problem(cameras, points, seed=SEED):
+    """The BA main path's problem from numpy seeds: world-from-camera
+    tangents ξ_i = [0.1·i, 0.05·sin(0.3·i), 0, 0.02·sin(0.05·i),
+    0.02·cos(0.07·i), 0.01·sin(0.11·i)] ([ρ, φ]); points uniform on
+    x ∈ [−1, 0.1·(C−1) + 1.1], y ∈ [−2, 2], z ∈ [5, 9]; camera i sees point
+    p when |0.1·i − x_p| <= BA_WINDOW; exact f64 pixels. Initial state:
+    tangents + 0.01·N(0, 1) (the BA_FIXED fixed cameras exact) and points
+    + 0.05·N(0, 1). Returns (truth cameras [C, 4, 4], truth points,
+    initial tangents, initial points, cam_idx, pt_idx, pixels)."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(cameras, dtype=np.float64)
+    tangents = np.stack([0.1 * i, 0.05 * np.sin(0.3 * i), 0 * i, 0.02 * np.sin(0.05 * i),
+                         0.02 * np.cos(0.07 * i), 0.01 * np.sin(0.11 * i)], -1)
+    cams = se3_exp(torch.from_numpy(tangents)).numpy()
+    pts = np.stack([rng.uniform(-1.0, 0.1 * (cameras - 1) + 1.1, points),
+                    rng.uniform(-2.0, 2.0, points), rng.uniform(5.0, 9.0, points)], -1)
+    seen = np.abs(0.1 * i[:, None] - pts[None, :, 0]) <= BA_WINDOW
+    cam_idx, pt_idx = np.nonzero(seen)
+    pixels = ba_project(cams, pts, cam_idx, pt_idx)
+    t0 = tangents + BA_CAMERA_NOISE * rng.standard_normal(tangents.shape)
+    t0[:BA_FIXED] = tangents[:BA_FIXED]
+    p0 = pts + BA_POINT_NOISE * rng.standard_normal(pts.shape)
+    return cams, pts, t0, p0, cam_idx, pt_idx, pixels
+
+
+def ba_project(cams, pts, cam_idx, pt_idx):
+    """Pinhole projections in f64 numpy (bundle_adjustment.rs:21-31)."""
+    fx, fy, cx, cy = BA_INTRINSICS
+    inv = np.linalg.inv(cams)[cam_idx]
+    pc = np.einsum("oij,oj->oi", inv[:, :3, :3], pts[pt_idx]) + inv[:, :3, 3]
+    return np.stack([fx * pc[:, 0] / pc[:, 2] + cx, fy * pc[:, 1] / pc[:, 2] + cy], -1)
+
+
+def ba_rmse(cams, pts, cam_idx, pt_idx, pixels):
+    """Reprojection RMSE in px, in f64 numpy."""
+    err = ba_project(np.asarray(cams, np.float64), np.asarray(pts, np.float64), cam_idx,
+                     pt_idx) - pixels
+    return float(np.sqrt(np.mean(np.sum(err**2, -1))))
+
+
+def ba_config(reduced_solver):
+    return SolverConfig(linear_solver="schur", max_iterations=BA_ITERATIONS,
+                        reduced_solver=reduced_solver)
+
+
+def run_ba(problem, device, dtype, reduced_solver):
+    """bundle_adjust on the problem's initial state; returns (cameras,
+    points, summary, host seconds)."""
+    _, _, t0, p0, cam_idx, pt_idx, pixels = problem
+    start = time.perf_counter()
+    cams, pts, summary = bundle_adjust(t0, p0, cam_idx, pt_idx, pixels,
+                                       CameraIntrinsics(*BA_INTRINSICS), fixed_cameras=BA_FIXED,
+                                       config=ba_config(reduced_solver), device=device,
+                                       dtype=dtype)
+    torch.cuda.synchronize()
+    return cams, pts, summary, time.perf_counter() - start
+
+
+def ba_iteration_phases(problem, device, damping=1e-3):
+    """One LM iteration of the f32 BA, phase by phase, as `solve` runs it
+    under reduced_solver="auto": linearize, the Schur products, B4, the two
+    triangular solves, then back-substitution, retraction and trial cost.
+    Returns ({phase: callable}, state): each phase runs on the outputs of
+    the one before, which `state` holds."""
+    _, _, t0, p0, cam_idx, pt_idx, pixels = problem
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+    prob = build_bundle_adjustment(t(t0), t(p0), t(cam_idx, torch.int64),
+                                   t(pt_idx, torch.int64), t(pixels),
+                                   CameraIntrinsics(*BA_INTRINSICS), fixed_cameras=BA_FIXED)
+    _, total = prob.layout()
+    elim = prob.groups[-1]
+    dr = total - elim.num * elim.tdim
+    state = {}
+
+    def linearize():
+        state["h"], state["grad"], _, _ = nlls_solver._linearize_dense(
+            prob, prob.values(), torch.float32)
+
+    def schur():
+        state["s"], state["rhs"], state["back"] = nlls_solver._schur_system(
+            state["h"], state["grad"], damping, True, dr, (elim.num, elim.tdim))
+
+    def factor():
+        state["l"] = cholesky_blocked(state["s"])
+
+    def triangular():
+        y = torch.linalg.solve_triangular(state["l"], state["rhs"][:, None], upper=False)
+        state["dx_r"] = torch.linalg.solve_triangular(state["l"].mT, y, upper=True)[:, 0]
+
+    def rest():
+        delta = torch.cat([state["dx_r"], state["back"](state["dx_r"])])
+        trial = nlls_solver._apply_increment(prob, prob.values(), delta)
+        state["cost"] = nlls_solver.problem_cost(prob, trial)
+
+    return {"linearize": linearize, "schur products": schur, "B4 factor": factor,
+            "triangular solves": triangular, "back-substitution + trial cost": rest}, state
+
+
+def phase_times(phases, bursts=3):
+    """Device time of each phase (CUDA events around it, phases run in
+    order), the minimum over `bursts` passes after one warm-up pass."""
+    best = {name: math.inf for name in phases}
+    for burst in range(bursts + 1):
+        for name, fn in phases.items():
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if burst:
+                best[name] = min(best[name], start.elapsed_time(end))
+    return best
+
+
 def main() -> int:
     # 1. the card
     smi = subprocess.run(
@@ -482,7 +702,9 @@ def main() -> int:
         "ekf_scan": ekf_scan_lanes,
         "wavefront_sweep": wavefront_sweeps,
         "resample": systematic_resample_gather,
+        "cholesky": cholesky_blocked,
     }
+    counted = (*kernels.values(), cholesky_blocked_large)
     start = time.perf_counter()
     per_source = _build.build(list(kernels))
     print(f"build: {time.perf_counter() - start!r} s wall; per source {per_source}")
@@ -510,7 +732,7 @@ def main() -> int:
     del got, want
 
     # 6. the main path at full width, counted
-    for fn in kernels.values():
+    for fn in counted:
         fn.launches = 0
     mean, cov = ekf_scan_lanes(*args, DT, Q, R)
     torch.cuda.synchronize()
@@ -602,7 +824,7 @@ def main() -> int:
     grid_launches = {}
     for entry, call, k in (("wavefront_costs", wavefront_costs, 8),
                            ("wavefront_costs_fused", wavefront_costs_fused, GRID_K)):
-        for fn in kernels.values():
+        for fn in counted:
             fn.launches = 0
         costs = call(free, goals)
         torch.cuda.synchronize()
@@ -704,7 +926,7 @@ def main() -> int:
     # 12. the particle-filter main path at full width, counted
     pf_launches = {}
     for fb, fp in PF_FLEETS:
-        for fn in kernels.values():
+        for fn in counted:
             fn.launches = 0
         start = time.perf_counter()
         belief, estimate, err, step_args = run_pf_fleet(fb, fp, PF_STEPS, device)
@@ -746,6 +968,103 @@ def main() -> int:
               f"{bound_t / kernel_t:.4f} of the bound")
         del args
 
+    # 13. the blocked Cholesky (B4/B5) against the f64 factor and its twin
+    chol_rng = np.random.default_rng(SEED + 3)
+    b4 = {}
+    for n in CHOL_SIZES_F32:
+        b4[n] = check_cholesky(f"cholesky f32 n={n}", spd(chol_rng, n, torch.float32), device)
+    b4_f64 = check_cholesky(f"cholesky f64 n={CHOL_SIZE_F64}",
+                            spd(chol_rng, CHOL_SIZE_F64, torch.float64), device)
+    a_np = spd(chol_rng, CHOL_SIZE_F64, torch.float32)
+    a = torch.from_numpy(a_np).to(device)
+    rhs = torch.from_numpy(chol_rng.standard_normal(CHOL_SIZE_F64).astype(np.float32)).to(device)
+    x = cholesky_solve_blocked(a, rhs)
+    solve_rel = float(torch.linalg.norm(a.double() @ x.double() - rhs.double())
+                      / torch.linalg.norm(rhs.double()))
+    print(f"cholesky_solve_blocked f32 n={CHOL_SIZE_F64}: |a x - b| / |b| = {solve_rel!r} "
+          f"(limit {CHOL_SOLVE_REL_F32})")
+    if not solve_rel <= CHOL_SOLVE_REL_F32:
+        fail(f"cholesky_solve_blocked residual {solve_rel!r} > {CHOL_SOLVE_REL_F32}")
+
+    # B5's entry, on its own path (the JAX package's main path never calls
+    # it; it runs B4's kernels), at the size docs/PERF.md measured for B5
+    for fn in counted:
+        fn.launches = 0
+    big = torch.from_numpy(spd(chol_rng, 2560, torch.float32)).to(device)
+    big_l = cholesky_blocked_large(big)
+    torch.cuda.synchronize()
+    b5_launches = cholesky_blocked_large.launches
+    print(f"cholesky_blocked_large path n=2560 launches: "
+          f"{ {f.__name__: f.launches for f in counted} }")
+    if b5_launches < 1 or not bool(torch.isfinite(big_l).all()):
+        fail("cholesky_blocked_large did not launch its kernels or gave non-finite values")
+    del big, big_l
+
+    chol_times = {}
+    for n in CHOL_TIMED:
+        a = torch.from_numpy(spd(chol_rng, n, torch.float32)).to(device)
+        kernel_t = time_ms(lambda: cholesky_blocked(a), reps=10, bursts=5)
+        plain_t = time_ms(lambda: cholesky_blocked_plain(a), reps=1, bursts=2 if n > 64 else 5)
+        library_t = time_ms(lambda: torch.linalg.cholesky(a), reps=10, bursts=5)
+        bound_t, bound_by_t = cholesky_bound(n, torch.float32, peaks)
+        chol_times[n] = {"ms": kernel_t, "plain_ms": plain_t, "library_ms": library_t,
+                         "bound_ms": bound_t, "bound_by": bound_by_t}
+        print(f"cholesky f32 n={n} on {card}: kernel {kernel_t!r} ms, twin {plain_t!r} ms, "
+              f"torch.linalg.cholesky {library_t!r} ms, bound {bound_t!r} ms ({bound_by_t}), "
+              f"{bound_t / kernel_t:.4f} of the bound")
+    del a, rhs, x
+
+    # 14. the BA main path at full width, counted: 200 cameras x 2000 points
+    # in f32 on cuda, Schur with reduced_solver="auto" (n = 1200 -> B4)
+    problem = ba_problem(BA_CAMERAS, BA_POINTS)
+    truth_cams, truth_pts, t0, p0, cam_idx, pt_idx, pixels = problem
+    rmse0 = ba_rmse(se3_exp(torch.from_numpy(t0)).numpy(), p0, cam_idx, pt_idx, pixels)
+    print(f"BA problem: {BA_CAMERAS} cameras, {BA_POINTS} points, {len(cam_idx)} observations "
+          f"({len(cam_idx) / BA_POINTS:.1f} per point), retained system n = "
+          f"{6 * BA_CAMERAS}, dense H {6 * BA_CAMERAS + 3 * BA_POINTS}^2; initial RMSE "
+          f"{rmse0!r} px")
+    for fn in counted:
+        fn.launches = 0
+    cams, pts, summary, ba_s = run_ba(problem, device, torch.float32, "auto")
+    ba_launches = {f.__name__: f.launches for f in counted}
+    print(f"BA main path launches: {ba_launches}; {summary}")
+    if ba_launches["cholesky_blocked"] < max(summary.linear_iterations, 1):
+        fail(f"B4 launched {ba_launches['cholesky_blocked']} times for "
+             f"{summary.linear_iterations} linear solves")
+    if not (torch.isfinite(cams).all() and torch.isfinite(pts).all()):
+        fail("the BA main path produced non-finite values")
+    rmse = ba_rmse(cams.cpu().numpy(), pts.cpu().numpy(), cam_idx, pt_idx, pixels)
+    print(f"BA f32 on cuda: reprojection RMSE {rmse0!r} -> {rmse!r} px (limit "
+          f"{BA_RMSE_LIMIT_F32}); first solve {ba_s!r} s host clock (first use of its kernels "
+          f"included)")
+    if not rmse <= BA_RMSE_LIMIT_F32:
+        fail(f"BA f32 RMSE {rmse!r} > {BA_RMSE_LIMIT_F32}")
+    _, _, warm, ba_warm_s = run_ba(problem, device, torch.float32, "auto")
+    print(f"BA f32 on cuda, again: {warm.iterations} LM iterations in {ba_warm_s!r} s host clock "
+          f"({ba_warm_s / max(warm.iterations, 1)!r} s each)")
+
+    ba64 = {}
+    for reduced in ("pallas_chol", "dense"):
+        for fn in counted:
+            fn.launches = 0
+        c64, p64, s64, s64_s = run_ba(problem, device, torch.float64, reduced)
+        ba64[reduced] = (c64.cpu().numpy(), p64.cpu().numpy(), s64)
+        print(f"BA f64 on cuda reduced_solver={reduced}: {s64}; {s64_s!r} s; B4 launches "
+              f"{cholesky_blocked.launches}; RMSE "
+              f"{ba_rmse(ba64[reduced][0], ba64[reduced][1], cam_idx, pt_idx, pixels)!r} px")
+    (ck, pk, sk), (cd, pd, sd) = ba64["pallas_chol"], ba64["dense"]
+    ba64_err = max(float(np.abs(ck - cd).max()), float(np.abs(pk - pd).max()))
+    if (sk.termination, sk.iterations) != (sd.termination, sd.iterations) \
+            or not ba64_err <= BA_F64_ATOL:
+        fail(f"BA f64: pallas_chol {sk} against dense {sd}, max|diff| {ba64_err!r}")
+    print(f"BA f64: pallas_chol and dense agree (same termination and iterations, "
+          f"max|diff| {ba64_err!r}, atol {BA_F64_ATOL})")
+
+    phases, ba_state = ba_iteration_phases(problem, device)
+    ba_phase_ms = phase_times(phases)
+    print(f"BA one LM iteration f32 on {card}, device ms by phase: {ba_phase_ms}; "
+          f"sum {sum(ba_phase_ms.values())!r} ms")
+
     # where the two new main paths spend their time; last, because the
     # profiler slows the small kernels timed after it
     device_breakdown("grid main path, one wavefront_costs_fused call",
@@ -758,8 +1077,12 @@ def main() -> int:
 
     device_breakdown(f"PF main path, one step at B={fb} P={fp}", pf_main_step)
     del free, goals, belief, estimate, err, step_args, u, z, lm, gen
+    device_breakdown("BA main path, one LM iteration (f32, n = 1200 retained)",
+                     lambda: [fn() for fn in phases.values()])
+    device_breakdown("B4, one factorisation of the BA's retained system (n = 1200, f32)",
+                     lambda: cholesky_blocked(ba_state["s"]))
 
-    # 13. the kernels line
+    # 15. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -785,6 +1108,33 @@ def main() -> int:
     } for key, rp, replaces in (
         ("saturated", 1024, "rust_robotics_tpu/ops/resample_pallas.py:109"),
         ("tiled", 4096, "rust_robotics_tpu/ops/resample_pallas.py:164"),
+    )]
+    cholesky_entries = [{
+        "name": name,
+        "route": "cuda",
+        "source": "rust_robotics_tpu_torch/csrc/cholesky.cu",
+        "replaces": replaces,
+        "launches": launches_n,
+        "path": path,
+        "max_abs_err": b4[n]["max_abs_err"],
+        "rel_err_to_f64_factor": b4[n]["rel_f64"],
+        "max_abs_err_f64": b4_f64["max_abs_err"],
+        "ms": chol_times[n]["ms"],
+        "plain_ms": chol_times[n]["plain_ms"],
+        "bound_ms": chol_times[n]["bound_ms"],
+        "bound_by": chol_times[n]["bound_by"],
+        "library_ms": chol_times[n]["library_ms"],
+        "library": "torch.linalg.cholesky",
+        "times": chol_times,
+        "shape": {"n": n, "dtype": "float32"},
+        "card": card,
+    } for name, replaces, n, launches_n, path in (
+        ("cholesky_blocked", "rust_robotics_tpu/ops/cholesky_pallas.py:110", 1200,
+         ba_launches["cholesky_blocked"],
+         f"bundle_adjust, {BA_CAMERAS} cameras x {BA_POINTS} points, f32, "
+         f"{summary.linear_iterations} linear solves"),
+        ("cholesky_blocked_large", "rust_robotics_tpu/ops/cholesky_pallas.py:200", 2560,
+         b5_launches, "cholesky_blocked_large at n=2560 (the same kernels as B4)"),
     )]
     print(json.dumps({"kernels": [{
         "name": "ekf_scan",
@@ -824,9 +1174,9 @@ def main() -> int:
         "call_s": call_s,
         "cells_relaxed_per_s": relaxed,
         "card": card,
-    }, *resample_entries]}))
+    }, *resample_entries, *cholesky_entries]}))
 
-    # 14. the result
+    # 16. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,8 @@
 """rust_robotics_tpu_torch — the PyTorch / CUDA port of rust_robotics_tpu.
 
 The JAX package `rust_robotics_tpu` is the reference; this package mirrors
-its layout (`core/`, `models/`, `ops/`, `filters/`, `demos/`) with the same
+its layout (`core/`, `models/`, `ops/`, `filters/`, `planning/`, `nlls/`,
+`slam/`, `demos/`) with the same
 module and function names, so each function has an obvious counterpart.
 
 Idiom: the JAX pytree dataclasses become frozen dataclasses of tensors with

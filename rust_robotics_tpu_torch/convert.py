@@ -1,7 +1,8 @@
 """Carry the JAX package's arrays across to the port's tensors.
 
 The system has no learned weights; what crosses is state: a Gaussian belief
-and its noise model, a particle cloud, an occupancy grid. Each function takes numpy arrays as the JAX side holds them
+and its noise model, a particle cloud, an occupancy grid, a bundle-adjustment
+or pose-graph problem. Each function takes numpy arrays as the JAX side holds them
 (`np.asarray` of a JAX array) and returns tensors on the given device
 (default `cuda`) and dtype. `belief_to_lanes`/`belief_from_lanes` switch a
 belief between the filter layout (mean [B, 4], cov [B, 4, 4]) and the scan
@@ -21,7 +22,9 @@ from rust_robotics_tpu_torch.planning.grid import GridMap
 
 
 def to_tensor(array, device=None, dtype=torch.float32):
-    """One numpy array -> a tensor on `device` in `dtype`."""
+    """One numpy array (or tensor) -> a tensor on `device` in `dtype`."""
+    if isinstance(array, torch.Tensor):
+        return array.to(device=resolve_device(device), dtype=dtype)
     return torch.tensor(np.asarray(array), dtype=dtype, device=resolve_device(device))
 
 
@@ -47,6 +50,29 @@ def grid_from_numpy(blocked, min_x, min_y, resolution, device=None,
     device = resolve_device(device)
     return GridMap(torch.tensor(np.asarray(blocked), dtype=torch.bool, device=device),
                    *(to_tensor(x, device, dtype) for x in (min_x, min_y, resolution)))
+
+
+def bundle_from_numpy(cameras, points, cam_idx, pt_idx, pixels, device=None,
+                      dtype=torch.float32):
+    """A JAX bundle-adjustment problem's arrays: cameras [C, 4, 4] (or [C, 6]
+    tangents), points [P, 3], observation indices [O] and pixels [O, 2] ->
+    (cameras, points, cam_idx, pt_idx, pixels), the indices as int64."""
+    device = resolve_device(device)
+    return (to_tensor(cameras, device, dtype), to_tensor(points, device, dtype),
+            to_tensor(cam_idx, device, torch.int64), to_tensor(pt_idx, device, torch.int64),
+            to_tensor(pixels, device, dtype))
+
+
+def pose_graph_from_numpy(poses, edges_from, edges_to, measurements, information=None,
+                          device=None, dtype=torch.float32):
+    """A JAX pose graph's arrays: poses [N, 3], edge endpoints [E],
+    measurements [E, 3] and optional information [E, 3, 3] -> (poses,
+    edges_from, edges_to, measurements, information or None), the indices
+    as int64."""
+    device = resolve_device(device)
+    return (to_tensor(poses, device, dtype), to_tensor(edges_from, device, torch.int64),
+            to_tensor(edges_to, device, torch.int64), to_tensor(measurements, device, dtype),
+            None if information is None else to_tensor(information, device, dtype))
 
 
 def lanes_from_numpy(*arrays, device=None, dtype=torch.float32):

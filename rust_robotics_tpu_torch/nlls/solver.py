@@ -1,0 +1,483 @@
+"""Gauss-Newton / Levenberg-Marquardt solver over factor blocks.
+
+The port of rust_robotics_tpu/nlls/solver.py (reference:
+rust_robotics_optimization/src/solver.rs — the LM loop with trial-step
+accept/reject and the ×0.3/×10 damping schedule (:81-188), linearisation
+into a block Hessian with robust IRLS weights (:216-258), scaled LM damping
+diag += λ·max(|d|, 1) (sparse.rs:34-42), cost = Σ ½ρ(rᵀΛr) (:274); linear
+solvers dense (sparse.rs:52), block-Jacobi PCG (sparse.rs:115) and Schur
+elimination of the trailing group (sparse.rs:160)).
+
+- Linearisation is one `torch.func.vmap` over a block's factors of a
+  Jacobian through the groups' retractions at δ=0: J_k = ∂r/∂δ_k,
+  [F, rdim, tdim_k]. It is taken in reverse mode (`torch.func.jacrev`),
+  where the JAX package takes `jax.jacfwd`: the derivative is the same, but
+  PyTorch's forward mode promotes the tangent of a 0-d float32 tensor
+  combined with a Python scalar (`x * 0.5`, `x + 1.0`) to float64, and the
+  next matmul of a float32 residual then fails; reverse mode keeps float32.
+  For BA it also costs rdim = 2 passes instead of tdim = 9.
+- Assembly scatters into a dense [D, D] Hessian with
+  `index_put_(accumulate=True)`. On CUDA it adds in another order than on
+  the CPU, so f32 results differ from the CPU's in the last bits.
+- `matfree_pcg` never builds H: H·v streams over the cached factor
+  Jacobians; the preconditioner is batched [N, t, t] inverses.
+- Schur eliminates the LAST group, whose diagonal blocks are independent
+  (the BA landmarks): batched [N, t, t] inverses and two dense products
+  (full FP32: TF32 is never turned on here), then the retained system goes
+  to `_reduced_solve`, which routes to the blocked-Cholesky kernel
+  (`ops/cholesky.py`, kernel B4) as the JAX package routes to its Pallas
+  kernel.
+- The LM loop runs on the host, with the reference's termination
+  semantics; each PCG `while_loop` is a Python loop with the same test.
+
+`solve_device` (the fully device-resident LM) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from rust_robotics_tpu_torch.nlls.problem import FactorBlock, Problem
+from rust_robotics_tpu_torch.ops.cholesky import cholesky_solve_blocked
+from rust_robotics_tpu_torch.ops.smallmat import inv_spd_small
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """solver.rs:34-56 defaults."""
+
+    method: str = "lm"  # "gn" | "lm"
+    max_iterations: int = 50
+    gradient_tolerance: float = 1e-10
+    step_tolerance: float = 1e-10
+    cost_tolerance: float = 1e-12
+    initial_damping: float = 1e-3
+    linear_solver: str = "dense"  # "dense" | "pcg" | "matfree_pcg" | "schur"
+    pcg_max_iterations: int = 200
+    pcg_tolerance: float = 1e-10
+    # The retained (camera) system of the Schur path. "pallas_chol" keeps
+    # the JAX package's name so that configurations carry across; here it
+    # means the port's blocked Cholesky, `ops.cholesky.cholesky_solve_blocked`
+    # (kernel B4 on a CUDA tensor, its plain twin on a CPU tensor). "auto"
+    # takes that kernel for a CUDA float32 system of n >= 1024, as the JAX
+    # package takes its Pallas kernel on a TPU; "dense" (and "auto"
+    # otherwise) is `torch.linalg.solve`.
+    reduced_solver: str = "auto"  # "auto" | "pallas_chol" | "dense"
+
+
+@dataclasses.dataclass
+class SolverSummary:
+    initial_cost: float
+    final_cost: float
+    iterations: int
+    accepted_steps: int
+    termination: str
+    linear_iterations: int
+
+
+def _gather(block: FactorBlock, values, k):
+    return values[block.indices[:, k].long()]
+
+
+def _block_eval(block: FactorBlock, group_values: dict):
+    """Residuals [F, rdim] for one factor block."""
+    vals = [_gather(block, group_values[g], k) for k, g in enumerate(block.groups)]
+    if block.measurement is None:
+        return torch.func.vmap(block.residual)(*vals)
+    return torch.func.vmap(block.residual)(*vals, block.measurement)
+
+
+def _weighted(block: FactorBlock, r):
+    """(Λr, e², robust value, robust weight)."""
+    if block.information is None:
+        wr = r
+    else:
+        wr = torch.einsum("fij,fj->fi", block.information, r)
+    e2 = torch.sum(r * wr, dim=-1)
+    val, w = block.robust.evaluate(e2)
+    return wr, e2, val, w
+
+
+def problem_cost(problem: Problem, values_tuple):
+    """Σ ½ ρ(rᵀΛr) (solver.rs:274)."""
+    gv = {g.name: v for g, v in zip(problem.groups, values_tuple)}
+    cost = 0.0
+    for block in problem.factors:
+        r = _block_eval(block, gv)
+        _, _, val, _ = _weighted(block, r)
+        cost = cost + 0.5 * torch.sum(val)
+    return cost
+
+
+def _block_jacobians(problem: Problem, block: FactorBlock, gv: dict):
+    """Residuals [F, rdim] and the tangent-space Jacobians per slot, a list
+    of [F, rdim, tdim_k]: vmap over factors of jacrev through the
+    retractions at δ=0 (see the module's note on forward mode)."""
+    groups = {g.name: g for g in problem.groups}
+    vals = [_gather(block, gv[g], k) for k, g in enumerate(block.groups)]
+    retracts = [groups[g].retract for g in block.groups]
+    arity = len(vals)
+    zeros = [torch.zeros((groups[g].tdim,), dtype=vals[0].dtype, device=vals[0].device)
+             for g in block.groups]
+    has_m = block.measurement is not None
+
+    def per_factor(*args):
+        vs = args[:arity]
+        extra = args[arity:]
+
+        def f(*deltas):
+            xs = [ret(v, d) for ret, v, d in zip(retracts, vs, deltas)]
+            r = block.residual(*xs, *extra)
+            return r, r
+
+        jacs, r = torch.func.jacrev(f, argnums=tuple(range(arity)), has_aux=True)(*zeros)
+        return r, jacs
+
+    m_args = (block.measurement,) if has_m else ()
+    r, jacs = torch.func.vmap(per_factor)(*vals, *m_args)
+    return r, list(jacs)
+
+
+def _tangent_rows(offset, idx, tdim):
+    """Global rows [F, tdim] of the variables idx [F] of a group at offset."""
+    return (offset + idx.long() * tdim)[:, None] + torch.arange(tdim, device=idx.device)[None, :]
+
+
+def _fixed_rows(problem: Problem):
+    """[D] bool: the tangent rows of fixed variables (groups in layout order)."""
+    return torch.cat([g.fixed()[:, None].expand(g.num, g.tdim).reshape(-1) for g in problem.groups])
+
+
+def _linearize_dense(problem: Problem, values_tuple, dtype):
+    """Dense Hessian [D, D], gradient [D], cost — one pass over blocks."""
+    gv = {g.name: v for g, v in zip(problem.groups, values_tuple)}
+    offsets, total = problem.layout()
+    groups = {g.name: g for g in problem.groups}
+    device = values_tuple[0].device
+    h = torch.zeros((total, total), dtype=dtype, device=device)
+    grad = torch.zeros((total,), dtype=dtype, device=device)
+    cost = 0.0
+
+    for block in problem.factors:
+        r, jacs = _block_jacobians(problem, block, gv)
+        wr, e2, val, w = _weighted(block, r)
+        cost = cost + 0.5 * torch.sum(val)
+        # zero Jacobian columns of fixed variables
+        for k, gname in enumerate(block.groups):
+            fixed = groups[gname].fixed()[block.indices[:, k].long()]
+            jacs[k] = torch.where(fixed[:, None, None], 0.0, jacs[k])
+        lam_j = [
+            jacs[k] if block.information is None
+            else torch.einsum("fij,fjk->fik", block.information, jacs[k])
+            for k in range(block.arity)
+        ]
+        for k_i, gname_i in enumerate(block.groups):
+            rows = _tangent_rows(offsets[gname_i], block.indices[:, k_i], groups[gname_i].tdim)
+            g_contrib = w[:, None] * torch.einsum("fri,fr->fi", jacs[k_i], wr)
+            grad.index_put_((rows,), g_contrib, accumulate=True)
+            for k_j, gname_j in enumerate(block.groups):
+                cols = _tangent_rows(offsets[gname_j], block.indices[:, k_j],
+                                     groups[gname_j].tdim)
+                blk = w[:, None, None] * torch.einsum("fri,frj->fij", jacs[k_i], lam_j[k_j])
+                h.index_put_((rows[:, :, None], cols[:, None, :]), blk, accumulate=True)
+
+    # fixed variables: unit diagonal, zero gradient (h is this call's own
+    # tensor, so its diagonal is updated in place)
+    fixed_diag = _fixed_rows(problem)
+    diag = h.diagonal()
+    diag.add_(torch.where(fixed_diag & (diag == 0), 1.0, 0.0).to(dtype))
+    grad = torch.where(fixed_diag, 0.0, grad)
+    return h, grad, cost, fixed_diag
+
+
+def _add_damping(h, damping):
+    """sparse.rs:34-42: diag += λ·max(|diag|, 1), on a copy of h."""
+    hd = h.clone()
+    d = hd.diagonal()
+    d.add_(damping * torch.clamp(torch.abs(d), min=1.0))
+    return hd
+
+
+def _linearize_matfree(problem: Problem, values_tuple, dtype):
+    """Linearise WITHOUT assembling H: returns (jac_cache, grad, cost,
+    fixed_diag, diag_blocks). jac_cache holds per-block (jacs, w);
+    diag_blocks holds per-group [N, t, t] Hessian diagonal blocks (the
+    block-Jacobi preconditioner data, sparse.rs:115). Memory is O(edges),
+    never O(params²)."""
+    gv = {g.name: v for g, v in zip(problem.groups, values_tuple)}
+    offsets, total = problem.layout()
+    groups = {g.name: g for g in problem.groups}
+    device = values_tuple[0].device
+    grad = torch.zeros((total,), dtype=dtype, device=device)
+    cost = 0.0
+    diag_blocks = {g.name: torch.zeros((g.num, g.tdim, g.tdim), dtype=dtype, device=device)
+                   for g in problem.groups}
+    cache = []
+    for block in problem.factors:
+        r, jacs = _block_jacobians(problem, block, gv)
+        wr, e2, val, w = _weighted(block, r)
+        cost = cost + 0.5 * torch.sum(val)
+        for k, gname in enumerate(block.groups):
+            fixed = groups[gname].fixed()[block.indices[:, k].long()]
+            jacs[k] = torch.where(fixed[:, None, None], 0.0, jacs[k])
+        cache.append((tuple(jacs), w))
+        for k_i, gname_i in enumerate(block.groups):
+            rows = _tangent_rows(offsets[gname_i], block.indices[:, k_i], groups[gname_i].tdim)
+            grad.index_put_((rows,), w[:, None] * torch.einsum("fri,fr->fi", jacs[k_i], wr),
+                            accumulate=True)
+            lam_jk = (jacs[k_i] if block.information is None
+                      else torch.einsum("fij,fjk->fik", block.information, jacs[k_i]))
+            contrib = w[:, None, None] * torch.einsum("fri,frj->fij", jacs[k_i], lam_jk)
+            diag_blocks[gname_i].index_put_((block.indices[:, k_i].long(),), contrib,
+                                            accumulate=True)
+
+    fixed_diag = _fixed_rows(problem)
+    for g in problem.groups:
+        # fixed variables get identity diagonal blocks
+        eye = torch.eye(g.tdim, dtype=dtype, device=device)
+        diag_blocks[g.name] = torch.where(g.fixed()[:, None, None], eye[None], diag_blocks[g.name])
+    grad = torch.where(fixed_diag, 0.0, grad)
+    return (tuple(cache), grad, cost, fixed_diag,
+            tuple(diag_blocks[g.name] for g in problem.groups))
+
+
+def _pcg(hvp, precond, b, max_iter, tol):
+    """Preconditioned CG from x=0 for hvp(x) = b; stops when |r| <= tol or
+    after max_iter steps (the JAX while_loop's test, read on the host).
+    Returns (x, iterations)."""
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(b)
+    p = z
+    rz = b @ z
+    k = 0
+    while float(torch.linalg.norm(r)) > tol and k < max_iter:
+        hp = hvp(p)
+        alpha = rz / torch.clamp(p @ hp, min=1e-300)
+        x = x + alpha * p
+        r = r - alpha * hp
+        z = precond(r)
+        rz_new = r @ z
+        beta = rz_new / torch.clamp(rz, min=1e-300)
+        p = z + beta * p
+        k, rz = k + 1, rz_new
+    return x, k
+
+
+def _solve_matfree_pcg(problem: Problem, cache, grad, fixed_diag, diag_blocks, damping, lm,
+                       max_iter, tol):
+    """Matrix-free block-Jacobi PCG: H·v streams over the cached factor
+    Jacobians (gather → J v → Λ → Jᵀ → scatter-add); the preconditioner is
+    batched [N, t, t] SPD inverses of the damped diagonal blocks."""
+    offsets, total = problem.layout()
+
+    # damped diagonal: diag += λ·max(|diag|, 1) (sparse.rs:34-42)
+    damp_parts = []
+    pre_inv = []
+    for g, db in zip(problem.groups, diag_blocks):
+        d = torch.diagonal(db, dim1=-2, dim2=-1)  # [N, t]
+        lam = damping * torch.clamp(torch.abs(d), min=1.0) if lm else torch.zeros_like(d)
+        damp_parts.append(lam.reshape(-1))
+        pre_inv.append(inv_spd_small(db + torch.diag_embed(lam)))
+    damp_vec = torch.cat(damp_parts)
+    # fixed rows act as the identity
+    damp_vec = torch.where(fixed_diag, 1.0, damp_vec)
+
+    def precond(r):
+        outs = []
+        for g, inv in zip(problem.groups, pre_inv):
+            off = offsets[g.name]
+            rg = r[off:off + g.num * g.tdim].reshape(g.num, g.tdim)
+            outs.append(torch.einsum("nij,nj->ni", inv, rg).reshape(-1))
+        return torch.cat(outs)
+
+    def hvp(v):
+        out = damp_vec * v
+        for block, (jacs, w) in zip(problem.factors, cache):
+            jv = None
+            for k, gname in enumerate(block.groups):
+                cols = _tangent_rows(offsets[gname], block.indices[:, k], jacs[k].shape[-1])
+                term = torch.einsum("frt,ft->fr", jacs[k], v[cols])
+                jv = term if jv is None else jv + term
+            lam_jv = (jv if block.information is None
+                      else torch.einsum("fij,fj->fi", block.information, jv))
+            for k, gname in enumerate(block.groups):
+                rows = _tangent_rows(offsets[gname], block.indices[:, k], jacs[k].shape[-1])
+                out.index_put_((rows,), w[:, None] * torch.einsum("fri,fr->fi", jacs[k], lam_jv),
+                               accumulate=True)
+        return out
+
+    return _pcg(hvp, precond, -grad, max_iter, tol)
+
+
+def _solve_dense(h, grad, damping, lm):
+    hd = _add_damping(h, damping) if lm else h
+    return torch.linalg.solve(hd, -grad), 1
+
+
+def _group_rows(off, num, tdim, device):
+    """[num, tdim] global rows of a group's variables."""
+    ar = torch.arange
+    return off + ar(num, device=device)[:, None] * tdim + ar(tdim, device=device)[None, :]
+
+
+def _solve_pcg(h, grad, damping, lm, groups_meta, max_iter, tol):
+    """PCG with a block-Jacobi preconditioner on the (damped) dense H."""
+    hd = _add_damping(h, damping) if lm else h
+    # block-Jacobi: invert per-variable diagonal blocks
+    pre = torch.zeros_like(h)
+    for off, num, tdim in groups_meta:
+        idx = _group_rows(off, num, tdim, h.device)
+        blocks = hd[idx[:, :, None], idx[:, None, :]]  # [N, t, t]
+        pre[idx[:, :, None], idx[:, None, :]] = inv_spd_small(blocks)
+    return _pcg(lambda p: hd @ p, lambda r: pre @ r, -grad, max_iter, tol)
+
+
+def _reduced_solve(s, rhs, reduced_solver):
+    """Retained-system solve for the Schur path (see `SolverConfig`)."""
+    use_kernel = reduced_solver == "pallas_chol" or (
+        reduced_solver == "auto"
+        and s.is_cuda
+        and s.shape[0] >= 1024
+        and s.dtype == torch.float32
+    )
+    if use_kernel:
+        return cholesky_solve_blocked(s, rhs)
+    return torch.linalg.solve(s, rhs)
+
+
+def _schur_system(h, grad, damping, lm, retained_dim, elim_meta):
+    """Eliminate the trailing group (block-diagonal [N, t, t] inverses):
+    returns the retained system (s, rhs) and `back(dx_r)`, which gives the
+    eliminated group's increment (sparse.rs:160 semantics)."""
+    hd = _add_damping(h, damping) if lm else h
+    dr = retained_dim
+    num, tdim = elim_meta
+    h_rr = hd[:dr, :dr]
+    h_rl = hd[:dr, dr:]
+    g_r = grad[:dr]
+    g_l = grad[dr:]
+    idx = _group_rows(dr, num, tdim, h.device)
+    inv = inv_spd_small(hd[idx[:, :, None], idx[:, None, :]])  # [N, t, t]
+
+    def ll_inv_mul(v):
+        """H_ll⁻¹ v with H_ll taken as its diagonal blocks."""
+        return (inv @ v.reshape(num, tdim, -1)).reshape(num * tdim, -1)
+
+    s = h_rr - h_rl @ ll_inv_mul(h_rl.T)
+    rhs = -g_r + (h_rl @ ll_inv_mul(g_l[:, None]))[:, 0]
+
+    def back(dx_r):
+        return ll_inv_mul((-g_l - h_rl.T @ dx_r)[:, None])[:, 0]
+
+    return s, rhs, back
+
+
+def _solve_schur(h, grad, damping, lm, retained_dim, elim_meta, reduced_solver="auto"):
+    """Eliminate the trailing group, then solve the retained system."""
+    s, rhs, back = _schur_system(h, grad, damping, lm, retained_dim, elim_meta)
+    dx_r = _reduced_solve(s, rhs, reduced_solver)
+    return torch.cat([dx_r, back(dx_r)]), 1
+
+
+def _apply_increment(problem: Problem, values_tuple, delta):
+    offsets, _ = problem.layout()
+    new_values = []
+    for g, v in zip(problem.groups, values_tuple):
+        off = offsets[g.name]
+        d = delta[off:off + g.num * g.tdim].reshape(g.num, g.tdim)
+        d = torch.where(g.fixed()[:, None], 0.0, d)
+        new_values.append(torch.func.vmap(g.retract)(v, d))
+    return tuple(new_values)
+
+
+def solve(problem: Problem, config: SolverConfig = SolverConfig()):
+    """Run the solver; returns (solved Problem, SolverSummary).
+
+    The LM loop runs on the host, with the reference's termination
+    semantics (solver.rs:81-188); each iteration reads the gradient's max,
+    the step's norm and the trial cost back to the host.
+    """
+    values = problem.values()
+    dtype = values[0].dtype
+    offsets, total = problem.layout()
+    if total == 0:
+        c = float(problem_cost(problem, values))
+        return problem, SolverSummary(c, c, 0, 0, "gradient_converged", 0)
+
+    groups_meta = tuple((offsets[g.name], g.num, g.tdim) for g in problem.groups)
+    lm = config.method == "lm"
+    if config.linear_solver == "schur":
+        elim = problem.groups[-1]
+        retained_dim = total - elim.num * elim.tdim
+        elim_meta = (elim.num, elim.tdim)
+
+    matfree = config.linear_solver == "matfree_pcg"
+
+    def linearize(vals):
+        if matfree:
+            cache, grad, cost, fixed, diag = _linearize_matfree(problem, vals, dtype)
+            return (cache, fixed, diag), grad
+        h, grad, _, _ = _linearize_dense(problem, vals, dtype)
+        return h, grad
+
+    def lin_solve(lin_state, grad, damping):
+        if matfree:
+            cache, fixed, diag = lin_state
+            return _solve_matfree_pcg(problem, cache, grad, fixed, diag, damping, lm,
+                                      config.pcg_max_iterations, config.pcg_tolerance)
+        h = lin_state
+        if config.linear_solver == "dense":
+            return _solve_dense(h, grad, damping, lm)
+        if config.linear_solver == "pcg":
+            return _solve_pcg(h, grad, damping, lm, groups_meta,
+                              config.pcg_max_iterations, config.pcg_tolerance)
+        if config.linear_solver == "schur":
+            return _solve_schur(h, grad, damping, lm, retained_dim, elim_meta,
+                                config.reduced_solver)
+        raise ValueError(config.linear_solver)
+
+    initial_cost = float(problem_cost(problem, values))
+    current_cost = initial_cost
+    damping = config.initial_damping
+    accepted = 0
+    total_linear = 0
+    termination = "max_iterations"
+    it = 0
+
+    for it in range(config.max_iterations):
+        lin_state, grad = linearize(values)
+        if float(torch.max(torch.abs(grad))) <= config.gradient_tolerance:
+            termination = "gradient_converged"
+            break
+        delta, lin_iters = lin_solve(lin_state, grad, damping)
+        del lin_state
+        total_linear += int(lin_iters)
+        if not bool(torch.all(torch.isfinite(delta))):
+            raise FloatingPointError("non-finite increment")
+        if float(torch.linalg.norm(delta)) <= config.step_tolerance:
+            termination = "step_converged"
+            it += 1
+            break
+        trial = _apply_increment(problem, values, delta)
+        trial_cost = float(problem_cost(problem, trial))
+        if config.method == "gn" or trial_cost < current_cost:
+            accepted += 1
+            change = abs(current_cost - trial_cost)
+            values = trial
+            current_cost = trial_cost
+            damping = max(damping * 0.3, 1e-15)
+            if change <= config.cost_tolerance:
+                termination = "cost_converged"
+                it += 1
+                break
+        else:
+            damping = min(damping * 10.0, 1e15)
+    else:
+        it = config.max_iterations
+
+    return problem.with_values(values), SolverSummary(
+        initial_cost, current_cost, it, accepted, termination, total_linear
+    )

@@ -20,3 +20,9 @@ from rust_robotics_tpu_torch.ops.resample import (  # noqa: F401
     systematic_resample_gather,
     systematic_resample_gather_plain,
 )
+from rust_robotics_tpu_torch.ops.cholesky import (  # noqa: F401
+    cholesky_blocked,
+    cholesky_blocked_large,
+    cholesky_blocked_plain,
+    cholesky_solve_blocked,
+)

@@ -57,11 +57,18 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         default_ekf_noise,
         run_ekf_localization_demo,
     )
+    from rust_robotics_tpu_torch.nlls import SolverConfig
     from rust_robotics_tpu_torch.planning import grid
+    from rust_robotics_tpu_torch.slam.bundle_adjustment import CameraIntrinsics, bundle_adjust
+    from rust_robotics_tpu_torch.slam.pose_graph import optimize_pose_graph_2d
 
     blocked = np.eye(4, 3, dtype=bool)
     ox, oy = np.array([0.0, 4.0, 4.0]), np.array([0.0, 0.0, 3.0])
     states, weights = np.zeros((2, 8, 4)), np.full((2, 8), 1 / 8)
+    # one camera (fixed) seeing two points; a two-pose chain
+    cams, points = np.eye(4)[None], np.array([[0.0, 0.0, 5.0], [1.0, 0.0, 5.0]])
+    cam_idx, pt_idx, pixels = np.zeros(2, np.int32), np.arange(2), np.array([[0.0, 0.0], [1.0, 0.0]])
+    poses, ef, et, meas = np.zeros((2, 3)), np.array([0]), np.array([1]), np.ones((1, 3))
     host_data_calls = {
         "run_ekf_localization_demo": lambda **kw: run_ekf_localization_demo(steps=3, **kw)["estimate"],
         "default_ekf_noise": lambda **kw: default_ekf_noise(**kw)[0],
@@ -71,6 +78,15 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         "convert.particles_from_numpy": lambda **kw: convert.particles_from_numpy(
             states, weights, **kw).states,
         "grid_from_raster": lambda **kw: grid.grid_from_raster(blocked, **kw).blocked,
+        "bundle_adjust": lambda **kw: bundle_adjust(
+            cams, points, cam_idx, pt_idx, pixels, CameraIntrinsics(1.0, 1.0, 0.0, 0.0),
+            config=SolverConfig(max_iterations=1), **kw)[1],
+        "optimize_pose_graph_2d": lambda **kw: optimize_pose_graph_2d(
+            poses, ef, et, meas, max_iterations=1, **kw)[0],
+        "convert.bundle_from_numpy": lambda **kw: convert.bundle_from_numpy(
+            cams, points, cam_idx, pt_idx, pixels, **kw)[2],
+        "convert.pose_graph_from_numpy": lambda **kw: convert.pose_graph_from_numpy(
+            poses, ef, et, meas, **kw)[0],
         "grid_from_obstacle_points": lambda **kw: grid.grid_from_obstacle_points(
             ox, oy, 1.0, 0.5, **kw).blocked,
     }
