@@ -37,11 +37,16 @@ any failure exits non-zero before the final line.
     x P=1024 particles (and B=2048 x P=4096) for 20 steps of predict,
     range update, `resample_if_needed_fused` and estimate, counted; then 3
     plain `pf_step`s; then B3's times at bench.py's three shapes;
-13. the blocked Cholesky (B4/B5) against the f64 factor (numpy) and its
-    twin: f32 at n = 1200, 1280, 2560 and 4001, f64 at 1200; the f32
-    solve's residual; `cholesky_blocked_large` (B5's entry) on its own
-    path at n = 2560, counted; kernel, twin and `torch.linalg.cholesky`
-    times at n = 64 (one diagonal block), 1200 and 2560 beside the bound;
+13. the blocked Cholesky (B4/B5, one cooperative launch per
+    factorisation) against the f64 factor (numpy) and its twin: f32 at
+    n = 1200, 1280, 2560 and 4001 and at the ragged 1, 63, 65, 127 and
+    129, f64 at 1200; the pivot-clamp case in f64 against the twin at
+    rtol 1e-15; the f32 solve's residual; `cholesky_blocked_large` (B5's
+    entry) on its own path at n = 2560, counted; kernel, twin,
+    `torch.linalg.cholesky` and `torch.linalg.cholesky_ex` times at
+    n = 64 (one diagonal block), 1200 and 2560 in f32 and 1200 in f64,
+    interleaved burst by burst, beside the bound; the kernel's own phase
+    clock at 1200 and 2560;
 14. the BA main path at full width: 200 cameras x 2000 points (~76k
     observations) through `bundle_adjust` in f32 on cuda (Schur,
     reduced_solver "auto", so the n = 1200 retained system goes to B4),
@@ -49,7 +54,8 @@ any failure exits non-zero before the final line.
     reduced_solver "pallas_chol" (B4) and "dense", which must agree; one LM
     iteration's device time by phase; last, a torch.profiler breakdown of
     one grid call, one PF step and one BA iteration (device busy and idle
-    share, top device consumers);
+    share, top device consumers), and of one B4 factorisation, which
+    must be one kernel launch;
 15. one JSON line `{"kernels": [...]}`;
 16. the last line, `{"ok": true, "device": {...}}`.
 """
@@ -58,6 +64,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -86,6 +93,7 @@ from rust_robotics_tpu_torch.ops.cholesky import (
     cholesky_blocked,
     cholesky_blocked_large,
     cholesky_blocked_plain,
+    cholesky_phase_stamps,
     cholesky_solve_blocked,
 )
 from rust_robotics_tpu_torch.ops.ekf_scan import ekf_scan_lanes, ekf_scan_plain
@@ -123,13 +131,15 @@ RAGGED_B = 4099
 ATOL_F64 = 1e-12
 ATOL_F32_MEAN, ATOL_F32_COV = 1e-4, 1e-5
 
-# Data-sheet peaks (dense, outside the tensor cores), by a fragment of
-# torch.cuda.get_device_name(); the first match wins.
+# Data-sheet peaks (dense), by a fragment of torch.cuda.get_device_name();
+# the first match wins. Each type's peak at its full precision: float32
+# outside the tensor cores (TF32 rounds), float64 on the tensor cores
+# (DMMA keeps full FP64 precision, at twice the FP64 vector rate).
 CARDS = (
-    ("H100 PCIe", {"bytes_per_s": 2.0e12, "flops": {torch.float32: 51e12, torch.float64: 26e12}}),
-    ("H100 NVL", {"bytes_per_s": 3.9e12, "flops": {torch.float32: 60e12, torch.float64: 30e12}}),
-    ("H200", {"bytes_per_s": 4.8e12, "flops": {torch.float32: 67e12, torch.float64: 34e12}}),
-    ("H100", {"bytes_per_s": 3.35e12, "flops": {torch.float32: 67e12, torch.float64: 34e12}}),
+    ("H100 PCIe", {"bytes_per_s": 2.0e12, "flops": {torch.float32: 51e12, torch.float64: 51e12}}),
+    ("H100 NVL", {"bytes_per_s": 3.9e12, "flops": {torch.float32: 60e12, torch.float64: 60e12}}),
+    ("H200", {"bytes_per_s": 4.8e12, "flops": {torch.float32: 67e12, torch.float64: 67e12}}),
+    ("H100", {"bytes_per_s": 3.35e12, "flops": {torch.float32: 67e12, torch.float64: 67e12}}),
 )
 # Least arithmetic of one EKF step of the unicycle + GPS model, counting
 # only terms the model's sparsity leaves non-zero: 118 adds/multiplies/
@@ -173,9 +183,14 @@ PF_MEDIAN_ERROR_LIMIT = 0.03
 # measured the JAX B5 at, 4001 ragged.
 CHOL_SIZES_F32 = (1200, 1280, 2560, 4001)
 CHOL_SIZE_F64 = 1200
+# one short of a block, one past, and the same about two blocks
+CHOL_RAGGED_F32 = (1, 63, 65, 127, 129)
 # 64 is one diagonal block (its serial column factor, no panel rows, no
 # update); 1200 and 2560 as above
-CHOL_TIMED = (64, 1200, 2560)
+CHOL_TIMED = ((64, torch.float32), (1200, torch.float32), (2560, torch.float32),
+              (1200, torch.float64))
+CHOL_PHASED = (1200, 2560)  # f32, the kernel's phase clock
+CHOL_CLAMP_RTOL = 1e-15  # tests/test_torch_cholesky.py::test_pivot_clamp_matches_jax_pallas
 CHOL_REL_F32 = 5e-5  # |L - L64| / max|L64| (tests/test_cholesky_pallas.py:100)
 # kernel against twin, both f32: each is within CHOL_REL_F32 of the f64
 # factor, so they are within twice that of each other
@@ -228,18 +243,27 @@ def ekf_scan_bound(t, b, dtype, peaks):
 def time_ms(fn, reps, bursts):
     """Device time of one call: CUDA events around `reps` back-to-back calls,
     the minimum over `bursts`, after one warm-up call."""
-    fn()
+    return time_interleaved_ms((fn,), reps, bursts)[0]
+
+
+def time_interleaved_ms(fns, reps, bursts):
+    """`time_ms` for several contenders alike: each burst times every one
+    of `fns` in turn, so each gets the same number of bursts under the
+    same conditions; returns each one's minimum."""
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    best = math.inf
+    best = [math.inf] * len(fns)
     for _ in range(bursts):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / reps)
+        for i, fn in enumerate(fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            best[i] = min(best[i], start.elapsed_time(end) / reps)
     return best
 
 
@@ -468,6 +492,7 @@ def device_breakdown(label, fn, top=6):
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         fail(f"{label}: the profiler saw no device events")
+    names = [e.name for e in events]
     busy_ms = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
     span_ms = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
     print(f"{label}: host clock {host_ms!r} ms; under the profiler device busy {busy_ms!r} ms of "
@@ -475,6 +500,7 @@ def device_breakdown(label, fn, top=6):
     consumers = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
     for e in consumers[:top]:
         print(f"  {e.self_device_time_total / 1e3!r} ms in {e.count} x {e.key[:90]}")
+    return names
 
 
 def numpy_demo_golden(steps=330, dt=0.1):
@@ -558,6 +584,78 @@ def check_cholesky(label, a_np, device):
     print(f"{label}: upper triangle 0; rel err to the f64 factor {rel64!r}; "
           f"max|kernel - twin| {err!r} ({err / scale!r} relative)")
     return out
+
+
+def clamp_case(n=100):
+    """tests/test_torch_cholesky.py::clamp_case: exact integer arithmetic
+    with pivots that clamp in the last block (row 70's becomes 0 after its
+    coupling to row 10 is eliminated, row 80's is 1e-40, row 90's -4)."""
+    a = 2.0 * np.eye(n)
+    a[10, 10] = a[70, 70] = a[10, 70] = a[70, 10] = 1.0
+    a[80, 80] = 1e-40
+    a[90, 90] = -4.0
+    return a
+
+
+def check_cholesky_clamp(device):
+    """The kernel on the clamp case in f64 against the twin at rtol 1e-15,
+    and the clamped values themselves."""
+    a = torch.from_numpy(clamp_case()).to(device)
+    got = cholesky_blocked(a).cpu().numpy()
+    want = cholesky_blocked_plain(a).cpu().numpy()
+    if not np.isfinite(got).all():
+        fail("cholesky clamp case: non-finite factor")
+    nz = want != 0
+    rel = float(np.max(np.abs(got - want)[nz] / np.abs(want[nz])))
+    exact_zero = bool(np.all(got[~nz] == 0.0))
+    print(f"cholesky f64 clamp case n=100: max rel diff to the twin {rel!r} (rtol "
+          f"{CHOL_CLAMP_RTOL}), zeros where the twin has zeros {exact_zero}; L[70,70] "
+          f"{got[70, 70]!r}, L[80,80] {got[80, 80]!r}, L[90,90] {got[90, 90]!r}")
+    if not (rel <= CHOL_CLAMP_RTOL and exact_zero and got[70, 70] == 0.0):
+        fail("cholesky clamp case differs from the twin")
+    if not np.allclose([got[80, 80], got[90, 90]], [1e-25, -4e15], rtol=CHOL_CLAMP_RTOL, atol=0):
+        fail("cholesky clamp case: clamped pivots do not give 1e-25 and -4e15")
+    return rel
+
+
+def cholesky_phases(a):
+    """One factorisation with the kernel's phase clock on (CTA 0's
+    %globaltimer, ns): total µs, the first diagonal factor, and the mean µs
+    per block step of each phase: L_kk staged for the panel, CTA 0's panel
+    rows, the panel's barrier, CTA 0's update of the next diagonal tile,
+    the diagonal factor, the step's last barrier."""
+    _, stamps = cholesky_phase_stamps(a)
+    torch.cuda.synchronize()
+    s = stamps.cpu().numpy().astype(np.int64)
+    steps = (len(s) - 3) // 6
+    out = {"total_us": float(s[-1] - s[0]) / 1e3, "first_factor_us": float(s[1] - s[0]) / 1e3,
+           "steps": steps}
+    if steps:
+        per = s[3:].reshape(steps, 6)
+        prev = np.concatenate([[s[2]], per[:-1, 5]])
+        spans = np.diff(np.concatenate([prev[:, None], per], 1), axis=1).mean(0) / 1e3
+        for key, v in zip(("stage", "panel_rows", "panel_barrier", "update_tile", "factor",
+                           "last_barrier"), spans):
+            out[f"{key}_us_per_step"] = float(v)
+    return out
+
+
+def ptxas_report(kname):
+    """{entry: {registers, smem_bytes, stack_bytes, spill_stores, spill_loads}}
+    from ptxas's -v report in the source's build log."""
+    report, entry = {}, None
+    for line in _build.build_log(kname).splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            report[entry] = {}
+        elif entry and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            report[entry].update(stack_bytes=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif entry and "Used" in line and "registers" in line:
+            report[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[entry]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return report
 
 
 def ba_problem(cameras, points, seed=SEED):
@@ -973,8 +1071,11 @@ def main() -> int:
     b4 = {}
     for n in CHOL_SIZES_F32:
         b4[n] = check_cholesky(f"cholesky f32 n={n}", spd(chol_rng, n, torch.float32), device)
+    for n in CHOL_RAGGED_F32:
+        b4[n] = check_cholesky(f"cholesky f32 n={n}", spd(chol_rng, n, torch.float32), device)
     b4_f64 = check_cholesky(f"cholesky f64 n={CHOL_SIZE_F64}",
                             spd(chol_rng, CHOL_SIZE_F64, torch.float64), device)
+    clamp_rel = check_cholesky_clamp(device)
     a_np = spd(chol_rng, CHOL_SIZE_F64, torch.float32)
     a = torch.from_numpy(a_np).to(device)
     rhs = torch.from_numpy(chol_rng.standard_normal(CHOL_SIZE_F64).astype(np.float32)).to(device)
@@ -1001,17 +1102,31 @@ def main() -> int:
     del big, big_l
 
     chol_times = {}
-    for n in CHOL_TIMED:
-        a = torch.from_numpy(spd(chol_rng, n, torch.float32)).to(device)
-        kernel_t = time_ms(lambda: cholesky_blocked(a), reps=10, bursts=5)
+    for n, dtype in CHOL_TIMED:
+        a = torch.from_numpy(spd(chol_rng, n, dtype)).to(device)
+        key = f"{'f32' if dtype == torch.float32 else 'f64'} n={n}"
+        # the kernel and the two library calls, burst by burst in turn
+        kernel_t, library_t, library_ex_t = time_interleaved_ms(
+            (lambda: cholesky_blocked(a), lambda: torch.linalg.cholesky(a),
+             lambda: torch.linalg.cholesky_ex(a)), reps=10, bursts=10)
         plain_t = time_ms(lambda: cholesky_blocked_plain(a), reps=1, bursts=2 if n > 64 else 5)
-        library_t = time_ms(lambda: torch.linalg.cholesky(a), reps=10, bursts=5)
-        bound_t, bound_by_t = cholesky_bound(n, torch.float32, peaks)
-        chol_times[n] = {"ms": kernel_t, "plain_ms": plain_t, "library_ms": library_t,
-                         "bound_ms": bound_t, "bound_by": bound_by_t}
-        print(f"cholesky f32 n={n} on {card}: kernel {kernel_t!r} ms, twin {plain_t!r} ms, "
-              f"torch.linalg.cholesky {library_t!r} ms, bound {bound_t!r} ms ({bound_by_t}), "
-              f"{bound_t / kernel_t:.4f} of the bound")
+        bound_t, bound_by_t = cholesky_bound(n, dtype, peaks)
+        faster = "torch.linalg.cholesky_ex" if library_ex_t <= library_t else "torch.linalg.cholesky"
+        chol_times[key] = {"ms": kernel_t, "plain_ms": plain_t,
+                           "library_ms": min(library_t, library_ex_t), "library": faster,
+                           "cholesky_ms": library_t, "cholesky_ex_ms": library_ex_t,
+                           "bound_ms": bound_t, "bound_by": bound_by_t}
+        print(f"cholesky {key} on {card}: kernel {kernel_t!r} ms, twin {plain_t!r} ms, "
+              f"torch.linalg.cholesky {library_t!r} ms, torch.linalg.cholesky_ex "
+              f"{library_ex_t!r} ms, bound {bound_t!r} ms ({bound_by_t}), "
+              f"{bound_t / kernel_t:.4f} of the bound, {min(library_t, library_ex_t) / kernel_t:.3f}x "
+              f"the faster library call")
+    chol_phases = {}
+    for n in CHOL_PHASED:
+        a = torch.from_numpy(spd(chol_rng, n, torch.float32)).to(device)
+        cholesky_phases(a)  # warm
+        chol_phases[f"f32 n={n}"] = cholesky_phases(a)
+        print(f"cholesky f32 n={n} phase clock (CTA 0): {chol_phases[f'f32 n={n}']}")
     del a, rhs, x
 
     # 14. the BA main path at full width, counted: 200 cameras x 2000 points
@@ -1079,8 +1194,14 @@ def main() -> int:
     del free, goals, belief, estimate, err, step_args, u, z, lm, gen
     device_breakdown("BA main path, one LM iteration (f32, n = 1200 retained)",
                      lambda: [fn() for fn in phases.values()])
-    device_breakdown("B4, one factorisation of the BA's retained system (n = 1200, f32)",
-                     lambda: cholesky_blocked(ba_state["s"]))
+    b4_events = device_breakdown("B4, one factorisation of the BA's retained system (n = 1200, f32)",
+                                 lambda: cholesky_blocked(ba_state["s"]))
+    print(f"B4 kernel launches per factorisation (profiler): {len(b4_events)} {b4_events}")
+    if len(b4_events) != 1 or "chol_persistent" not in b4_events[0]:
+        fail(f"one B4 factorisation made {len(b4_events)} device launches, not 1")
+    chol_ptxas = {("float32" if "IfE" in k else "float64"): v
+                  for k, v in ptxas_report("cholesky").items() if "chol_persistent" in k}
+    print(f"ptxas cholesky: {chol_ptxas}")
 
     # 15. the kernels line
     no_library = "none: no single PyTorch call computes it"
@@ -1116,16 +1237,21 @@ def main() -> int:
         "replaces": replaces,
         "launches": launches_n,
         "path": path,
+        "launches_per_factorisation": len(b4_events),
         "max_abs_err": b4[n]["max_abs_err"],
         "rel_err_to_f64_factor": b4[n]["rel_f64"],
         "max_abs_err_f64": b4_f64["max_abs_err"],
-        "ms": chol_times[n]["ms"],
-        "plain_ms": chol_times[n]["plain_ms"],
-        "bound_ms": chol_times[n]["bound_ms"],
-        "bound_by": chol_times[n]["bound_by"],
-        "library_ms": chol_times[n]["library_ms"],
-        "library": "torch.linalg.cholesky",
+        "clamp_case_max_rel_diff_f64": clamp_rel,
+        "ragged_rel_err_to_f64_factor": {k: b4[k]["rel_f64"] for k in CHOL_RAGGED_F32},
+        "ms": chol_times[f"f32 n={n}"]["ms"],
+        "plain_ms": chol_times[f"f32 n={n}"]["plain_ms"],
+        "bound_ms": chol_times[f"f32 n={n}"]["bound_ms"],
+        "bound_by": chol_times[f"f32 n={n}"]["bound_by"],
+        "library_ms": chol_times[f"f32 n={n}"]["library_ms"],
+        "library": chol_times[f"f32 n={n}"]["library"],
         "times": chol_times,
+        "phases": chol_phases,
+        "ptxas": chol_ptxas,
         "shape": {"n": n, "dtype": "float32"},
         "card": card,
     } for name, replaces, n, launches_n, path in (
@@ -1134,7 +1260,7 @@ def main() -> int:
          f"bundle_adjust, {BA_CAMERAS} cameras x {BA_POINTS} points, f32, "
          f"{summary.linear_iterations} linear solves"),
         ("cholesky_blocked_large", "rust_robotics_tpu/ops/cholesky_pallas.py:200", 2560,
-         b5_launches, "cholesky_blocked_large at n=2560 (the same kernels as B4)"),
+         b5_launches, "cholesky_blocked_large at n=2560 (the same kernel as B4)"),
     )]
     print(json.dumps({"kernels": [{
         "name": "ekf_scan",

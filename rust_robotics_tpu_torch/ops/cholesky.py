@@ -10,10 +10,12 @@ tensor is not written.
 
 - `cholesky_blocked(a)` (B4, `cholesky_pallas`) and
   `cholesky_blocked_large(a)` (B5, `cholesky_pallas_large`): on CUDA
-  tensors they launch the hand-written kernels of `csrc/cholesky.cu` (a
-  diagonal-block factor and forward-substitution panel per block step, then
-  an FP32/FP64 FMA trailing update of the lower tiles), or raise; on CPU
-  tensors they run the twin.
+  tensors they launch the hand-written kernel of `csrc/cholesky.cu` (one
+  persistent cooperative launch per factorisation; per block step one CTA
+  factors the diagonal block, all CTAs solve the panel by forward
+  substitution, then an FP32/FP64 FMA trailing update of the lower tiles,
+  the phases separated by grid barriers), or raise; on CPU tensors they
+  run the twin.
 - `cholesky_solve_blocked(a, b)` (`cholesky_solve_pallas`): the factor,
   then two triangular solves, which run outside the kernel in JAX too.
 - `cholesky_blocked_plain(a)`: the twin, the same blocked right-looking
@@ -22,7 +24,9 @@ tensor is not written.
   comparison use it.
 
 `cholesky_blocked.launches` and `cholesky_blocked_large.launches` count
-kernel launches (one per factorisation).
+kernel launches (one per factorisation). `cholesky_phase_stamps(a)` runs
+the same kernel with its phase clock on, for measurement; it is not
+counted.
 """
 
 from __future__ import annotations
@@ -40,8 +44,12 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "cholesky_f32": ([_P, _P, _P, ctypes.c_int, _P], ctypes.c_int),
     "cholesky_f64": ([_P, _P, _P, ctypes.c_int, _P], ctypes.c_int),
+    "cholesky_f32_traced": ([_P, _P, _P, ctypes.c_int, _P, _P], ctypes.c_int),
+    "cholesky_f64_traced": ([_P, _P, _P, ctypes.c_int, _P, _P], ctypes.c_int),
     "cholesky_block_size": ([], ctypes.c_int),
     "cholesky_work_elements": ([ctypes.c_int], ctypes.c_longlong),
+    "cholesky_stamp_count": ([ctypes.c_int], ctypes.c_int),
+    "cholesky_error_name": ([ctypes.c_int], ctypes.c_char_p),
 }
 _KERNELS = {torch.float32: "cholesky_f32", torch.float64: "cholesky_f64"}
 
@@ -104,14 +112,11 @@ def cholesky_blocked_plain(a):
     return torch.tril(work)[:n, :n].contiguous()
 
 
-def _factor(a, entry):
-    """The twin for a CPU tensor; for a CUDA tensor the kernels of
-    csrc/cholesky.cu, counted on `entry.launches`."""
-    n = _check(a)
-    if a.device.type == "cpu":
-        return cholesky_blocked_plain(a)
-    if n == 0:
-        return a.new_zeros((0, 0))
+def _launch(a, stamps=None):
+    """One launch of csrc/cholesky.cu's kernel on CUDA tensor `a` (n > 0):
+    L, raising on a refused launch. With `stamps` (int64, on a's device)
+    the measuring entry fills it with the phase clock."""
+    n = a.shape[0]
     lib = _build.load("cholesky", _SIGNATURES)
     if lib.cholesky_block_size() != BLOCK:
         raise RuntimeError(f"csrc/cholesky.cu uses blocks of {lib.cholesky_block_size()}, "
@@ -119,14 +124,47 @@ def _factor(a, entry):
     a = a.contiguous()
     out = torch.empty((n, n), dtype=a.dtype, device=a.device)
     work = torch.empty((lib.cholesky_work_elements(n),), dtype=a.dtype, device=a.device)
+    name = _KERNELS[a.dtype]
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, _KERNELS[a.dtype])(a.data_ptr(), work.data_ptr(), out.data_ptr(), n,
-                                              stream)
+        args = (a.data_ptr(), work.data_ptr(), out.data_ptr(), n,
+                torch.cuda.current_stream().cuda_stream)
+        if stamps is None:
+            err = getattr(lib, name)(*args)
+        else:
+            err = getattr(lib, f"{name}_traced")(*args, stamps.data_ptr())
     if err != 0:
-        raise RuntimeError(f"cholesky kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"cholesky kernel launch failed with CUDA error {err} "
+                           f"({lib.cholesky_error_name(err).decode()})")
+    return out
+
+
+def _factor(a, entry):
+    """The twin for a CPU tensor; for a CUDA tensor the kernel of
+    csrc/cholesky.cu, counted on `entry.launches`."""
+    n = _check(a)
+    if a.device.type == "cpu":
+        return cholesky_blocked_plain(a)
+    if n == 0:
+        return a.new_zeros((0, 0))
+    out = _launch(a)
     entry.launches += 1
     return out
+
+
+def cholesky_phase_stamps(a):
+    """For measurement: factor CUDA tensor `a` as `cholesky_blocked` does,
+    with the kernel's phase clock on. Returns (L, stamps): int64
+    %globaltimer readings in ns from CTA 0 at the start, at the end of the
+    first diagonal factor, after the barrier that follows it, then per
+    block step with a panel: L_kk staged for the panel, CTA 0's panel rows
+    done, after the panel's barrier, at the start and end of the next
+    diagonal factor, after the step's last barrier. Not counted."""
+    n = _check(a)
+    if a.device.type != "cuda" or n == 0:
+        raise ValueError("cholesky_phase_stamps measures the kernel: a non-empty CUDA tensor")
+    lib = _build.load("cholesky", _SIGNATURES)
+    stamps = torch.zeros(lib.cholesky_stamp_count(n), dtype=torch.int64, device=a.device)
+    return _launch(a, stamps), stamps
 
 
 def cholesky_blocked(a):

@@ -10,8 +10,15 @@ seeded SPD matrices m·mᵀ + n·I:
 - `cholesky_blocked_large` against `cholesky_pallas_large` at n in {96, 300}
   in f32, each within 5e-5 of the f64 factor relative to its largest entry
   (test_cholesky_pallas.py:100);
-- the pivot clamp 1/sqrt(max(p, 1e-30)) on zero, tiny and negative pivots.
-The kernels themselves run only on a card (the `cuda` tests below)."""
+- the twin at the ragged sizes n in {1, 63, 65, 127, 129} (one short of,
+  one past, a block) against `cholesky_pallas` at the same tolerance;
+- the pivot clamp 1/sqrt(max(p, 1e-30)) on zero, tiny and negative pivots;
+- the block width of csrc/cholesky.cu (`constexpr int kB`) against
+  `ops/cholesky.py::BLOCK`, read from the source.
+The kernel itself runs only on a card (the `cuda` tests below)."""
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +50,27 @@ def test_factor_matches_jax_pallas(n):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-10 * n)
     assert float(torch.triu(got, 1).abs().max()) == 0.0
     np.testing.assert_allclose((got @ got.T).numpy(), a, rtol=1e-12, atol=1e-12 * n)
+
+
+@pytest.mark.parametrize("n", [1, 63, 65, 127, 129])
+def test_twin_ragged_sizes_match_jax_pallas(n):
+    a = spd(n)
+    want = np.asarray(cholesky_pallas(jnp.asarray(a), interpret=True))
+    got = tc.cholesky_blocked(torch.from_numpy(a))
+    assert got.shape == (n, n)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-10 * n)
+    assert float(torch.triu(got, 1).abs().max()) == 0.0
+
+
+def test_kernel_block_width_matches_the_wrapper():
+    source = Path(tc.__file__).resolve().parents[1] / "csrc" / "cholesky.cu"
+    widths = re.findall(r"constexpr int kB = (\d+);", source.read_text())
+    assert widths == [str(tc.BLOCK)]
+
+
+def test_phase_stamps_need_a_card():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tc.cholesky_phase_stamps(torch.eye(3))
 
 
 def test_twin_leaves_its_input_alone():
@@ -116,7 +144,9 @@ def test_kernel_matches_twin_on_cuda(entry):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode (chip_smoke.py runs it)")
     fn = getattr(tc, entry)
-    for n, dtype in ((200, np.float64), (1200, np.float32), (1025, np.float32)):
+    sizes = [(200, np.float64), (1200, np.float32), (1025, np.float32), (2560, np.float32)]
+    sizes += [(n, np.float32) for n in (1, 63, 65, 127, 129)]
+    for n, dtype in sizes:
         a = torch.from_numpy(spd(n, dtype))
         want = tc.cholesky_blocked_plain(a)
         before = fn.launches
@@ -136,7 +166,23 @@ def test_kernel_pivot_clamp_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode (chip_smoke.py runs it)")
     a = torch.from_numpy(clamp_case())
+    before = tc.cholesky_blocked.launches
     got = tc.cholesky_blocked(a.cuda()).cpu().numpy()
+    assert tc.cholesky_blocked.launches == before + 1
     np.testing.assert_allclose(got, tc.cholesky_blocked_plain(a).numpy(), rtol=1e-15, atol=0.0)
     assert got[70, 70] == 0.0
     np.testing.assert_allclose([got[80, 80], got[90, 90]], [1e-25, -4e15], rtol=1e-15)
+
+
+@pytest.mark.cuda
+def test_phase_stamps_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode (chip_smoke.py runs it)")
+    a = torch.from_numpy(spd(300, np.float32)).cuda()
+    before = tc.cholesky_blocked.launches
+    got, stamps = tc.cholesky_phase_stamps(a)
+    torch.cuda.synchronize()
+    assert tc.cholesky_blocked.launches == before  # a measurement, not counted
+    assert stamps.shape == (3 + 6 * 4,)  # 300 pads to 320: five blocks, four panels
+    assert bool((stamps.diff() >= 0).all()) and int(stamps[0]) > 0
+    torch.testing.assert_close(got, tc.cholesky_blocked(a), rtol=0, atol=0)
