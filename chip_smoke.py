@@ -21,15 +21,25 @@ any failure exits non-zero before the final line.
  7. one batched `ekf_step` at B=1024 (dense Q and R) on cuda against CPU;
  8. the 330-step EKF localization demo on cuda at f64 against a numpy
     transcription of the reference semantics;
- 9. the wavefront kernel (B2) against its twin, bitwise, launch by launch:
-    bench.py's grid shape (B=64 maps of 128x128, f32, 8-connected), f64,
-    the tiled variant at B=2 of 512x512, and at 32x32 the 4-connected,
-    corner-cutting and unbatched cases through the public entry;
+ 9. the wavefront kernel (B2) against its twins, bitwise: K-sweep launches
+    of `wavefront_sweeps` one by one at bench.py's grid shape (B=64 maps
+    of 128x128, f32, 8-connected), in f64 and on the tiled variant (B=2 of
+    512x512); `wavefront_relax` (one launch per call, field and per-map
+    sweeps) to convergence and at caps of 12 and 37 sweeps: the bench
+    shape (f32 register body, f64 shared-memory body), 512x512 tiled in
+    f32 and f64, 400x40 f32 (shared memory); random fields and bit planes
+    at 37x29, 400x40 and 131x127, 4 and 8 directions; at 32x32 the
+    4-connected, corner-cutting and unbatched cases through the public
+    entry;
 10. the grid main path at full width: bench.py's grid workload through
-    `wavefront_costs` (8 sweeps per launch) and `wavefront_costs_fused`
-    (16), counted; kernel, whole-call and twin times, sweeps, cells
-    relaxed/s and the bound; then `plan_grid` on cuda on the 64x64 walled
-    map of `bench_grid_planners`, equal to `plan_grid` on the CPU;
+    `wavefront_costs` and `wavefront_costs_fused`, counted (one B2 launch
+    per call) and run under torch's sync debug mode (no device read
+    inside the call), each bitwise the CPU's field; sweeps per map against
+    the sweeps needed; the kernel's time per call (and in f64, the
+    shared-memory body), the twin's, the 16-sweep launch's, whole calls
+    (host clock), cells relaxed/s and the bounds; then `plan_grid` on cuda on
+    the 64x64 walled map of `bench_grid_planners`, equal to `plan_grid`
+    on the CPU;
 11. the resampling kernel (B3) against its twin: B=8192 x P=1024 and
     B=2048 x P=4096 in f32, a ragged B=4099 in f64, all mass on one
     particle, and the P=1280 ValueError;
@@ -53,9 +63,10 @@ any failure exits non-zero before the final line.
     counted, its reprojection RMSE in f64 numpy; the same in f64 with
     reduced_solver "pallas_chol" (B4) and "dense", which must agree; one LM
     iteration's device time by phase; last, a torch.profiler breakdown of
-    one grid call, one PF step and one BA iteration (device busy and idle
-    share, top device consumers), and of one B4 factorisation, which
-    must be one kernel launch;
+    each grid call (one B2 launch), one PF step and one BA iteration
+    (device busy and idle share, top device consumers), and of one B4
+    factorisation, which must be one kernel launch; ptxas's registers and
+    spills of B2's bodies (the register body must not spill);
 15. one JSON line `{"kernels": [...]}`;
 16. the last line, `{"ok": true, "device": {...}}`.
 """
@@ -102,10 +113,14 @@ from rust_robotics_tpu_torch.ops.resample import (
     systematic_resample_gather_plain,
 )
 from rust_robotics_tpu_torch.ops.wavefront_sweep import (
+    body,
     incoming_bits,
     resident_fits,
     sentinel,
+    sweep_cap,
     wavefront_costs_fused,
+    wavefront_relax,
+    wavefront_relax_plain,
     wavefront_sweeps,
     wavefront_sweeps_plain,
 )
@@ -149,8 +164,13 @@ EKF_OPS_PER_STEP = 122
 # bench.py:154-159: B=64 maps of 128x128, 20 % blocked, goal at the far corner
 GRID_B, GRID_W, GRID_H = 64, 128, 128
 GRID_K = 16  # sweeps per launch of wavefront_costs_fused (wavefront_pallas.py:95)
-# per cell, per direction and per sweep: one add, one select, one min
-WAVEFRONT_OPS_PER_DIRECTION = 3
+# The least work of one sweep of one cell, min(cur, s + straight, g +
+# diagonal): per direction a bit test and a min into s or g, and per kind
+# of direction (straight, and with 8 directions diagonal) an add and a min
+# with the cell. None of them is an FMA, so each is one instruction per
+# lane per clock: half the float32 peak, which counts an FMA as two.
+WAVEFRONT_OPS_PER_DIRECTION = 2
+WAVEFRONT_OPS_PER_KIND = 2
 
 # bench.py:182-221: resampling at D=4, pinned (B=256), saturated (B=8192)
 # and tiled (B=2048, P=4096)
@@ -339,10 +359,30 @@ def check_sweeps_bitwise(label, free, goals, dtype, k=GRID_K):
     return 0.0
 
 
+def check_relax_bitwise(label, d, bits, costs, cap):
+    """One `wavefront_relax` call, which must be one launch, against its
+    twin on the same input: the field and each map's sweeps bitwise equal.
+    Returns the sweeps."""
+    before = wavefront_relax.launches
+    got, sweeps = wavefront_relax(d, bits, costs, cap)
+    launched = wavefront_relax.launches - before
+    want, want_sweeps = wavefront_relax_plain(d, bits, costs, cap)
+    if launched != 1:
+        fail(f"{label}: {launched} launches in one call, not 1")
+    if not (bitwise_equal(got, want) and torch.equal(sweeps, want_sweeps)):
+        fail(f"{label} cap {cap}: differs from the twin (max|diff| {max_err(got, want)!r}; "
+             f"sweeps {sweeps[:8].tolist()}, twin {want_sweeps[:8].tolist()})")
+    print(f"{label} cap {cap}: one launch; field and sweeps bitwise equal to the twin; sweeps "
+          f"per map max {int(sweeps.max())}, mean {float(sweeps.double().mean())!r}")
+    return sweeps
+
+
 def check_random_bits(label, rng, shape, dtype, ndirs, device, k=5):
-    """One launch on a random field and a random bit plane, every bit set
-    at random (off-map directions included), against the twin, bitwise:
-    the kernel must ignore what the twin's padded shift ignores."""
+    """On a random field and a random bit plane, every bit set at random
+    (off-map directions included), the field's values at most the sentinel
+    (the kernel's domain): one K-sweep launch, and one `wavefront_relax` call to convergence,
+    against their twins, bitwise: the kernel must ignore what the twin's
+    padded shift ignores, and offer the sentinel where the twin does."""
     npdt = np.float32 if dtype == torch.float32 else np.float64
     d = rng.uniform(0.0, 50.0, size=shape).astype(npdt)
     d[rng.uniform(size=shape) < 0.5] = sentinel(dtype)
@@ -354,7 +394,8 @@ def check_random_bits(label, rng, shape, dtype, ndirs, device, k=5):
     want, want_flags = wavefront_sweeps_plain(d, bits, k, costs)
     if not (bitwise_equal(got, want) and torch.equal(flags, want_flags)):
         fail(f"{label}: differs from the twin (max|diff| {max_err(got, want)!r})")
-    print(f"{label}: bitwise equal to the twin")
+    print(f"{label}: {k} sweeps bitwise equal to the twin")
+    check_relax_bitwise(f"{label} wavefront_relax", d, bits, costs, shape[1] * shape[2])
 
 
 def check_costs_equal(label, device, free, goals, **kw):
@@ -367,14 +408,15 @@ def check_costs_equal(label, device, free, goals, **kw):
     print(f"{label}: bitwise equal to the twin, {int(torch.isinf(got).sum())} unreachable cells")
 
 
-def wavefront_bound(sweeps, cells, ndirs, dtype, peaks):
-    """(bound_ms, bound_by) for `sweeps` sweeps over `cells` cells: the
-    field in and out and the bit plane once, against the add/select/min
-    operations over the peak rate."""
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    by_bytes = cells * (2 * itemsize + 1) / peaks["bytes_per_s"] * 1e3
-    ops = sweeps * cells * ndirs * WAVEFRONT_OPS_PER_DIRECTION
-    by_ops = ops / peaks["flops"][dtype] * 1e3
+def wavefront_bound(updates, cells, ndirs, peaks):
+    """(bound_ms, bound_by) for `updates` f32 cell updates (sweeps x cells,
+    summed over the maps) of fields of `cells` cells in all: the field in
+    and out and the bit plane once, against the operations of
+    WAVEFRONT_OPS_PER_* at one instruction per lane per clock."""
+    by_bytes = cells * (2 * 4 + 1) / peaks["bytes_per_s"] * 1e3
+    kinds = 2 if ndirs == 8 else 1
+    ops = updates * (ndirs * WAVEFRONT_OPS_PER_DIRECTION + kinds * WAVEFRONT_OPS_PER_KIND)
+    by_ops = ops / (peaks["flops"][torch.float32] / 2) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -479,7 +521,8 @@ def device_breakdown(label, fn, top=6):
     """Where one call's time goes: its host-clock time, then under
     torch.profiler the device's busy time, the span from its first to its
     last device event, the idle share of that span, and the `top` device
-    consumers by self time."""
+    consumers by self time. Returns {names: every device event's name,
+    host_ms, busy_ms, span_ms, idle}."""
     fn()
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -500,7 +543,8 @@ def device_breakdown(label, fn, top=6):
     consumers = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
     for e in consumers[:top]:
         print(f"  {e.self_device_time_total / 1e3!r} ms in {e.count} x {e.key[:90]}")
-    return names
+    return {"names": names, "host_ms": host_ms, "busy_ms": busy_ms, "span_ms": span_ms,
+            "idle": 1 - busy_ms / span_ms}
 
 
 def numpy_demo_golden(steps=330, dt=0.1):
@@ -798,11 +842,13 @@ def main() -> int:
     # 4. build every kernel, one nvcc per source, all at once
     kernels = {
         "ekf_scan": ekf_scan_lanes,
-        "wavefront_sweep": wavefront_sweeps,
+        "wavefront_sweep": wavefront_relax,
         "resample": systematic_resample_gather,
         "cholesky": cholesky_blocked,
     }
-    counted = (*kernels.values(), cholesky_blocked_large)
+    # B2's K-sweep entry and B5's entry launch the same kernels as
+    # wavefront_relax and cholesky_blocked, each with its own count
+    counted = (*kernels.values(), wavefront_sweeps, cholesky_blocked_large)
     start = time.perf_counter()
     per_source = _build.build(list(kernels))
     print(f"build: {time.perf_counter() - start!r} s wall; per source {per_source}")
@@ -885,7 +931,9 @@ def main() -> int:
     if not err <= 1e-9:
         fail(f"demo differs from the numpy golden by {err!r}")
 
-    # 9. the wavefront kernel (B2) against its twin, launch by launch, bitwise
+    # 9. the wavefront kernel (B2) against its twins, bitwise: K-sweep
+    # launches one by one, then wavefront_relax (one launch per call) to
+    # convergence and under caps of 12 and 37 sweeps
     grid_rng = np.random.default_rng(SEED + 1)
     free, goals = grid_workload(grid_rng, GRID_B, GRID_W, GRID_H, device)
     b2_err = check_sweeps_bitwise(
@@ -899,13 +947,33 @@ def main() -> int:
                          torch.float32)
     check_sweeps_bitwise("wavefront_sweep f64 B=2 512x512 tiled variant", big_free, big_goals,
                          torch.float64)
-    del big_free, big_goals
-    # 37x29 takes the resident kernel; 131x127 is just too large for it
-    for w, h in ((37, 29), (131, 127)):
-        variant = "resident" if resident_fits(w, h, torch.float32) else "tiled"
+    if (body(GRID_W, GRID_H, torch.float32), body(GRID_W, GRID_H, torch.float64)) != (
+            "registers", "resident"):
+        fail("the bench shape should take the register body in f32, shared memory in f64")
+    for label, (rf, rg), dtype in (
+            (f"wavefront_relax f32 B={GRID_B} {GRID_W}x{GRID_H} registers", (free, goals),
+             torch.float32),
+            (f"wavefront_relax f64 B=4 {GRID_W}x{GRID_H} resident", (free[:4], goals[:4]),
+             torch.float64),
+            ("wavefront_relax f32 B=2 512x512 tiled", (big_free, big_goals), torch.float32),
+            ("wavefront_relax f64 B=2 512x512 tiled", (big_free, big_goals), torch.float64)):
+        d0, bits, costs8 = sweep_operands(rf, rg, dtype)
+        for cap in (sweep_cap(rf.shape[1] * rf.shape[2], GRID_K), 12, 37):
+            check_relax_bitwise(label, d0, bits, costs8, cap)
+    # the f32 shared-memory body, on a map the register body cannot take
+    mid_free, mid_goals = grid_workload(grid_rng, 3, 400, 40, device)
+    if body(400, 40, torch.float32) != "resident":
+        fail("a 400x40 map should take the shared-memory body in f32")
+    d0, bits, costs8 = sweep_operands(mid_free, mid_goals, torch.float32)
+    for cap in (sweep_cap(400 * 40, GRID_K), 12, 37):
+        check_relax_bitwise("wavefront_relax f32 B=3 400x40 resident", d0, bits, costs8, cap)
+    del big_free, big_goals, mid_free, mid_goals, d0, bits
+    # 37x29 takes the register body in f32 and shared memory in f64, 400x40
+    # shared memory in both; 131x127 is just too large for one block
+    for w, h in ((37, 29), (400, 40), (131, 127)):
         for ndirs in (4, 8):
             for dtype in (torch.float32, torch.float64):
-                check_random_bits(f"wavefront_sweep {variant} {ndirs} directions {dtype} "
+                check_random_bits(f"wavefront_sweep {body(w, h, dtype)} {ndirs} directions {dtype} "
                                   f"B=3 {w}x{h} random bit plane", grid_rng, (3, w, h), dtype,
                                   ndirs, device)
     small_free, small_goals = grid_workload(grid_rng, 3, 32, 32, "cpu", p_blocked=0.25)
@@ -918,37 +986,57 @@ def main() -> int:
     check_costs_equal("wavefront_costs_fused 32x32 f64", device, small_free, small_goals,
                       dtype=torch.float64)
 
-    # 10. the grid main path at full width, counted
+    # 10. the grid main path at full width, counted: one B2 launch per
+    # call and no read of the device inside it (torch's sync debug mode
+    # raises on one), the field bitwise the CPU's
+    want_costs = wavefront_costs_fused(free.cpu(), goals.cpu())
     grid_launches = {}
-    for entry, call, k in (("wavefront_costs", wavefront_costs, 8),
-                           ("wavefront_costs_fused", wavefront_costs_fused, GRID_K)):
+    for entry, call in (("wavefront_costs", wavefront_costs),
+                        ("wavefront_costs_fused", wavefront_costs_fused)):
         for fn in counted:
             fn.launches = 0
-        costs = call(free, goals)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            costs = call(free, goals)
+        except RuntimeError as exc:
+            fail(f"{entry} waited on the device inside the call: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        grid_launches[entry] = {kname: fn.launches for kname, fn in kernels.items()}
-        print(f"grid main path ({entry}, {k} sweeps per launch) launches: {grid_launches[entry]}")
-        if grid_launches[entry]["wavefront_sweep"] < 1:
-            fail(f"kernel wavefront_sweep was not launched by {entry}")
-        if costs.shape != (GRID_B, GRID_W, GRID_H) or torch.isnan(costs).any():
-            fail(f"{entry}: bad field of shape {tuple(costs.shape)}")
-        if entry == "wavefront_costs":
-            first = costs
-        elif not bitwise_equal(costs, first):
-            fail("wavefront_costs and wavefront_costs_fused reach different fixpoints")
+        grid_launches[entry] = {fn.__name__: fn.launches for fn in counted}
+        print(f"grid main path ({entry}) launches: {grid_launches[entry]}; no device read "
+              f"inside the call")
+        if grid_launches[entry]["wavefront_relax"] != 1 or grid_launches[entry]["wavefront_sweeps"]:
+            fail(f"{entry} made {grid_launches[entry]} B2 launches, not one wavefront_relax")
+        if costs.shape != (GRID_B, GRID_W, GRID_H) or not bitwise_equal(costs.cpu(), want_costs):
+            fail(f"{entry} on cuda differs from the CPU's field")
+    print("grid main path: wavefront_costs and wavefront_costs_fused on cuda give bitwise the "
+          "CPU's field")
     finite = costs[torch.isfinite(costs)]
     if not bool((costs[:, -1, -1] == 0).all()) or finite.numel() < costs.numel() // 2:
         fail("the grid main path's fields do not spread from the goals")
-    sweeps_run = {entry: grid_launches[entry]["wavefront_sweep"] * k
-                  for entry, k in (("wavefront_costs", 8), ("wavefront_costs_fused", GRID_K))}
     d0, bits, costs8 = sweep_operands(free, goals, torch.float32)
     d, changed, sweeps_needed = d0, True, 0
     while changed:  # one sweep per launch: how many sweeps these maps need
         d, flags = wavefront_sweeps(d, bits, 1, costs8)
         changed = bool(flags.any())
         sweeps_needed += changed
+    grid_cap = sweep_cap(GRID_W * GRID_H, GRID_K)
+    _, map_sweeps = wavefront_relax(d0, bits, costs8, grid_cap)
+    sweeps_per_map = {"max": int(map_sweeps.max()), "mean": float(map_sweeps.double().mean()),
+                      "min": int(map_sweeps.min()), "sum": int(map_sweeps.sum())}
+    if sweeps_per_map["max"] != sweeps_needed + 1:
+        fail(f"the maps ran at most {sweeps_per_map['max']} sweeps; they need {sweeps_needed} "
+             f"and one that lowers nothing")
     bench_sweeps = max(int(float(finite.max()) / 1.0), 1)  # bench.py:166-167
     cells = GRID_B * GRID_W * GRID_H
+    relax_ms = time_ms(lambda: wavefront_relax(d0, bits, costs8, grid_cap), reps=10, bursts=5)
+    # the same maps in f64, which take the shared-memory body
+    d0_64, _, _ = sweep_operands(free, goals, torch.float64)
+    relax_f64_ms = time_ms(lambda: wavefront_relax(d0_64, bits, costs8, grid_cap), reps=10,
+                           bursts=3)
+    relax_plain_ms = time_ms(lambda: wavefront_relax_plain(d0, bits, costs8, grid_cap), reps=1,
+                             bursts=2)
     grid_kernel_ms = time_ms(lambda: wavefront_sweeps(d0, bits, GRID_K, costs8), reps=20, bursts=5)
     grid_plain_ms = time_ms(lambda: wavefront_sweeps_plain(d0, bits, GRID_K, costs8),
                             reps=2, bursts=3)
@@ -962,22 +1050,36 @@ def main() -> int:
             torch.cuda.synchronize()
             best = min(best, time.perf_counter() - start)
         call_s[entry] = best
-    grid_bound_ms, grid_bound_by = wavefront_bound(GRID_K, cells, 8, torch.float32, peaks)
-    fixpoint_bound_ms, fixpoint_bound_by = wavefront_bound(sweeps_needed, cells, 8,
-                                                           torch.float32, peaks)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid_bound_ms, grid_bound_by = wavefront_bound(GRID_K * cells, cells, 8, peaks)
+    relax_bound_ms, relax_bound_by = wavefront_bound(sweeps_per_map["sum"] * GRID_W * GRID_H,
+                                                     cells, 8, peaks)
+    fixpoint_bound_ms, fixpoint_bound_by = wavefront_bound(sweeps_needed * cells, cells, 8, peaks)
+    # one map per SM: the bound over the SMs that GRID_B maps can occupy
+    fixpoint_bound_maps_ms = fixpoint_bound_ms * sms / min(GRID_B, sms)
     relaxed = {entry: cells * bench_sweeps / s for entry, s in call_s.items()}
     print(
-        f"wavefront_sweep B={GRID_B} {GRID_W}x{GRID_H} f32 K={GRID_K} on {card}: kernel "
-        f"{grid_kernel_ms!r} ms per launch, twin {grid_plain_ms!r} ms, bound {grid_bound_ms!r} ms "
-        f"({grid_bound_by}; {WAVEFRONT_OPS_PER_DIRECTION} operations per direction at the "
-        f"f32 peak of {peaks['flops'][torch.float32]:.3g}/s), "
+        f"wavefront_relax B={GRID_B} {GRID_W}x{GRID_H} f32 on {card}: kernel {relax_ms!r} ms per "
+        f"call (one launch), twin {relax_plain_ms!r} ms, bound of the sweeps the maps ran "
+        f"{relax_bound_ms!r} ms ({relax_bound_by}; "
+        f"{8 * WAVEFRONT_OPS_PER_DIRECTION + 2 * WAVEFRONT_OPS_PER_KIND} operations a cell and "
+        f"sweep at {peaks['flops'][torch.float32] / 2:.3g} instructions/s), "
+        f"{relax_bound_ms / relax_ms:.4f} of the bound")
+    print(
+        f"wavefront_relax per sweep of the slowest map ({sweeps_per_map['max']} sweeps): f32 "
+        f"register body {relax_ms / sweeps_per_map['max'] * 1e3!r} us; f64 shared-memory body "
+        f"{relax_f64_ms / sweeps_per_map['max'] * 1e3!r} us ({relax_f64_ms!r} ms per call)")
+    print(
+        f"wavefront_sweeps K={GRID_K} (continuity): kernel {grid_kernel_ms!r} ms per launch, twin "
+        f"{grid_plain_ms!r} ms, bound {grid_bound_ms!r} ms ({grid_bound_by}), "
         f"{grid_bound_ms / grid_kernel_ms:.4f} of the bound")
     print(
-        f"grid main path: sweeps needed {sweeps_needed}, run {sweeps_run}; whole calls (host "
-        f"clock, flag reads included) {call_s} s; bound of the needed sweeps "
-        f"{fixpoint_bound_ms!r} ms ({fixpoint_bound_by}); cells relaxed/s as bench.py counts "
-        f"them ({bench_sweeps} sweeps): {relaxed}")
-    del d, d0, bits, costs, first, finite
+        f"grid main path: sweeps needed {sweeps_needed}; sweeps per map {sweeps_per_map}; whole "
+        f"calls (host clock) {call_s} s; bound of the needed sweeps {fixpoint_bound_ms!r} ms "
+        f"({fixpoint_bound_by}), over the {min(GRID_B, sms)} of {sms} SMs that {GRID_B} maps "
+        f"occupy {fixpoint_bound_maps_ms!r} ms; cells relaxed/s as bench.py counts them "
+        f"({bench_sweeps} sweeps): {relaxed}")
+    del d, d0, d0_64, bits, costs, want_costs, finite
 
     walled = np.ones((64, 64), bool)  # demos/benchmarks.py:69-83
     walled[20:44, 20] = False
@@ -1182,8 +1284,16 @@ def main() -> int:
 
     # where the two new main paths spend their time; last, because the
     # profiler slows the small kernels timed after it
-    device_breakdown("grid main path, one wavefront_costs_fused call",
-                     lambda: wavefront_costs_fused(free, goals))
+    grid_profile = {}
+    for entry, call in (("wavefront_costs", wavefront_costs),
+                        ("wavefront_costs_fused", wavefront_costs_fused)):
+        grid_profile[entry] = device_breakdown(f"grid main path, one {entry} call",
+                                               lambda: call(free, goals))
+        b2_events = [n for n in grid_profile[entry]["names"] if "relax_" in n]
+        grid_profile[entry]["b2_launches"] = len(b2_events)
+        print(f"B2 kernel launches in one {entry} call (profiler): {len(b2_events)} {b2_events}")
+        if len(b2_events) != 1:
+            fail(f"one {entry} call made {len(b2_events)} B2 device launches, not 1")
 
     def pf_main_step():
         stepped = pf_predict(belief, u, PF_DT, PF_CONTROL_NOISE, gen)
@@ -1195,13 +1305,19 @@ def main() -> int:
     device_breakdown("BA main path, one LM iteration (f32, n = 1200 retained)",
                      lambda: [fn() for fn in phases.values()])
     b4_events = device_breakdown("B4, one factorisation of the BA's retained system (n = 1200, f32)",
-                                 lambda: cholesky_blocked(ba_state["s"]))
+                                 lambda: cholesky_blocked(ba_state["s"]))["names"]
     print(f"B4 kernel launches per factorisation (profiler): {len(b4_events)} {b4_events}")
     if len(b4_events) != 1 or "chol_persistent" not in b4_events[0]:
         fail(f"one B4 factorisation made {len(b4_events)} device launches, not 1")
     chol_ptxas = {("float32" if "IfE" in k else "float64"): v
                   for k, v in ptxas_report("cholesky").items() if "chol_persistent" in k}
     print(f"ptxas cholesky: {chol_ptxas}")
+    b2_ptxas = {f"{kind} {'f64' if 'IdE' in k else 'f32'}": v
+                for k, v in ptxas_report("wavefront_sweep").items()
+                for kind in ("registers", "resident", "tiled") if f"relax_{kind}" in k}
+    print(f"ptxas wavefront_sweep: {b2_ptxas}")
+    if b2_ptxas["registers f32"]["spill_stores"] or b2_ptxas["registers f32"]["spill_loads"]:
+        fail(f"B2's register body spills: {b2_ptxas['registers f32']}")
 
     # 15. the kernels line
     no_library = "none: no single PyTorch call computes it"
@@ -1285,20 +1401,31 @@ def main() -> int:
         "route": "cuda",
         "source": "rust_robotics_tpu_torch/csrc/wavefront_sweep.cu",
         "replaces": "rust_robotics_tpu/ops/wavefront_pallas.py:39",
-        "launches": sum(c["wavefront_sweep"] for c in grid_launches.values()),
-        "launches_per_call": {e: c["wavefront_sweep"] for e, c in grid_launches.items()},
+        "launches": sum(c["wavefront_relax"] for c in grid_launches.values()),
+        "launches_per_call": {e: c["wavefront_relax"] for e, c in grid_launches.items()},
+        "launches_per_call_profiler": {e: p["b2_launches"] for e, p in grid_profile.items()},
         "max_abs_err": b2_err,
-        "ms": grid_kernel_ms,
-        "plain_ms": grid_plain_ms,
-        "bound_ms": grid_bound_ms,
-        "bound_by": grid_bound_by,
+        "ms": relax_ms,
+        "plain_ms": relax_plain_ms,
+        "bound_ms": relax_bound_ms,
+        "bound_by": relax_bound_by,
         "library_ms": None,
         "library": f"{no_library} (a masked min-plus stencil)",
-        "shape": {"B": GRID_B, "W": GRID_W, "H": GRID_H, "K": GRID_K, "dtype": "float32"},
+        "shape": {"B": GRID_B, "W": GRID_W, "H": GRID_H, "cap": grid_cap, "dtype": "float32"},
         "sweeps_needed": sweeps_needed,
-        "sweeps_run": sweeps_run,
+        "sweeps_per_map": sweeps_per_map,
+        "bound_ms_needed_sweeps": fixpoint_bound_ms,
+        "bound_ms_needed_sweeps_occupied_sms": fixpoint_bound_maps_ms,
+        "f64_shared_memory_body_ms": relax_f64_ms,
+        "us_per_sweep": {"f32_registers": relax_ms / sweeps_per_map["max"] * 1e3,
+                         "f64_shared_memory": relax_f64_ms / sweeps_per_map["max"] * 1e3},
+        "per_16_sweeps": {"ms": grid_kernel_ms, "plain_ms": grid_plain_ms,
+                          "bound_ms": grid_bound_ms},
         "call_s": call_s,
         "cells_relaxed_per_s": relaxed,
+        "profile": {e: {k: v for k, v in p.items() if k != "names"}
+                    for e, p in grid_profile.items()},
+        "ptxas": b2_ptxas,
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 

@@ -12,6 +12,8 @@ from rust_robotics_tpu_torch.ops.ekf_scan import (  # noqa: F401
 from rust_robotics_tpu_torch.ops.wavefront_sweep import (  # noqa: F401
     incoming_bits,
     wavefront_costs_fused,
+    wavefront_relax,
+    wavefront_relax_plain,
     wavefront_sweeps,
     wavefront_sweeps_plain,
 )

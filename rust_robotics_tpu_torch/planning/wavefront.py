@@ -9,7 +9,8 @@ Search is iterated Bellman-Ford relaxation over the occupancy raster: the
 cost-to-go field D satisfies D = min(D, shift_d(D) + c_d) over the motion
 directions, and its fixpoint is the Dijkstra/A* optimal cost at every
 reachable cell. The sweeps run in `ops/wavefront_sweep.py`: kernel B2
-(`csrc/wavefront_sweep.cu`) on CUDA tensors, its plain twin on CPU tensors.
+(`csrc/wavefront_sweep.cu`, one launch per call) on CUDA tensors, its
+plain twin on CPU tensors.
 
 `extract_path` walks down the field in a fixed number of steps with masks,
 so it never waits on the device inside the walk.
@@ -90,10 +91,11 @@ def wavefront_costs(free, goals, connectivity: int = 8, corner_cutting: bool = F
     free:  [..., W, H] bool traversability raster.
     goals: [..., W, H] bool goal cells (sources of the wavefront).
 
-    Runs `block` relaxation sweeps between convergence checks (one kernel
-    launch and one read of its per-map flags on CUDA). The first block
-    always runs; the loop stops after a block that changed nothing or once
-    `max_iters` sweeps have run, as the JAX `while_loop` does.
+    Runs `block` relaxation sweeps between convergence checks. The first
+    block always runs; the loop stops after a block that changed nothing or
+    once `max_iters` sweeps have run, as the JAX `while_loop` does. On CUDA
+    the same field comes from one kernel launch in which each map stops on
+    its own, with nothing read back (`ops.wavefront_sweep.wavefront_relax`).
     """
     from rust_robotics_tpu_torch.ops.wavefront_sweep import relax_wavefront
 

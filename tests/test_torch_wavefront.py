@@ -8,6 +8,9 @@ the same adds and mins in every implementation, so the values agree to the
 bit; the kernel on the card is held to the twin bitwise by chip_smoke.py.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -196,8 +199,145 @@ def test_kernel_matches_twin_on_cuda():
     for dtype in (torch.float32, torch.float64):
         want = ws.wavefront_costs_fused(torch.from_numpy(free), torch.from_numpy(goals),
                                         dtype=dtype)
-        before = ws.wavefront_sweeps.launches
+        before = ws.wavefront_relax.launches
         got = ws.wavefront_costs_fused(torch.from_numpy(free).cuda(),
                                        torch.from_numpy(goals).cuda(), dtype=dtype)
-        assert ws.wavefront_sweeps.launches > before
+        assert ws.wavefront_relax.launches == before + 1  # one launch per call
         assert torch.equal(got.cpu(), want)
+
+
+def sweep_operands(free, goals, dtype=torch.float64, connectivity=8, corner_cutting=False):
+    """(initial field, bit plane, costs) as `relax_wavefront` builds them."""
+    motions = twf._motions(connectivity, twf.SQRT2)
+    free, goals = torch.as_tensor(free), torch.as_tensor(goals)
+    bits = ws.incoming_bits(twf._incoming_masks(free, motions, corner_cutting)).contiguous()
+    d0 = torch.full(free.shape, ws.sentinel(dtype), dtype=dtype).masked_fill_(goals & free, 0.0)
+    return d0, bits, tuple(c for _, _, c in motions)
+
+
+def needed_sweeps(d, bits, costs):
+    """Sweeps that lower a cell of map d [1, W, H] before its fixed point."""
+    m = 0
+    while True:
+        d, lowered = ws.wavefront_sweeps_plain(d, bits, 1, costs)
+        if not bool(lowered.any()):
+            return m
+        m += 1
+
+
+RELAX_CASES = CASES | {"cap-37": (8, False, False, False, 37)}
+
+
+@pytest.mark.parametrize("case", RELAX_CASES, ids=list(RELAX_CASES))
+def test_relax_twin_matches_the_block_loop_and_jax(case):
+    """`wavefront_relax_plain` with the cap K·⌈max_iters/K⌉ (K=8) gives
+    bitwise the field of the CPU's K-sweep block loop and JAX's (XLA and
+    the Pallas kernel in interpret mode), each map stopping on its own."""
+    connectivity, corner_cutting, unbatched, wall, max_iters = RELAX_CASES[case]
+    free, goals = random_maps(seed=3)
+    if wall:
+        free[:, :, 10] = False
+    if unbatched:
+        free, goals = free[:1], goals[:1]
+    kw = dict(connectivity=connectivity, corner_cutting=corner_cutting, max_iters=max_iters)
+    d0, bits, costs = sweep_operands(free, goals, connectivity=connectivity,
+                                     corner_cutting=corner_cutting)
+    cap = ws.sweep_cap(free.shape[1] * free.shape[2] if max_iters is None else max_iters, 8)
+    before = ws.wavefront_relax.launches
+    got, sweeps = ws.wavefront_relax(d0, bits, costs, cap)
+    assert ws.wavefront_relax.launches == before  # CPU tensors run the twin
+    got = torch.where(got >= ws.sentinel(torch.float64), torch.inf, got)
+    loop = ws.wavefront_costs_fused(torch.from_numpy(free), torch.from_numpy(goals), k_sweeps=8,
+                                    dtype=torch.float64, **kw)
+    assert torch.equal(got, loop)
+    same_costs(got, jwf.wavefront_costs(jnp.asarray(free), jnp.asarray(goals), block=8, **kw))
+    same_costs(got, wavefront_costs_pallas(jnp.asarray(free), jnp.asarray(goals), k_sweeps=8,
+                                           interpret=True, **kw))
+    assert sweeps.dtype == torch.int32 and sweeps.shape == (free.shape[0],)
+    assert int(sweeps.max()) <= cap
+    if max_iters is not None:  # the cap binds on a map that a full run takes further
+        assert cap in sweeps.tolist()
+
+
+@pytest.mark.parametrize("cap", [None, 16, 37])
+def test_relax_twin_counts_each_maps_own_sweeps(cap):
+    """On maps that converge at different counts, each map runs its own
+    needed sweeps + 1 (the sweep that lowers nothing), or the cap when that
+    comes first, and ends with the field it reaches alone."""
+    free, goals = random_maps(b=4, w=24, h=20, p_free=0.8, seed=8)
+    goals[1] = False
+    goals[1, 12, 10] = free[1, 12, 10] = True  # a goal in the middle: half the distance
+    goals[2] = False  # no goal: nothing is lowered, one sweep
+    free[3, :, 5] = False  # a wall: the far side stays unreached
+    d0, bits, costs = sweep_operands(free, goals)
+    alone = [needed_sweeps(d0[i:i + 1], bits[i:i + 1], costs) for i in range(4)]
+    assert alone[2] == 0 and len(set(alone)) == 4
+    cap = 24 * 20 if cap is None else cap
+    got, sweeps = ws.wavefront_relax_plain(d0, bits, costs, cap)
+    assert sweeps.tolist() == [min(m + 1, cap) for m in alone]
+    for i in range(4):
+        want, _ = ws.wavefront_sweeps_plain(d0[i:i + 1], bits[i:i + 1], int(sweeps[i]), costs)
+        assert torch.equal(got[i:i + 1], want)
+    if cap < max(alone):
+        assert any(m + 1 > cap for m in alone) and any(m + 1 <= cap for m in alone)
+
+
+def test_relax_cap_rule_and_argument_checks():
+    assert [ws.sweep_cap(m, 8) for m in (-3, 0, 1, 8, 12, 37)] == [0, 0, 8, 8, 16, 40]
+    assert ws.sweep_cap(16384, 16) == 16384
+    free, goals = random_maps(b=2, w=9, h=12, seed=5)
+    d0, bits, costs = sweep_operands(free, goals)
+    same, none = ws.wavefront_relax(d0, bits, costs, 0)
+    assert torch.equal(same, d0) and none.tolist() == [0, 0]
+    with pytest.raises(ValueError, match="max_sweeps"):
+        ws.wavefront_relax(d0, bits, costs, -1)
+    with pytest.raises(TypeError, match="uint8"):
+        ws.wavefront_relax(d0, bits.bool(), costs, 4)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ws.wavefront_relax(d0.to("meta"), bits.to("meta"), costs, 4)
+    # the kernel's launch refuses a cost that does not vanish beside the
+    # sentinel (1e32 against the f32 sentinel's spacing of ~1e31)
+    with pytest.raises(ValueError, match="vanish"):
+        ws._launch(d0.float(), bits, costs[:4] + (1e32,) * 4, 4)
+
+
+def test_kernel_bodies_by_shape_and_dtype():
+    """f32 maps of at most 32 warps of 32 rows x 16 columns take the
+    register body, other maps that fit one block the shared-memory body,
+    the rest the tiled variant; the constants match the kernel source."""
+    f32, f64 = torch.float32, torch.float64
+    assert [ws.body(w, h, f32) for w, h in ((128, 128), (37, 29), (512, 32), (400, 40),
+                                            (131, 127), (512, 512))] == [
+        "registers", "registers", "registers", "resident", "tiled", "tiled"]
+    assert [ws.body(w, h, f64) for w, h in ((128, 128), (37, 29), (512, 512))] == [
+        "resident", "resident", "tiled"]
+    for w in range(1, 600, 7):
+        for h in range(1, 300, 11):
+            if ws.registers_fit(w, h, f32):
+                assert ws.resident_fits(w, h, f32)
+    source = (pathlib.Path(ws.__file__).parents[1] / "csrc" / "wavefront_sweep.cu").read_text()
+    constant = {name: int(re.search(rf"constexpr int {name} = (\d+)", source).group(1))
+                for name in ("kThreads", "kPerThread", "kStrip")}
+    assert constant["kStrip"] == ws.REGISTER_STRIP
+    assert constant["kThreads"] // 32 == ws.REGISTER_MAX_WARPS
+    assert constant["kThreads"] * constant["kPerThread"] == ws.RESIDENT_MAX_CELLS
+
+
+@pytest.mark.cuda
+def test_relax_kernel_matches_twin_on_cuda():
+    """One launch per call, field and per-map sweeps bitwise the twin's, on
+    the register body (32x32 f32), the shared-memory body (32x32 f64,
+    400x40 f32) and the tiled variant (140x130), with and without a
+    binding cap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode (chip_smoke.py runs it)")
+    for w, h in ((32, 32), (400, 40), (140, 130)):
+        free, goals = random_maps(b=3, w=w, h=h, seed=9)
+        for dtype in (torch.float32, torch.float64):
+            d0, bits, costs = sweep_operands(free, goals, dtype)
+            for cap in (w * h, 12, 37):
+                want = ws.wavefront_relax_plain(d0, bits, costs, cap)
+                before = ws.wavefront_relax.launches
+                got = ws.wavefront_relax(d0.cuda(), bits.cuda(), costs, cap)
+                assert ws.wavefront_relax.launches == before + 1
+                assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
