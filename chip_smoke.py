@@ -67,8 +67,21 @@ any failure exits non-zero before the final line.
     (device busy and idle share, top device consumers), and of one B4
     factorisation, which must be one kernel launch; ptxas's registers and
     spills of B2's bodies (the register body must not spill);
-15. one JSON line `{"kernels": [...]}`;
-16. the last line, `{"ok": true, "device": {...}}`.
+15. bench.py's four pose-graph workloads (bench.py:113-117; no kernel on
+    their path), f32 on cuda, LM at most 25 iterations, tolerance 1e-8: the
+    10k chain through `chain_direct` (RMSE < 5e-3, warm time best of 2,
+    iterations, the same solve in f64 on cuda and on the CPU within
+    PG_F64_ATOL, one LM step under sync debug mode "error", the device
+    reads of a whole solve counted under "warn", one step's profile and
+    launches); the 100k chain (the auto rule's nested solve, by counter;
+    RMSE < 5e-3); 256 distinct 200-pose graphs in lock-step (worst RMSE,
+    graphs/s, three lanes equal to their solo solves); the 100x100 grid
+    with 50 closures through `banded_direct` (the plan, RMSE < 2.2e-3, at
+    least 3 iterations, one step's profile) and `direct`'s routes on the
+    grid and a 2000-pose chain, by counter; then one JSON line
+    `{"pose_graph": {...}}`;
+16. one JSON line `{"kernels": [...]}`;
+17. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -79,6 +92,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -124,6 +138,8 @@ from rust_robotics_tpu_torch.ops.wavefront_sweep import (
     wavefront_sweeps,
     wavefront_sweeps_plain,
 )
+from rust_robotics_tpu_torch.demos import pose_graph_bench
+from rust_robotics_tpu_torch.nlls import banded, tridiag
 from rust_robotics_tpu_torch.planning.grid import grid_from_raster
 from rust_robotics_tpu_torch.planning.wavefront import (
     SQRT2,
@@ -136,6 +152,11 @@ from rust_robotics_tpu_torch.slam.bundle_adjustment import (
     CameraIntrinsics,
     build_bundle_adjustment,
     bundle_adjust,
+)
+from rust_robotics_tpu_torch.slam.pose_graph import (
+    optimize_pose_graph_2d,
+    se2_edge_residual,
+    se2_retract,
 )
 
 SEED = 0
@@ -236,6 +257,25 @@ BA_CAMERA_NOISE, BA_POINT_NOISE = 0.01, 0.05
 # evaluation, a few times that after the solve)
 BA_RMSE_LIMIT_F32 = 1e-3
 BA_F64_ATOL = 1e-8  # pallas_chol against dense, cameras and points
+
+# bench.py's four pose-graph rows (bench.py:113-117), with the LM settings
+# of benchmark_large_pose_graph.rs:66-75 (25 iterations, tolerance 1e-8)
+PG_CHAIN, PG_NESTED, PG_GRID = 10000, 100000, (100, 100, 50)
+PG_SERVING = (200, 256)  # poses, graphs
+PG_ITERATIONS, PG_TOLERANCE = 25, 1e-8
+PG_CHAIN_RMSE = 5e-3  # benchmark_large_pose_graph.rs:97 (tests/test_tridiag.py:170)
+PG_REFERENCE_RMSE = 2.2e-3  # the reference's measured 10k RMSE (README.md:728-730)
+PG_GRID_RMSE, PG_GRID_MIN_ITERATIONS = 2.2e-3, 3  # tests/test_banded.py:153-168
+# f64 on cuda against f64 on the CPU, the 10k chain's poses: the two runs
+# take the same steps, and each step's solve carries a rounding error of
+# ~kappa·eps of the step, kappa ~ n^2 = 1e8 for a 10k chain: 1e8 · 1.1e-16 ·
+# 0.05 (a first step) ~ 6e-10 a step, < 2e-8 over 25 steps; 1e-6 leaves 50x.
+PG_F64_ATOL = 1e-6
+# a serving lane against its solo solve, f32 poses: both solve the same
+# 200-pose graph in f32 and each ends within a few ulps of the truth (an
+# ulp at the chain's 10 m extent is 9.5e-7); 1e-5 is ~10 ulps.
+PG_LANE_ATOL_F32 = 1e-5
+PG_LANES = (0, 127, 255)
 
 
 def fail(msg: str):
@@ -818,6 +858,197 @@ def phase_times(phases, bursts=3):
     return best
 
 
+def chain_problem_on(device, dtype, size):
+    """The benchmark chain as `solve_chain_lm`'s arguments on `device`."""
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_chain(size)
+    cm, ci, lf, lt, lm, li = tridiag.classify_chain_edges(size, ef, et, meas, info)
+    t = lambda a, dt=dtype: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+    fixed = torch.zeros(size, dtype=torch.bool, device=device)
+    fixed[0] = True
+    return truth, t(initial), (t(cm), t(ci), t(lf, torch.int64), t(lt, torch.int64), t(lm),
+                               t(li), fixed)
+
+
+PG_LM = dict(residual_fn=se2_edge_residual, retract_fn=se2_retract, tdim=3,
+             gradient_tolerance=PG_TOLERANCE, step_tolerance=PG_TOLERANCE,
+             cost_tolerance=PG_TOLERANCE**2)
+
+
+def pose_graph_phase(card, device):
+    """bench.py's four pose-graph workloads on the port, f32 on cuda (phase
+    15); returns their numbers for the JSON line."""
+    out = {"card": card}
+
+    # 1. the 10k chain through chain_direct
+    size = PG_CHAIN
+    seconds, err, summary = pose_graph_bench.run_large_benchmark(
+        size, PG_ITERATIONS, PG_TOLERANCE, device=device, runs=2)
+    print(f"pose graph {size} chain f32 chain_direct on {card}: RMSE {err!r} (gate "
+          f"{PG_CHAIN_RMSE}; the reference measured {PG_REFERENCE_RMSE}, README.md:728-730); "
+          f"warm {seconds!r} s host clock (best of 2); {summary.iterations} LM iterations, "
+          f"{seconds / summary.iterations!r} s each; {summary}")
+    if not err < PG_CHAIN_RMSE:
+        fail(f"10k chain RMSE {err!r} >= {PG_CHAIN_RMSE}")
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_chain(size)
+    f64 = {}
+    for where in (device, "cpu"):
+        start = time.perf_counter()
+        poses, s64 = optimize_pose_graph_2d(initial, ef, et, meas, info, PG_ITERATIONS,
+                                            PG_TOLERANCE, "chain_direct", device=where,
+                                            dtype=torch.float64)
+        f64[str(where)] = poses.cpu().numpy()
+        print(f"pose graph {size} chain f64 on {card if where == device else 'the CPU'}: "
+              f"{time.perf_counter() - start!r} s host clock (first f64 call included); "
+              f"RMSE {pose_graph_bench.rmse(f64[str(where)], truth)!r}; {s64}")
+    f64_diff = float(np.abs(f64[str(device)] - f64["cpu"]).max())
+    print(f"pose graph {size} chain f64: cuda against the CPU max|diff| {f64_diff!r} (atol "
+          f"{PG_F64_ATOL})")
+    if not f64_diff <= PG_F64_ATOL:
+        fail(f"10k chain f64 cuda against CPU: max|diff| {f64_diff!r} > {PG_F64_ATOL}")
+    # the step reads nothing back (sync debug mode "error" raises on a read);
+    # the whole solve's reads are the loop's done.all(), one an iteration
+    _, init_d, args = chain_problem_on(device, torch.float32, size)
+    state, step = tridiag.chain_lm_start(init_d[None], *args, **PG_LM)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("pose graph 10k chain: one LM step under torch.cuda.set_sync_debug_mode('error'): "
+          "no device read")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, s_sync = tridiag.solve_chain_lm(init_d, *args, max_iterations=PG_ITERATIONS,
+                                               **PG_LM)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"pose graph 10k chain: device reads in one solve_chain_lm call {reads} for "
+          f"{int(s_sync.iterations)} LM iterations (the loop's done.all())")
+    if reads > int(s_sync.iterations):
+        fail(f"solve_chain_lm read the device {reads} times in {int(s_sync.iterations)} "
+             "iterations")
+    prof = device_breakdown(f"pose graph 10k chain, one LM step (f32) on {card}",
+                            lambda: step(state))
+    print(f"pose graph 10k chain: {len(prof['names'])} device launches per LM iteration")
+    out["chain_10k"] = {"seconds": seconds, "rmse": err, "iterations": summary.iterations,
+                        "termination": summary.termination, "f64_cuda_vs_cpu": f64_diff,
+                        "device_reads_per_solve": reads,
+                        "launches_per_iteration": len(prof["names"]),
+                        "profile": {k: v for k, v in prof.items() if k != "names"}}
+    del state, step, init_d, args
+
+    # 2. the 100k chain: the auto rule takes the nested solve
+    calls = tridiag.chain_nested_solve.calls
+    seconds, err, summary = pose_graph_bench.run_large_benchmark(
+        PG_NESTED, PG_ITERATIONS, PG_TOLERANCE, device=device)
+    nested = tridiag.chain_nested_solve.calls - calls
+    print(f"pose graph {PG_NESTED} chain f32 on {card}: RMSE {err!r} (gate {PG_CHAIN_RMSE}); "
+          f"warm {seconds!r} s host clock; {summary.iterations} LM iterations; "
+          f"chain_nested_solve calls {nested} over the warm-up and the timed solve; {summary}")
+    if nested < 2 * summary.iterations:
+        fail(f"the 100k chain made {nested} nested solves in 2 x {summary.iterations} iterations")
+    if not err < PG_CHAIN_RMSE:
+        fail(f"100k chain RMSE {err!r} >= {PG_CHAIN_RMSE}")
+    _, init_d, args = chain_problem_on(device, torch.float32, PG_NESTED)
+    state, step = tridiag.chain_lm_start(init_d[None], *args, **PG_LM)
+    prof = device_breakdown(f"pose graph 100k chain, one nested LM step (f32) on {card}",
+                            lambda: step(state))
+    out["chain_100k_nested"] = {"seconds": seconds, "rmse": err,
+                                "iterations": summary.iterations,
+                                "nested_calls": nested,
+                                "launches_per_iteration": len(prof["names"]),
+                                "profile": {k: v for k, v in prof.items() if k != "names"}}
+    del state, step, init_d, args
+
+    # 3. serving: 256 distinct 200-pose graphs in lock-step
+    size, batch = PG_SERVING
+    seconds, worst, rate, values, summ = pose_graph_bench.run_batched_benchmark(
+        size, batch, PG_ITERATIONS, PG_TOLERANCE, device=device, runs=2)
+    terms = np.bincount(summ.termination_code.cpu().numpy(), minlength=5).tolist()
+    print(f"pose graph serving {batch} x {size} f32 on {card}: worst RMSE {worst!r}; "
+          f"{rate!r} graphs/s ({seconds!r} s warm, best of 2); iterations max "
+          f"{int(summ.iterations.max())} mean {float(summ.iterations.float().mean())!r}; "
+          f"terminations {terms} (codes 0-4)")
+    if not worst < PG_CHAIN_RMSE:
+        fail(f"serving worst RMSE {worst!r} >= {PG_CHAIN_RMSE}")
+    _, init_b, args = pose_graph_bench.batched_problem(size, batch, device)
+    lanes = {}
+    for k in PG_LANES:
+        solo, ss = tridiag.solve_chain_lm(init_b[k], *args, max_iterations=PG_ITERATIONS,
+                                          **PG_LM)
+        lane = (int(summ.iterations[k]), int(summ.termination_code[k]))
+        diff = float((solo - values[k]).abs().max())
+        lanes[k] = {"batch": lane, "solo": (int(ss.iterations), int(ss.termination_code)),
+                    "max_abs_diff": diff}
+        print(f"pose graph serving lane {k}: batch (iterations, termination) {lane}, solo "
+              f"{lanes[k]['solo']}, poses max|diff| {diff!r} (atol {PG_LANE_ATOL_F32})")
+        if lanes[k]["solo"] != lane or not diff <= PG_LANE_ATOL_F32:
+            fail(f"serving lane {k} differs from its solo solve: {lanes[k]}")
+    state, step = tridiag.chain_lm_start(init_b, *args, **PG_LM)
+    prof = device_breakdown(f"pose graph serving, one lock-step LM step ({batch} graphs)",
+                            lambda: step(state))
+    out["serving"] = {"seconds": seconds, "worst_rmse": worst, "graphs_per_s": rate,
+                      "terminations": terms, "lanes": lanes,
+                      "launches_per_iteration": len(prof["names"]),
+                      "profile": {k: v for k, v in prof.items() if k != "names"}}
+    del state, step, init_b, args, values
+
+    # 4. the 100x100 grid through banded_direct
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_grid(*PG_GRID)
+    plan = banded.plan_banded(len(truth), ef, et)
+    print(f"pose graph grid {PG_GRID[0]}x{PG_GRID[1]} + {PG_GRID[2]} closures: plan supernode "
+          f"{plan.supernode}, {plan.num_super} supernodes, bandwidth {plan.bandwidth}, "
+          f"{int(plan.in_band.sum())} edges in band, {int((~plan.in_band).sum())} demoted to the "
+          f"Woodbury correction")
+    seconds, err, summary = pose_graph_bench.run_grid_benchmark(
+        *PG_GRID, PG_ITERATIONS, PG_TOLERANCE, device=device, runs=2)
+    print(f"pose graph grid f32 banded_direct on {card}: RMSE {err!r} (gate {PG_GRID_RMSE}); "
+          f"warm {seconds!r} s host clock (best of 2); {summary.iterations} LM iterations, "
+          f"{seconds / summary.iterations!r} s each; {summary}")
+    if not (err < PG_GRID_RMSE and summary.iterations >= PG_GRID_MIN_ITERATIONS):
+        fail(f"grid: RMSE {err!r}, {summary.iterations} iterations")
+    fixed = np.zeros(len(truth), bool)
+    fixed[0] = True
+    plan, values_b, args = banded.banded_problem(
+        torch.tensor(initial, dtype=torch.float32, device=device)[None], ef, et, meas, info,
+        fixed, tdim=3)
+    state, step = banded.banded_lm_start(values_b, *args, supernode=plan.supernode,
+                                         num_super=plan.num_super, **PG_LM)
+    prof = device_breakdown(f"pose graph grid, one banded LM step (f32) on {card}",
+                            lambda: step(state))
+    del state, step, values_b, args
+    routes = {}
+    for label, graph in (("grid", (truth, initial, ef, et, meas, info)),
+                         ("chain 2000", pose_graph_bench.synthesize_chain(2000))):
+        calls = (tridiag.solve_chain_lm.calls, banded.solve_banded_lm.calls)
+        g_truth, g_init, g_ef, g_et, g_meas, g_info = graph
+        poses, s_direct = optimize_pose_graph_2d(g_init, g_ef, g_et, g_meas, g_info,
+                                                 PG_ITERATIONS, PG_TOLERANCE, "direct",
+                                                 device=device)
+        routes[label] = {"chain": tridiag.solve_chain_lm.calls - calls[0],
+                         "banded": banded.solve_banded_lm.calls - calls[1],
+                         "rmse": pose_graph_bench.rmse(poses.cpu().numpy(), g_truth)}
+        print(f"pose graph direct on the {label}: solve_chain_lm calls {routes[label]['chain']}, "
+              f"solve_banded_lm calls {routes[label]['banded']}; RMSE {routes[label]['rmse']!r}")
+    if (routes["grid"]["chain"], routes["grid"]["banded"]) != (0, 1) or \
+            (routes["chain 2000"]["chain"], routes["chain 2000"]["banded"]) != (1, 0):
+        fail(f"direct took the wrong routes: {routes}")
+    out["grid_10k"] = {"seconds": seconds, "rmse": err, "iterations": summary.iterations,
+                       "plan": {"supernode": plan.supernode, "num_super": plan.num_super,
+                                "bandwidth": plan.bandwidth,
+                                "in_band": int(plan.in_band.sum()),
+                                "woodbury": int((~plan.in_band).sum())},
+                       "direct_routes": routes,
+                       "launches_per_iteration": len(prof["names"]),
+                       "profile": {k: v for k, v in prof.items() if k != "names"}}
+    return out
+
+
 def main() -> int:
     # 1. the card
     smi = subprocess.run(
@@ -1319,7 +1550,10 @@ def main() -> int:
     if b2_ptxas["registers f32"]["spill_stores"] or b2_ptxas["registers f32"]["spill_loads"]:
         fail(f"B2's register body spills: {b2_ptxas['registers f32']}")
 
-    # 15. the kernels line
+    # 15. bench.py's four pose-graph workloads (no kernel on their path)
+    print(json.dumps({"pose_graph": pose_graph_phase(card, device)}))
+
+    # 16. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -1429,7 +1663,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 16. the result
+    # 17. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

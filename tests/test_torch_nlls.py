@@ -227,9 +227,11 @@ def test_unknown_kernel_and_solver_raise():
 
 
 def test_not_yet_ported_names_say_which_slice():
-    for name in ("solve_device", "solve_chain_lm", "implicit_vjp"):
+    for name in ("solve_device", "implicit_vjp", "solve_implicit"):
         with pytest.raises(AttributeError, match="slice 4"):
             getattr(tn, name)
+    for name in ("solve_chain_lm", "block_tridiag_solve", "classify_chain_edges"):
+        assert callable(getattr(tn, name))
 
 
 @pytest.mark.parametrize("linear_solver", ["dense", "pcg", "matfree_pcg"])
@@ -247,10 +249,17 @@ def test_pose_graph_2d_chain_matches_jax(linear_solver):
 
 
 def test_pose_graph_routes_of_a_later_slice_raise():
+    """The chain routes are ported; the SPIKE-chunked ladder (chunks > 1)
+    is not, and `refine` belongs to chain_direct alone, as in JAX."""
     _, initial, ef, et, meas, _ = synthesize_chain(5)
-    for solver in ("direct", "chain_direct", "banded_direct"):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            tpg.optimize_pose_graph_2d(initial, ef, et, meas, linear_solver=solver, device="cpu")
+    for solver in ("direct", "chain_direct"):
+        with pytest.raises(NotImplementedError, match="SPIKE"):
+            tpg.optimize_pose_graph_2d(initial, ef, et, meas, linear_solver=solver, chunks=2,
+                                       device="cpu")
+    for solver in ("banded_direct", "dense"):
+        with pytest.raises(ValueError, match="refine"):
+            tpg.optimize_pose_graph_2d(initial, ef, et, meas, linear_solver=solver, refine=1,
+                                       device="cpu")
 
 
 def test_se3_edge_residual_and_retract_match_jax():

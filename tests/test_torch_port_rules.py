@@ -57,7 +57,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         default_ekf_noise,
         run_ekf_localization_demo,
     )
+    from rust_robotics_tpu_torch.demos import pose_graph_bench
     from rust_robotics_tpu_torch.nlls import SolverConfig
+    from rust_robotics_tpu_torch.nlls.tridiag import build_w_inv, nested_partition
     from rust_robotics_tpu_torch.planning import grid
     from rust_robotics_tpu_torch.slam.bundle_adjustment import CameraIntrinsics, bundle_adjust
     from rust_robotics_tpu_torch.slam.pose_graph import optimize_pose_graph_2d
@@ -83,6 +85,15 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
             config=SolverConfig(max_iterations=1), **kw)[1],
         "optimize_pose_graph_2d": lambda **kw: optimize_pose_graph_2d(
             poses, ef, et, meas, max_iterations=1, **kw)[0],
+        **{f"optimize_pose_graph_2d {solver}": (
+            lambda solver=solver, **kw: optimize_pose_graph_2d(
+                poses, ef, et, meas, max_iterations=1, linear_solver=solver, **kw)[0])
+           for solver in ("chain_direct", "banded_direct", "direct")},
+        "nested_partition": lambda **kw: nested_partition(6, np.array([0]), np.array([3]),
+                                                          **kw).bounds,
+        "build_w_inv": lambda **kw: build_w_inv(None, 2, 3, torch.float32, **kw),
+        "run_batched_benchmark": lambda **kw: pose_graph_bench.run_batched_benchmark(
+            size=4, batch=2, max_iterations=1, **kw)[3],
         "convert.bundle_from_numpy": lambda **kw: convert.bundle_from_numpy(
             cams, points, cam_idx, pt_idx, pixels, **kw)[2],
         "convert.pose_graph_from_numpy": lambda **kw: convert.pose_graph_from_numpy(
