@@ -80,8 +80,24 @@ any failure exits non-zero before the final line.
     least 3 iterations, one step's profile) and `direct`'s routes on the
     grid and a 2000-pose chain, by counter; then one JSON line
     `{"pose_graph": {...}}`;
-16. one JSON line `{"kernels": [...]}`;
-17. the last line, `{"ok": true, "device": {...}}`.
+16. the SLAM back end (no kernel on its path): (a) the anchored 10k SE(3)
+    chain in f32 (RMSE < 1e-4, gradient_converged, warm time best of 2, the
+    rounds and LM iterations by counter, one LM step with no device read
+    and its profile, the reads of a whole solve) and the plain 1k SE(3)
+    chain in f64 (RMSE < 1e-6); (b) implicit gradients in f64: the 10k
+    chain (finite, g[9998] nonzero, cuda = CPU within IFT_CUDA_CPU_REL =
+    1e-7 of max|g|, derived there; the f32 call timed), the 100x100 grid
+    (finite, the last pose's edges nonzero) and a finite-difference pin on
+    a 12-pose chain with two closures; (c)
+    `solve_device` on the 1000-pose chain, dense and matfree_pcg: f64
+    equal to `solve` (termination, iterations, poses within 1e-7), one
+    iteration with no device read, the reads of a whole solve, f32 times;
+    (d) ICP: bench_icp's workload converges; 256 pairs of 1000 points in
+    lock-step all converge, three lanes equal their solo runs, pair 0
+    equals the CPU's within 1e-5; then one JSON line
+    `{"slam_backend": {...}}`;
+17. one JSON line `{"kernels": [...]}`;
+18. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -153,10 +169,18 @@ from rust_robotics_tpu_torch.slam.bundle_adjustment import (
     build_bundle_adjustment,
     bundle_adjust,
 )
+from rust_robotics_tpu_torch.core import lie_np
+from rust_robotics_tpu_torch.nlls.implicit import pose_graph_implicit_vjp
+from rust_robotics_tpu_torch.slam.icp import icp_matching
 from rust_robotics_tpu_torch.slam.pose_graph import (
+    anchored_measurements,
+    build_pose_graph_2d,
     optimize_pose_graph_2d,
+    optimize_pose_graph_3d,
     se2_edge_residual,
     se2_retract,
+    se3_anchored_edge_residual,
+    se3_retract,
 )
 
 SEED = 0
@@ -276,6 +300,48 @@ PG_F64_ATOL = 1e-6
 # ulp at the chain's 10 m extent is 9.5e-7); 1e-5 is ~10 ulps.
 PG_LANE_ATOL_F32 = 1e-5
 PG_LANES = (0, 127, 255)
+
+# The SLAM back end (phase 16). SE(3): the anchored 10k chain in f32 and the
+# plain 1k chain in f64, LM at most 25 iterations, tolerance 1e-10; the RMSE
+# gates and the termination are tests/test_tridiag.py:467-486 (JAX measured
+# 3.4e-5) and :308-350.
+SE3_CHAIN, SE3_CHAIN_F64 = 10000, 1000
+SE3_ITERATIONS, SE3_TOLERANCE = 25, 1e-10
+SE3_RMSE_F32, SE3_RMSE_F64 = 1e-4, 1e-6
+# Implicit gradients in f64 at the sizes tests/test_implicit.py advertises:
+# the 10k chain solved for 15 iterations (:247-270), the 100x100 grid with 50
+# closures (:220-245), and the finite-difference pin on the 12-pose chain
+# with two closures (:81-118: eps 1e-6, rtol 5e-4, atol 1e-7).
+IFT_CHAIN, IFT_GRID, IFT_ITERATIONS, IFT_TOLERANCE = 10000, (100, 100, 50), 15, 1e-12
+IFT_MIN_GRAD = 1e-8
+# cuda against the CPU, the 10k chain's f64 gradient, relative to its
+# largest entry: the same undamped solve in another summation order, each
+# off the exact one by ~kappa·eps, kappa ~ n^2 = 1e8 for a 10k chain: 1e8 ·
+# 1.1e-16 = 1.1e-8 (2.3e-8 measured on the H100); 1e-7 leaves ~4x.
+IFT_CUDA_CPU_REL = 1e-7
+# the text of torch's one-time notice on entering sync debug mode, which
+# `reads_in` does not count as a read
+SYNC_DEBUG_NOTICE = "debug mode is a prototype feature"
+FD_EPS, FD_RTOL, FD_ATOL = 1e-6, 5e-4, 1e-7
+FD_CHECKS = ((0, 0), (5, 1), (10, 2), (11, 0), (12, 1))  # edge, component; 11, 12 are loops
+# solve_device against solve on the 1000-pose benchmark chain, f64 (the
+# configuration of tests/test_nlls.py:193-215 with a PCG budget of 200);
+# poses within 1e-7 as there.
+SD_CHAIN, SD_ATOL_F64 = 1000, 1e-7
+SD_CONFIG = dict(method="lm", max_iterations=25, gradient_tolerance=1e-10, step_tolerance=1e-10,
+                 cost_tolerance=1e-14, pcg_max_iterations=200, pcg_tolerance=1e-10)
+# ICP: bench_icp's workload (demos/benchmarks.py:228-242: 120 points in
+# [0, 10)^2, a 0.3 rad turn, shift (1, -0.5)), then a fleet of 256 pairs of
+# 1000 points in [0, 10)^2, turns in +-0.1 rad, 0.1 m shifts, f32.
+ICP_BENCH = (120, 0.3, (1.0, -0.5))
+ICP_FLEET, ICP_POINTS, ICP_TURN, ICP_SHIFT = 256, 1000, 0.1, 0.1
+ICP_LANES = (0, 97, 255)
+# a lane against its solo run: the arithmetic is batch-invariant, so the two
+# are equal; 1e-6 is ~8 ulps of a transform entry of ~1
+ICP_LANE_ATOL = 1e-6
+# one pair on cuda against the CPU, f32: the same steps, elementwise
+# rounding may differ (FMA contraction), ~1e-6 at the end; 1e-5 leaves 10x
+ICP_CUDA_CPU_ATOL = 1e-5
 
 
 def fail(msg: str):
@@ -858,6 +924,51 @@ def phase_times(phases, bursts=3):
     return best
 
 
+def reads_in(fn, sites=None):
+    """fn() under torch's sync debug mode "warn": (its result, the number of
+    synchronizing operations it ran, each a device read). Every warning that
+    names a synchronizing operation counts, wherever it is raised, except
+    torch's notice that the debug mode is a prototype: set_sync_debug_mode
+    gives it once a process, on the first call with "warn" or "error", and
+    it is no operation. With a dict `sites`, count every read's calling
+    line there."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reads = [w for w in caught if "synchroniz" in str(w.message)
+             and SYNC_DEBUG_NOTICE not in str(w.message)]
+    for w in reads if sites is not None else ():
+        site = f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+    return out, len(reads)
+
+
+def no_read_in(label, fn):
+    """fn() under sync debug mode "error", where a device read raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"{label}: no device read under torch.cuda.set_sync_debug_mode('error')")
+    return out
+
+
+def timed(fn):
+    """(host seconds, fn()) with the device synchronised at both ends."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - start, out
+
+
 def chain_problem_on(device, dtype, size):
     """The benchmark chain as `solve_chain_lm`'s arguments on `device`."""
     truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_chain(size)
@@ -909,24 +1020,9 @@ def pose_graph_phase(card, device):
     # the whole solve's reads are the loop's done.all(), one an iteration
     _, init_d, args = chain_problem_on(device, torch.float32, size)
     state, step = tridiag.chain_lm_start(init_d[None], *args, **PG_LM)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        step(state)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    print("pose graph 10k chain: one LM step under torch.cuda.set_sync_debug_mode('error'): "
-          "no device read")
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            _, s_sync = tridiag.solve_chain_lm(init_d, *args, max_iterations=PG_ITERATIONS,
-                                               **PG_LM)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    reads = sum("synchroniz" in str(w.message) for w in caught)
+    no_read_in("pose graph 10k chain, one LM step", lambda: step(state))
+    (_, s_sync), reads = reads_in(lambda: tridiag.solve_chain_lm(
+        init_d, *args, max_iterations=PG_ITERATIONS, **PG_LM))
     print(f"pose graph 10k chain: device reads in one solve_chain_lm call {reads} for "
           f"{int(s_sync.iterations)} LM iterations (the loop's done.all())")
     if reads > int(s_sync.iterations):
@@ -1046,6 +1142,286 @@ def pose_graph_phase(card, device):
                        "direct_routes": routes,
                        "launches_per_iteration": len(prof["names"]),
                        "profile": {k: v for k, v in prof.items() if k != "names"}}
+    return out
+
+
+def se3_part(card, device):
+    """(a) The anchored 10k SE(3) chain in f32 and the plain 1k chain in f64."""
+    truth_t, tm, init_t, ef, et, meas, info = pose_graph_bench.synthesize_se3_chain(SE3_CHAIN)
+    kw = dict(max_iterations=SE3_ITERATIONS, tolerance=SE3_TOLERANCE,
+              linear_solver="chain_direct", device=device)
+
+    def anchored():
+        poses, summary = optimize_pose_graph_3d(init_t, ef, et, meas, info, anchored=True, **kw)
+        return poses.cpu().numpy(), summary
+
+    calls, steps = tridiag.solve_chain_lm.calls, tridiag.lm_run.steps
+    (cold_s, _), reads = reads_in(lambda: timed(anchored))
+    rounds = tridiag.solve_chain_lm.calls - calls
+    steps = tridiag.lm_run.steps - steps
+    warm = [timed(anchored) for _ in range(2)]
+    warm_s, (poses, summary) = min(w[0] for w in warm), warm[-1][1]
+    err = pose_graph_bench.se3_position_rmse(poses, tm)
+    print(f"SE(3) {SE3_CHAIN} chain f32 anchored chain_direct on {card}: RMSE {err!r} (gate "
+          f"{SE3_RMSE_F32}; JAX measured 3.4e-5); warm {warm_s!r} s host clock (best of 2), "
+          f"cold {cold_s!r} s; {rounds} rounds, {steps} LM iterations in all "
+          f"({warm_s / steps!r} s each); last round {summary}; device reads in one solve {reads}")
+    if not (err < SE3_RMSE_F32 and summary.termination == "gradient_converged"):
+        fail(f"anchored SE(3) 10k chain: RMSE {err!r}, {summary.termination}")
+    # one LM step of the first round: no read, and its profile
+    z_inv = lie_np.se3_inverse(lie_np.se3_exp(meas))
+    _, meas48 = anchored_measurements(init_t, ef, et, z_inv)
+    cm, ci, lf, lt, lm, li = tridiag.classify_chain_edges(SE3_CHAIN, ef, et, meas48, info)
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+    fixed = torch.zeros(SE3_CHAIN, dtype=torch.bool, device=device)
+    fixed[0] = True
+    args = (t(cm), t(ci), t(lf, torch.int64), t(lt, torch.int64), t(lm), t(li), fixed)
+    lm_kw = dict(residual_fn=se3_anchored_edge_residual, retract_fn=se3_retract, tdim=6, rdim=6,
+                 gradient_tolerance=SE3_TOLERANCE, step_tolerance=SE3_TOLERANCE,
+                 cost_tolerance=SE3_TOLERANCE**2, spd=False)
+    zeros = torch.zeros((1, SE3_CHAIN, 6), dtype=torch.float32, device=device)
+    state, step = tridiag.chain_lm_start(zeros, *args, **lm_kw)
+    no_read_in("SE(3) anchored chain, one LM step", lambda: step(state))
+    prof = device_breakdown(f"SE(3) {SE3_CHAIN} anchored chain, one LM step (f32) on {card}",
+                            lambda: step(state))
+    print(f"SE(3) anchored chain: {len(prof['names'])} device launches per LM step")
+    del state, step, args, zeros
+
+    truth64, tm64, init64, ef64, et64, meas64, info64 = \
+        pose_graph_bench.synthesize_se3_chain(SE3_CHAIN_F64)
+    f64_s, (poses64, s64) = timed(lambda: optimize_pose_graph_3d(
+        init64, ef64, et64, meas64, info64, dtype=torch.float64, **kw))
+    err64 = pose_graph_bench.se3_position_rmse(poses64, tm64)
+    print(f"SE(3) {SE3_CHAIN_F64} chain f64 chain_direct on {card}: RMSE {err64!r} (gate "
+          f"{SE3_RMSE_F64}); {f64_s!r} s host clock; {s64}")
+    if not err64 < SE3_RMSE_F64:
+        fail(f"SE(3) 1k chain f64 RMSE {err64!r} >= {SE3_RMSE_F64}")
+    return {"chain_10k_anchored_f32": {
+        "rmse": err, "warm_s": warm_s, "cold_s": cold_s, "rounds": rounds,
+        "lm_iterations": steps, "last_round": vars(summary), "device_reads_per_solve": reads,
+        "launches_per_iteration": len(prof["names"]),
+        "profile": {k: v for k, v in prof.items() if k != "names"}},
+        "chain_1k_f64": {"rmse": err64, "seconds": f64_s, "summary": vars(s64)}}
+
+
+def implicit_part(card, device):
+    """(b) IFT gradients in f64: the 10k chain (cuda against the CPU), the
+    100x100 grid, and the finite-difference pin; the 10k chain in f32 timed."""
+    f64 = torch.float64
+    out = {}
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_chain(IFT_CHAIN)
+    solve_s, (poses, summary) = timed(lambda: optimize_pose_graph_2d(
+        initial, ef, et, meas, info, IFT_ITERATIONS, IFT_TOLERANCE, "chain_direct",
+        device=device, dtype=f64))
+    target = truth[-1]
+
+    def loss(p):
+        return torch.sum((p[-1] - torch.as_tensor(target, dtype=p.dtype, device=p.device)) ** 2)
+
+    def chain_ift(where, dtype=f64):
+        return pose_graph_implicit_vjp(poses.to(where, dtype), ef, et, meas, info, loss,
+                                       device=where, dtype=dtype)[1].cpu().numpy()
+
+    cold_s, g = timed(lambda: chain_ift(device))
+    warm_s, g = timed(lambda: chain_ift(device))
+    cpu_s, g_cpu = timed(lambda: chain_ift("cpu"))
+    f32_s, g32 = timed(lambda: chain_ift(device, torch.float32))
+    diff = float(np.abs(g - g_cpu).max())
+    scale = float(np.abs(g).max())
+    last = IFT_CHAIN - 2  # the last odometry edge (9998), which moves the last pose
+    print(f"IFT {IFT_CHAIN} chain f64 on {card}: solve {solve_s!r} s ({summary}); "
+          f"pose_graph_implicit_vjp cold {cold_s!r} s, warm {warm_s!r} s (CPU {cpu_s!r} s); "
+          f"g[{last}] {g[last].tolist()}; max|g| {scale!r}; cuda - CPU max|diff| {diff!r} (limit "
+          f"{IFT_CUDA_CPU_REL} x max|g|); f32 (time only) {f32_s!r} s, "
+          f"{int(np.isfinite(g32).sum())} of {g32.size} entries finite")
+    if not (np.isfinite(g).all() and max(abs(g[last, 0]), abs(g[last, 1])) > IFT_MIN_GRAD
+            and diff <= IFT_CUDA_CPU_REL * scale):
+        fail(f"10k chain IFT: finite {bool(np.isfinite(g).all())}, g[{last}] {g[last]}, "
+             f"cuda - CPU {diff!r}")
+    out["chain_10k"] = {"solve_s": solve_s, "ift_cold_s": cold_s, "ift_warm_s": warm_s,
+                        "ift_cpu_s": cpu_s, "ift_f32_s": f32_s, "max_abs_grad": scale,
+                        "cuda_minus_cpu": diff, "g_last_odometry": g[last].tolist()}
+
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_grid(*IFT_GRID)
+    solve_s, (poses_g, summary) = timed(lambda: optimize_pose_graph_2d(
+        initial, ef, et, meas, info, IFT_ITERATIONS, IFT_TOLERANCE, "banded_direct",
+        device=device, dtype=f64))
+    ift_s, (_, g) = timed(lambda: pose_graph_implicit_vjp(
+        poses_g, ef, et, meas, info, lambda p: torch.sum(p[-1] ** 2), device=device))
+    g = g.cpu().numpy()
+    touching = float(np.abs(g[np.asarray(et) == len(truth) - 1]).max())
+    print(f"IFT grid {IFT_GRID[0]}x{IFT_GRID[1]} + {IFT_GRID[2]} closures f64 on {card}: solve "
+          f"{solve_s!r} s ({summary}); pose_graph_implicit_vjp {ift_s!r} s; max|g| on the edges "
+          f"into the last pose {touching!r} (gate > {IFT_MIN_GRAD})")
+    if not (np.isfinite(g).all() and touching > IFT_MIN_GRAD):
+        fail(f"grid IFT: finite {bool(np.isfinite(g).all())}, edges into the last pose "
+             f"{touching!r}")
+    out["grid_10k"] = {"solve_s": solve_s, "ift_s": ift_s, "max_abs_grad_last_pose": touching}
+
+    # the finite-difference pin: a 12-pose chain with two closures
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_chain(12)
+    ef = np.concatenate([ef, [0, 4]])
+    et = np.concatenate([et, [7, 11]])
+    meas = np.concatenate([meas, [pose_graph_bench.relative(truth[0], truth[7]),
+                                  pose_graph_bench.relative(truth[4], truth[11])]])
+    info = np.concatenate([info, [np.eye(3) * 20.0] * 2])
+
+    def solve_fd(m):
+        return optimize_pose_graph_2d(initial, ef, et, m, info, 40, IFT_TOLERANCE, "chain_direct",
+                                      device=device, dtype=f64)[0]
+
+    def loss_fd(p):
+        return torch.sum(p[-1] ** 2)
+
+    _, g = pose_graph_implicit_vjp(solve_fd(meas), ef, et, meas, info, loss_fd, device=device)
+    g = g.cpu().numpy()
+    pins = []
+    for e, k in FD_CHECKS:
+        up, down = meas.copy(), meas.copy()
+        up[e, k] += FD_EPS
+        down[e, k] -= FD_EPS
+        fd = (float(loss_fd(solve_fd(up))) - float(loss_fd(solve_fd(down)))) / (2 * FD_EPS)
+        pins.append({"edge": e, "component": k, "ift": float(g[e, k]), "fd": fd})
+        if not abs(g[e, k] - fd) <= FD_ATOL + FD_RTOL * abs(fd):
+            fail(f"IFT against finite differences at edge {e} component {k}: {g[e, k]!r} vs "
+                 f"{fd!r}")
+    print(f"IFT finite-difference pin on {card} (f64, rtol {FD_RTOL}, atol {FD_ATOL}): {pins}")
+    out["fd_pin"] = pins
+    return out
+
+
+def solve_device_part(card, device):
+    """(c) solve_device against solve on the 1000-pose chain: f64 equality,
+    no read inside an iteration, the reads of a whole solve; f32 times."""
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_chain(SD_CHAIN)
+
+    def problem(dtype):
+        t = lambda a, dt=dtype: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+        return build_pose_graph_2d(t(initial), t(ef, torch.int64), t(et, torch.int64), t(meas),
+                                   t(info))
+
+    out = {}
+    for solver in ("dense", "matfree_pcg"):
+        cfg = SolverConfig(linear_solver=solver, **SD_CONFIG)
+        prob = problem(torch.float64)
+        host, hs = nlls_solver.solve(prob, cfg)
+        sites = {}
+        (dev, ds), reads = reads_in(lambda: nlls_solver.solve_device(prob, cfg), sites)
+        diff = float((dev.groups[0].values - host.groups[0].values).abs().max())
+        # solve_device counts the iteration that meets the gradient test, as
+        # the JAX while_loop does; solve breaks before counting it
+        want_it = hs.iterations + (hs.termination == "gradient_converged")
+        print(f"solve_device {solver} {SD_CHAIN} chain f64 on {card}: {ds}; solve {hs}; poses "
+              f"max|diff| {diff!r} (atol {SD_ATOL_F64}); device reads in one solve {reads} "
+              f"(done every {nlls_solver.DONE_READ_EVERY} iterations + the summary) at {sites}")
+        if (ds.termination, ds.iterations) != (hs.termination, want_it) \
+                or not diff <= SD_ATOL_F64:
+            fail(f"solve_device {solver} against solve: {ds} vs {hs}, max|diff| {diff!r}")
+        # a read every DONE_READ_EVERY iterations, one more that finds the
+        # solve done, and the summary's
+        if reads > ds.iterations // nlls_solver.DONE_READ_EVERY + 2:
+            fail(f"solve_device {solver} read the device {reads} times in {ds.iterations} "
+                 "iterations")
+        state, step = nlls_solver.device_lm_start(prob, cfg)
+        no_read_in(f"solve_device {solver}, one LM iteration", lambda: step(state))
+        prob32 = problem(torch.float32)
+        state, step = nlls_solver.device_lm_start(prob32, cfg)
+        prof = device_breakdown(f"solve_device {solver} {SD_CHAIN} chain, one LM iteration (f32) "
+                                f"on {card}", lambda: step(state))
+        # one call each: the f64 calls above ran the same code (eager
+        # PyTorch compiles nothing)
+        solve_s, (_, h32) = timed(lambda: nlls_solver.solve(prob32, cfg))
+        device_s, (_, s32) = timed(lambda: nlls_solver.solve_device(prob32, cfg))
+        times = {"solve": solve_s, "solve_device": device_s}
+        print(f"solve_device {solver} f32 on {card}: {device_s!r} s ({s32}); solve {solve_s!r} s "
+              f"({h32}); {len(prof['names'])} device launches per iteration")
+        out[solver] = {"f64": {"solve_device": vars(ds), "solve": vars(hs), "max_abs_diff": diff,
+                               "device_reads_per_solve": reads},
+                       "f32_s": times, "f32_summary": {"solve_device": vars(s32),
+                                                       "solve": vars(h32)},
+                       "launches_per_iteration": len(prof["names"]),
+                       "profile": {k: v for k, v in prof.items() if k != "names"}}
+    return out
+
+
+def _rot2(th):
+    c, s = np.cos(th), np.sin(th)
+    return np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)
+
+
+def icp_part(card, device):
+    """(d) ICP: bench_icp's workload, then a fleet of scan pairs in lock-step."""
+    rng = np.random.default_rng(SEED + 8)
+    n, turn, shift = ICP_BENCH
+    pts = rng.uniform(size=(n, 2)) * 10.0
+    res = icp_matching(pts, pts @ _rot2(turn).T + shift, device=device)
+    print(f"ICP bench_icp workload f32 on {card}: {int(res.iterations)} iterations, converged "
+          f"{bool(res.converged)}, final error mean {float(res.final_error_mean)!r}, inliers "
+          f"{float(res.inlier_ratio_5cm)!r}")
+    if not bool(res.converged):
+        fail("ICP did not converge on bench_icp's workload")
+
+    prev = rng.uniform(size=(ICP_FLEET, ICP_POINTS, 2)) * 10.0
+    ang = rng.uniform(-ICP_TURN, ICP_TURN, ICP_FLEET)
+    phi = rng.uniform(0.0, 2 * np.pi, ICP_FLEET)
+    shifts = ICP_SHIFT * np.stack([np.cos(phi), np.sin(phi)], -1)
+    cur = prev @ _rot2(ang).transpose(0, 2, 1) + shifts[:, None, :]
+    prev_d = torch.tensor(prev, dtype=torch.float32, device=device)
+    cur_d = torch.tensor(cur, dtype=torch.float32, device=device)
+
+    def fleet():
+        out = icp_matching(prev_d, cur_d, device=device)
+        out.transform.cpu()
+        return out
+
+    seconds, fleet_res = pose_graph_bench._best_of(fleet, 2)
+    _, reads = reads_in(fleet)
+    its = fleet_res.iterations.cpu().numpy()
+    print(f"ICP fleet {ICP_FLEET} pairs x {ICP_POINTS} points f32 on {card}: {seconds!r} s warm "
+          f"(best of 2), {ICP_FLEET / seconds!r} pairs aligned/s; iterations min {its.min()} "
+          f"mean {its.mean()!r} max {its.max()}; converged {int(fleet_res.converged.sum())} of "
+          f"{ICP_FLEET}; device reads in one call {reads}")
+    if not bool(fleet_res.converged.all()):
+        fail(f"ICP fleet: {int((~fleet_res.converged).sum())} pairs did not converge")
+    # the loop's check once an iteration and once more to stop, then the
+    # transform's copy and at most one read in the final statistics
+    if reads > its.max() + 3:
+        fail(f"ICP fleet read the device {reads} times in {its.max()} iterations")
+    lanes = {}
+    for k in ICP_LANES:
+        solo = icp_matching(prev_d[k], cur_d[k], device=device)
+        diff = float((solo.transform - fleet_res.transform[k]).abs().max())
+        lanes[k] = {"batch": int(its[k]), "solo": int(solo.iterations), "transform_diff": diff}
+        if lanes[k]["batch"] != lanes[k]["solo"] or not diff <= ICP_LANE_ATOL:
+            fail(f"ICP lane {k} differs from its solo run: {lanes[k]}")
+    on_cpu = icp_matching(prev[0], cur[0], device="cpu", dtype=torch.float32)
+    cpu_diff = float((on_cpu.transform - fleet_res.transform[0].cpu()).abs().max())
+    print(f"ICP lanes {lanes} (atol {ICP_LANE_ATOL}); pair 0 cuda against the CPU: transform "
+          f"max|diff| {cpu_diff!r} (atol {ICP_CUDA_CPU_ATOL}), iterations {int(its[0])} / "
+          f"{int(on_cpu.iterations)}")
+    if not cpu_diff <= ICP_CUDA_CPU_ATOL:
+        fail(f"ICP pair 0 cuda against the CPU: {cpu_diff!r}")
+    prof = device_breakdown(f"ICP fleet, one call ({ICP_FLEET} pairs) on {card}", fleet)
+    return {"bench_icp": {"iterations": int(res.iterations), "converged": bool(res.converged)},
+            "fleet": {"pairs": ICP_FLEET, "points": ICP_POINTS, "seconds": seconds,
+                      "pairs_per_s": ICP_FLEET / seconds,
+                      "iterations": {"min": int(its.min()), "mean": float(its.mean()),
+                                     "max": int(its.max())},
+                      "device_reads_per_call": reads, "lanes": lanes, "cuda_minus_cpu": cpu_diff,
+                      "launches_per_call": len(prof["names"]),
+                      "profile": {k: v for k, v in prof.items() if k != "names"}}}
+
+
+def slam_backend_phase(card, device):
+    """The SLAM back end on the port (phase 16; no kernel on its path): each
+    part checks its gates and returns its numbers for the JSON line."""
+    out = {"card": card}
+    for name, part in (("se3", se3_part), ("implicit", implicit_part),
+                       ("solve_device", solve_device_part), ("icp", icp_part)):
+        start = time.perf_counter()
+        out[name] = part(card, device)
+        out[name]["part_s"] = time.perf_counter() - start
+        print(f"SLAM back end, part {name}: {out[name]['part_s']!r} s")
     return out
 
 
@@ -1553,7 +1929,11 @@ def main() -> int:
     # 15. bench.py's four pose-graph workloads (no kernel on their path)
     print(json.dumps({"pose_graph": pose_graph_phase(card, device)}))
 
-    # 16. the kernels line
+    # 16. the SLAM back end: SE(3), implicit gradients, solve_device, ICP
+    # (no kernel on their path)
+    print(json.dumps({"slam_backend": slam_backend_phase(card, device)}))
+
+    # 17. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -1663,7 +2043,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 17. the result
+    # 18. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -47,11 +47,13 @@ def _eye_like(x, n, shape):
     return torch.eye(n, dtype=x.dtype, device=x.device).expand(shape)
 
 
-def _row(x, values, like):
-    """A constant row [1, len(values)] on x's device and dtype, broadcast to
-    like[..., :1, :]'s shape."""
-    row = torch.tensor(values, dtype=x.dtype, device=x.device)
-    return row.expand(like[..., :1, :].shape)
+def _last_row(top):
+    """The homogeneous row [0, ..., 0, 1] under `top` [..., n-1, n], on its
+    device and dtype. Built on the device: a row made from a host list is a
+    copy to the device, which synchronises, once per call of the Lie
+    functions inside a solver step."""
+    n = top.shape[-1]
+    return torch.eye(n, dtype=top.dtype, device=top.device)[n - 1:].expand(top[..., :1, :].shape)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +227,7 @@ def se2_inverse(m):
     rot_t = m[..., :2, :2].transpose(-1, -2)
     t = m[..., :2, 2:]
     top = torch.cat([rot_t, -rot_t @ t], dim=-1)
-    return torch.cat([top, _row(m, [0.0, 0.0, 1.0], top)], dim=-2)
+    return torch.cat([top, _last_row(top)], dim=-2)
 
 
 def se2_adjoint(m):
@@ -234,7 +236,7 @@ def se2_adjoint(m):
     tx, ty = m[..., 0, 2], m[..., 1, 2]
     col = torch.stack([ty, -tx], dim=-1)[..., :, None]
     top = torch.cat([r, col], dim=-1)
-    return torch.cat([top, _row(m, [0.0, 0.0, 1.0], top)], dim=-2)
+    return torch.cat([top, _last_row(top)], dim=-2)
 
 
 def se2_from_pose(x, y, yaw):
@@ -267,7 +269,7 @@ def se3_exp(xi):
     rot = so3_exp(phi)
     t = (so3_left_jacobian(phi) @ rho[..., None])[..., 0]
     top = torch.cat([rot, t[..., None]], dim=-1)
-    return torch.cat([top, _row(xi, [0.0, 0.0, 0.0, 1.0], top)], dim=-2)
+    return torch.cat([top, _last_row(top)], dim=-2)
 
 
 def se3_log(m):
@@ -282,7 +284,7 @@ def se3_inverse(m):
     rot_t = m[..., :3, :3].transpose(-1, -2)
     t = m[..., :3, 3:]
     top = torch.cat([rot_t, -rot_t @ t], dim=-1)
-    return torch.cat([top, _row(m, [0.0, 0.0, 0.0, 1.0], top)], dim=-2)
+    return torch.cat([top, _last_row(top)], dim=-2)
 
 
 def se3_adjoint(m):

@@ -7,7 +7,9 @@ benchmark_large_pose_graph.rs:19-56): a sinusoidal ground-truth chain,
 deterministic sinusoid perturbations of the initial guess, odometry edges
 (information 100·I) and loop edges every 100 poses (20·I); RMSE gate
 < 5e-3 (:97); LM at most 25 iterations, tolerance 1e-8 (:66-75). Plus the
-100×100 grid of `synthesize_grid`, a graph with no odometry chain.
+100×100 grid of `synthesize_grid`, a graph with no odometry chain, and the
+SE(3) chain of `synthesize_se3_chain` on a 30-unit workspace (host f64
+through the port's `core/lie_np.py`).
 
 The runners time the port's solvers as the JAX package's runners time its
 own: one untimed call on the same shapes first, then the timed call, ended
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from rust_robotics_tpu_torch._device import resolve_device
+from rust_robotics_tpu_torch.core import lie_np
 
 
 def relative(a, b):
@@ -70,6 +73,48 @@ def rmse(poses, truth):
     squared (x, y, yaw) errors)."""
     d = np.asarray(poses) - truth
     return float(np.sqrt(np.mean(np.sum(d**2, axis=-1))))
+
+
+def synthesize_se3_chain(size: int, loop_stride: int = 100):
+    """The SE(3) analogue of `synthesize_chain` on a 30-unit workspace:
+    sinusoidal SE(3) truth, exact relative measurements (odometry and a
+    closure every `loop_stride` poses), a deterministic perturbation of the
+    initial guess; host f64 throughout.
+
+    Returns (truth_tangents [N,6], truth_mats [N,4,4], initial_tangents,
+    ef, et, measurement_tangents [E,6], information [E,6,6])."""
+    i = np.arange(size, dtype=np.float64)
+    truth_t = np.stack([15 * np.sin(0.002 * i), 10 * np.sin(0.004 * i), 2 * np.sin(0.003 * i),
+                        0.3 * np.sin(0.0017 * i), 0.3 * np.cos(0.0023 * i),
+                        0.4 * np.sin(0.0011 * i)], -1)
+    tm = lie_np.se3_exp(truth_t)
+    inv = lie_np.se3_inverse(tm)
+    mc = lie_np.se3_log(inv[:-1] @ tm[1:])
+    ef_c = np.arange(size - 1, dtype=np.int32)
+    et_c = ef_c + 1
+    lf = np.arange(0, max(size - loop_stride, 0), loop_stride, dtype=np.int32)
+    lt = lf + loop_stride
+    ml = lie_np.se3_log(inv[lf] @ tm[lt])
+    meas = np.concatenate([mc, ml])
+    info = np.concatenate([
+        np.broadcast_to(np.eye(6) * 100.0, (len(ef_c), 6, 6)),
+        np.broadcast_to(np.eye(6) * 20.0, (len(lf), 6, 6)),
+    ]).copy()
+    initial_t = truth_t + np.stack(
+        [0.02 * np.sin(i * 0.013), 0.03 * np.cos(i * 0.021), 0.005 * np.sin(i * 0.017),
+         0.004 * np.cos(i * 0.019), 0.004 * np.sin(i * 0.023), 0.003 * np.cos(i * 0.029)], -1)
+    initial_t[0] = truth_t[0]
+    return (truth_t, tm, initial_t, np.concatenate([ef_c, lf]), np.concatenate([et_c, lt]),
+            meas, info)
+
+
+def se3_position_rmse(tangents, truth_mats):
+    """Position RMSE of tangent-stored SE(3) poses against truth matrices."""
+    if isinstance(tangents, torch.Tensor):
+        tangents = tangents.detach().cpu().numpy()
+    pos = lie_np.se3_exp(np.asarray(tangents, np.float64))[:, :3, 3]
+    d = pos - truth_mats[:, :3, 3]
+    return float(np.sqrt(np.mean(np.sum(d * d, -1))))
 
 
 def synthesize_grid(width: int, height: int, diag_closures: int = 0):

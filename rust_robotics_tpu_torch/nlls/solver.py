@@ -27,19 +27,26 @@ elimination of the trailing group (sparse.rs:160)).
   to `_reduced_solve`, which routes to the blocked-Cholesky kernel
   (`ops/cholesky.py`, kernel B4) as the JAX package routes to its Pallas
   kernel.
-- The LM loop runs on the host, with the reference's termination
+- `solve` runs the LM loop on the host, with the reference's termination
   semantics; each PCG `while_loop` is a Python loop with the same test.
-
-`solve_device` (the fully device-resident LM) is not ported yet.
+- `solve_device` keeps the whole LM on the device (dense or matfree_pcg):
+  accept, damping and termination are tensors, a solve that is done
+  freezes by `torch.where` as the JAX `while_loop`'s carry does, and the
+  PCG runs its full budget of masked steps, whose iterates equal the
+  stopping loop's. An iteration reads nothing back; the loop reads `done`
+  once every `DONE_READ_EVERY` iterations to stop early, and the summary
+  comes back in one read at the end.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from rust_robotics_tpu_torch.nlls.problem import FactorBlock, Problem
+from rust_robotics_tpu_torch.nlls.tridiag import TERMINATION_NAMES
 from rust_robotics_tpu_torch.ops.cholesky import cholesky_solve_blocked
 from rust_robotics_tpu_torch.ops.smallmat import inv_spd_small
 
@@ -266,8 +273,34 @@ def _pcg(hvp, precond, b, max_iter, tol):
     return x, k
 
 
+def _pcg_masked(hvp, precond, b, max_iter, tol):
+    """`_pcg` with no read-back: max_iter steps, each masked by the
+    stopping loop's test |r| > tol, so the iterates equal `_pcg`'s and a
+    converged solve stands still. Returns (x, iterations as a tensor)."""
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(b)
+    p = z
+    rz = b @ z
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    for _ in range(max_iter):
+        active = torch.linalg.norm(r) > tol
+        hp = hvp(p)
+        alpha = rz / torch.clamp(p @ hp, min=1e-300)
+        r_new = r - alpha * hp
+        z = precond(r_new)
+        rz_new = r_new @ z
+        beta = rz_new / torch.clamp(rz, min=1e-300)
+        x = torch.where(active, x + alpha * p, x)
+        p = torch.where(active, z + beta * p, p)
+        r = torch.where(active, r_new, r)
+        rz = torch.where(active, rz_new, rz)
+        k = k + active.to(torch.int32)
+    return x, k
+
+
 def _solve_matfree_pcg(problem: Problem, cache, grad, fixed_diag, diag_blocks, damping, lm,
-                       max_iter, tol):
+                       max_iter, tol, pcg=_pcg):
     """Matrix-free block-Jacobi PCG: H·v streams over the cached factor
     Jacobians (gather → J v → Λ → Jᵀ → scatter-add); the preconditioner is
     batched [N, t, t] SPD inverses of the damped diagonal blocks."""
@@ -309,7 +342,7 @@ def _solve_matfree_pcg(problem: Problem, cache, grad, fixed_diag, diag_blocks, d
                                accumulate=True)
         return out
 
-    return _pcg(hvp, precond, -grad, max_iter, tol)
+    return pcg(hvp, precond, -grad, max_iter, tol)
 
 
 def _solve_dense(h, grad, damping, lm):
@@ -481,3 +514,115 @@ def solve(problem: Problem, config: SolverConfig = SolverConfig()):
     return problem.with_values(values), SolverSummary(
         initial_cost, current_cost, it, accepted, termination, total_linear
     )
+
+
+# `solve_device` reads `done` back once every this many iterations to stop
+# early; a solve that finished in between runs the rest of the K frozen.
+DONE_READ_EVERY = 4
+
+
+class DeviceLMState(NamedTuple):
+    """`solve_device`'s carry: values (a tuple per group), then 0-d tensors."""
+
+    values: tuple
+    damping: torch.Tensor
+    cost: torch.Tensor
+    it: torch.Tensor
+    accepted: torch.Tensor
+    linear: torch.Tensor
+    term: torch.Tensor
+    done: torch.Tensor
+
+
+def device_lm_start(problem: Problem, config: SolverConfig = SolverConfig()):
+    """`solve_device`'s first state and its step: step(state) is one LM
+    iteration (JAX `solve_device`'s while_loop body) and reads nothing back.
+    A state that is done passes through unchanged."""
+    values = problem.values()
+    dtype = values[0].dtype
+    device = values[0].device
+    if config.linear_solver not in ("dense", "matfree_pcg"):
+        raise ValueError(f"solve_device supports dense|matfree_pcg, got {config.linear_solver!r}")
+    matfree = config.linear_solver == "matfree_pcg"
+    lm = config.method == "lm"
+    one = torch.ones((), dtype=torch.int32, device=device)
+
+    def lin_and_solve(vals, damping):
+        if matfree:
+            cache, grad, _, fixed, diag = _linearize_matfree(problem, vals, dtype)
+            delta, iters = _solve_matfree_pcg(problem, cache, grad, fixed, diag, damping, lm,
+                                              config.pcg_max_iterations, config.pcg_tolerance,
+                                              pcg=_pcg_masked)
+        else:
+            h, grad, _, _ = _linearize_dense(problem, vals, dtype)
+            hd = _add_damping(h, damping) if lm else h
+            # solve_ex: no error check, so no read-back; a singular system
+            # gives a non-finite step, which ends the solve as a failure
+            delta = torch.linalg.solve_ex(hd, -grad)[0]
+            iters = one
+        return grad, delta, iters
+
+    def step(s: DeviceLMState) -> DeviceLMState:
+        live = ~s.done
+        grad, delta, lin_iters = lin_and_solve(s.values, s.damping)
+        grad_conv = torch.max(torch.abs(grad)) <= config.gradient_tolerance
+        bad = ~torch.all(torch.isfinite(delta))
+        step_conv = torch.linalg.norm(delta) <= config.step_tolerance
+        trial = _apply_increment(problem, s.values, delta)
+        trial_cost = problem_cost(problem, trial)
+        better = trial_cost < s.cost if lm else torch.ones_like(live)
+        accept = live & ~grad_conv & ~step_conv & ~bad & better
+        cost_conv = accept & (torch.abs(s.cost - trial_cost) <= config.cost_tolerance)
+        damping = torch.where(accept, torch.clamp(s.damping * 0.3, min=1e-15),
+                              torch.clamp(s.damping * 10.0, max=1e15))
+        damping = torch.where(grad_conv | step_conv | bad | s.done, s.damping, damping)
+        term = torch.where(grad_conv, 1, torch.where(bad, 4, torch.where(
+            step_conv, 2, torch.where(cost_conv, 3, 0)))).to(torch.int32)
+        return DeviceLMState(
+            tuple(torch.where(accept, t, v) for t, v in zip(trial, s.values)),
+            damping,
+            torch.where(accept, trial_cost, s.cost),
+            s.it + live.to(torch.int32),
+            s.accepted + accept.to(torch.int32),
+            s.linear + torch.where(live, lin_iters, 0).to(torch.int32),
+            torch.where(live, term, s.term),
+            s.done | grad_conv | step_conv | cost_conv | bad)
+
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    cost = torch.as_tensor(problem_cost(problem, values), dtype=dtype, device=device)
+    state = DeviceLMState(values, torch.full((), config.initial_damping, dtype=dtype,
+                                             device=device),
+                          cost, zero, zero, zero, zero,
+                          torch.zeros((), dtype=torch.bool, device=device))
+    return state, step
+
+
+def solve_device(problem: Problem, config: SolverConfig = SolverConfig()):
+    """The device-resident LM (JAX `solve_device`): linearise, linear solve
+    (dense or matfree_pcg), trial, accept/reject and termination all on
+    the device, for at most `config.max_iterations` iterations. No read-back
+    inside an iteration; `done` is read once every `DONE_READ_EVERY`
+    iterations, and the summary in one read at the end.
+
+    Semantics mirror `solve` (solver.rs:81-188), except that the host's f64
+    comparisons become device scalars of the problem's dtype, a solve that
+    meets the gradient test counts that iteration, and a non-finite step
+    ends the solve with "numerical_failure" rather than raising. Returns
+    (solved Problem, SolverSummary of Python scalars)."""
+    values = problem.values()
+    _, total = problem.layout()
+    if total == 0:
+        c = float(problem_cost(problem, values))
+        return problem, SolverSummary(c, c, 0, 0, "gradient_converged", 0)
+    first, step = device_lm_start(problem, config)
+    state = first
+    for k in range(config.max_iterations):
+        if k and k % DONE_READ_EVERY == 0 and bool(state.done):
+            break
+        state = step(state)
+    summary = torch.stack([first.cost.double(), state.cost.double(), state.it.double(),
+                           state.accepted.double(), state.linear.double(),
+                           state.term.double()]).cpu().tolist()
+    cost0, cost, it, accepted, linear, term = summary
+    return problem.with_values(state.values), SolverSummary(
+        cost0, cost, int(it), int(accepted), TERMINATION_NAMES[int(term)], int(linear))

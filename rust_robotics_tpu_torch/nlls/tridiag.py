@@ -548,7 +548,7 @@ def nested_partition(n, loop_from, loop_to, device=None):
     return NestedPartition(*(torch.as_tensor(np.asarray(f), device=device) for f in fields))
 
 
-def chain_nested_solve(bd, c, jac_loop, w_inv, rhs_vec, part, w_blocks=None):
+def chain_nested_solve(bd, c, jac_loop, w_inv, rhs_vec, part, w_blocks=None, spd=True):
     """x = (T + U W Uᵀ)⁻¹ rhs by two-level block elimination (exact).
 
     Closure endpoints are separators, so U is zero on every interior row
@@ -558,7 +558,8 @@ def chain_nested_solve(bd, c, jac_loop, w_inv, rhs_vec, part, w_blocks=None):
     Schur system over the nb separators goes to `chain_woodbury_solve`,
     whose ladder is then nb rows long instead of n. Arrays as in
     `chain_woodbury_solve`, with any leading batch dims; `part` from
-    `nested_partition`. Counts its calls on `chain_nested_solve.calls`."""
+    `nested_partition`; `spd` as there. Counts its calls on
+    `chain_nested_solve.calls`."""
     chain_nested_solve.calls += 1
     n, tdim = bd.shape[-3], bd.shape[-1]
     lead = bd.shape[:-3]
@@ -602,7 +603,7 @@ def chain_nested_solve(bd, c, jac_loop, w_inv, rhs_vec, part, w_blocks=None):
     rc[..., 1:, :] -= small_mm(cr.mT, gl[..., t2:])[..., 0]
 
     xc = chain_woodbury_solve(bdc, cc, jac_loop, part.loop_kf, part.loop_kt, w_inv, rc,
-                              w_blocks=w_blocks)
+                              w_blocks=w_blocks, spd=spd)
 
     # back-substitution: x_I = G_rhs − G_A x_left − G_B x_right
     xi = (g[..., t2]
@@ -687,17 +688,22 @@ def lm_step(linearize, lin_solve, apply_step, cost_only, gradient_tolerance, ste
 
 def lm_run(state: LMState, step, max_iterations):
     """Run `step` until every graph is done or `max_iterations` steps. The
-    one read-back per iteration is `done.all()`."""
+    one read-back per iteration is `done.all()`. Counts the steps it runs on
+    `lm_run.steps`."""
     for k in range(max_iterations):
         if k and bool(state.done.all()):
             break
         state = step(state)
+        lm_run.steps += 1
     return state
+
+
+lm_run.steps = 0
 
 
 def _chain_lm_ops(chain_meas, chain_info, loop_from, loop_to, loop_meas, loop_info, fixed, *,
                   residual_fn, retract_fn, tdim, refine, woodbury_chunk_bytes, rdim,
-                  nested_part=None):
+                  nested_part=None, spd=True):
     """(linearize, lin_solve, apply_step, cost_only) of a chain problem for
     values [G, n, dim]."""
     num_l = loop_from.shape[0]
@@ -732,10 +738,10 @@ def _chain_lm_ops(chain_meas, chain_info, loop_from, loop_to, loop_meas, loop_in
         bd = torch.where(fixed[:, None, None], eye_t, b + torch.diag_embed(lam))
         if nested_part is not None:
             return chain_nested_solve(bd, c, jac_loop, w_inv, -grad, nested_part,
-                                      w_blocks=w_blocks)
+                                      w_blocks=w_blocks, spd=spd)
         return chain_woodbury_solve(bd, c, jac_loop, loop_from, loop_to, w_inv, -grad,
                                     w_blocks=w_blocks, refine=refine,
-                                    chunk_bytes=woodbury_chunk_bytes)
+                                    chunk_bytes=woodbury_chunk_bytes, spd=spd)
 
     return linearize, lin_solve, _step_applier(fixed, retract_fn), cost_only
 
@@ -770,7 +776,7 @@ def chain_lm_start(values0, chain_meas, chain_info, loop_from, loop_to, loop_mea
                    gradient_tolerance: float = 1e-10, step_tolerance: float = 1e-10,
                    cost_tolerance: float = 1e-12, initial_damping: float = 1e-3,
                    refine: int = 0, woodbury_chunk_bytes: int | None = None, chunks: int = 0,
-                   rdim: int | None = None, nested: bool | None = None):
+                   rdim: int | None = None, nested: bool | None = None, spd: bool = True):
     """The chain LM's first state and its step, for values0 [G, n, dim]
     (arguments as `solve_chain_lm`). Returns (LMState, step): step(state)
     is one LM iteration of every graph and reads nothing back."""
@@ -786,7 +792,7 @@ def chain_lm_start(values0, chain_meas, chain_info, loop_from, loop_to, loop_mea
     linearize, lin_solve, apply_step, cost_only = _chain_lm_ops(
         chain_meas, chain_info, loop_from, loop_to, loop_meas, loop_info, fixed_mask,
         residual_fn=residual_fn, retract_fn=retract_fn, tdim=tdim, refine=refine,
-        woodbury_chunk_bytes=woodbury_chunk_bytes, rdim=rdim, nested_part=part)
+        woodbury_chunk_bytes=woodbury_chunk_bytes, rdim=rdim, nested_part=part, spd=spd)
     with full_fp32_matmul():
         state = lm_state(values0, cost_only(values0), initial_damping)
     return state, lm_step(linearize, lin_solve, apply_step, cost_only, gradient_tolerance,
@@ -799,7 +805,7 @@ def solve_chain_lm(values0, chain_meas, chain_info, loop_from, loop_to, loop_mea
                    step_tolerance: float = 1e-10, cost_tolerance: float = 1e-12,
                    initial_damping: float = 1e-3, refine: int = 0,
                    woodbury_chunk_bytes: int | None = None, chunks: int = 0,
-                   rdim: int | None = None, nested: bool | None = None):
+                   rdim: int | None = None, nested: bool | None = None, spd: bool = True):
     """LM over a chain factor graph with loop closures, on the device of
     `values0`.
 
@@ -819,6 +825,14 @@ def solve_chain_lm(values0, chain_meas, chain_info, loop_from, loop_to, loop_mea
     nested: route the inner solve through `chain_nested_solve`; None
     engages it for n >= 50 000, >= 64 closures and a separator set <= n/8
     (the JAX package's rule). `refine` does not apply to the nested path.
+    spd: the capacitance system's factorisation (`capacitance_solver`):
+    Cholesky, as the JAX package, or LU (spd=False), which the anchored
+    SE(3) path takes (slam/pose_graph.py). Cholesky stays the default
+    because it rejects a capacitance system that is not positive definite,
+    as JAX's `cho_factor` does, so such a graph ends with
+    "numerical_failure" after one iteration
+    (tests/test_torch_tridiag.py::test_rejected_capacitance_is_a_numerical_failure_as_jax);
+    LU would solve it and go on.
 
     Returns (values, ChainSummary of device tensors), each with the
     leading G axis if values0 had one. Counts its calls on
@@ -830,7 +844,8 @@ def solve_chain_lm(values0, chain_meas, chain_info, loop_from, loop_to, loop_mea
         loop_meas, loop_info, fixed_mask, residual_fn=residual_fn, retract_fn=retract_fn,
         tdim=tdim, gradient_tolerance=gradient_tolerance, step_tolerance=step_tolerance,
         cost_tolerance=cost_tolerance, initial_damping=initial_damping, refine=refine,
-        woodbury_chunk_bytes=woodbury_chunk_bytes, chunks=chunks, rdim=rdim, nested=nested)
+        woodbury_chunk_bytes=woodbury_chunk_bytes, chunks=chunks, rdim=rdim, nested=nested,
+        spd=spd)
     return finish(state, lm_run(state, step, max_iterations), batched)
 
 

@@ -12,12 +12,13 @@ slam/src/pose_graph_optimization.rs and pose_graph_optimization_3d.rs):
   (nlls/banded.py: RCM-banded fat-block ladder + Woodbury); and `direct`,
   which takes the chain route when every (i, i+1) pair has an edge and the
   banded route otherwise;
-- SE(3): the right-multiplicative tangent retraction and the edge residual
-  r = log(Z⁻¹ X_i⁻¹ X_j) (pose_graph_optimization_3d.rs:155-157), which
-  bundle adjustment shares.
-
-The SE(3) optimiser (`optimize_pose_graph_3d` and its anchored chain path)
-is not ported yet (ROADMAP.md A12).
+- SE(3) (pose_graph_optimization_3d.rs): nodes stored as tangent
+  6-vectors (:14-35), the right-multiplicative retraction, the edge
+  residual r = log(Z⁻¹ X_i⁻¹ X_j) (:155-157), which bundle adjustment
+  shares, and `optimize_pose_graph_3d` on the same routes as SE(2), plus
+  the anchored chain path: host f64 anchors (core/lie_np.py) and small
+  device-side locals, composed in deviation space, so that an f32 solve of
+  a large-workspace graph keeps its accuracy.
 """
 
 from __future__ import annotations
@@ -27,8 +28,16 @@ import torch
 
 from rust_robotics_tpu_torch._device import resolve_device
 from rust_robotics_tpu_torch.convert import to_tensor
+from rust_robotics_tpu_torch.core import lie_np
 from rust_robotics_tpu_torch.core.angles import normalize_angle
-from rust_robotics_tpu_torch.core.lie import se3_exp, se3_inverse, se3_log
+from rust_robotics_tpu_torch.core.lie import (
+    se3_compose_dev,
+    se3_exp,
+    se3_expm1,
+    se3_inverse,
+    se3_log,
+    se3_logm1,
+)
 from rust_robotics_tpu_torch.nlls import (
     FactorBlock,
     Problem,
@@ -40,6 +49,7 @@ from rust_robotics_tpu_torch.nlls.banded import solve_general_graph
 from rust_robotics_tpu_torch.nlls.solver import SolverSummary
 from rust_robotics_tpu_torch.nlls.tridiag import (
     TERMINATION_NAMES,
+    _host,
     classify_chain_edges,
     has_full_chain,
     solve_chain_lm,
@@ -76,10 +86,8 @@ def build_pose_graph_2d(poses, edges_from, edges_to, measurements, information=N
                         fix_first=True):
     """poses [N, 3]; edges_* [E]; measurements [E, 3]; information
     [E, 3, 3] (default identity). Tensors, on one device."""
-    n = poses.shape[0]
-    fixed = torch.zeros((n,), dtype=torch.bool, device=poses.device)
-    fixed[0] = fix_first
-    group = VariableGroup("pose", poses, retract=se2_retract, fixed_mask=fixed)
+    group = VariableGroup("pose", poses, retract=se2_retract,
+                          fixed_mask=_first_fixed(poses.shape[0], fix_first, poses.device))
     idx = torch.stack([torch.as_tensor(edges_from, device=poses.device).long(),
                        torch.as_tensor(edges_to, device=poses.device).long()], dim=-1)
     block = FactorBlock("se2_edge", se2_edge_residual, ("pose", "pose"), idx,
@@ -157,13 +165,29 @@ def _optimize_chain_direct(poses, edges_from, edges_to, measurements, informatio
     """A pose graph on the chain solver (nlls/tridiag.py)."""
     device = resolve_device(device)
     poses = to_tensor(poses, device, dtype)
-    n = poses.shape[0]
-    (chain_meas, chain_info, loop_ef, loop_et, loop_meas,
-     loop_info) = classify_chain_edges(n, edges_from, edges_to, measurements, information)
+    out, summ = _chain_lm(poses, edges_from, edges_to, measurements, information,
+                          _first_fixed(poses.shape[0], fix_first, device),
+                          residual_fn or se2_edge_residual, retract_fn or se2_retract, tdim,
+                          max_iterations, tolerance, refine=refine, chunks=chunks or 0)
+    return out, _summary(summ)
+
+
+def _first_fixed(n, fix_first, device):
     fixed = torch.zeros((n,), dtype=torch.bool, device=device)
     fixed[0] = fix_first
-    out, summ = solve_chain_lm(
-        poses,
+    return fixed
+
+
+def _chain_lm(values, edges_from, edges_to, measurements, information, fixed, residual_fn,
+              retract_fn, tdim, max_iterations, tolerance, **lm_kw):
+    """Split the edges into chain and loop closures (host), then
+    `solve_chain_lm` from `values` on its device and dtype."""
+    device, dtype = values.device, values.dtype
+    (chain_meas, chain_info, loop_ef, loop_et, loop_meas,
+     loop_info) = classify_chain_edges(values.shape[0], edges_from, edges_to, measurements,
+                                       information)
+    return solve_chain_lm(
+        values,
         to_tensor(chain_meas, device, dtype),
         None if chain_info is None else to_tensor(chain_info, device, dtype),
         to_tensor(loop_ef, device, torch.int64),
@@ -171,17 +195,15 @@ def _optimize_chain_direct(poses, edges_from, edges_to, measurements, informatio
         to_tensor(loop_meas, device, dtype),
         None if loop_info is None else to_tensor(loop_info, device, dtype),
         fixed,
-        residual_fn=residual_fn or se2_edge_residual,
-        retract_fn=retract_fn or se2_retract,
+        residual_fn=residual_fn,
+        retract_fn=retract_fn,
         tdim=tdim,
         max_iterations=max(max_iterations, 1),
         gradient_tolerance=tolerance,
         step_tolerance=tolerance,
         cost_tolerance=tolerance * tolerance,
-        refine=refine,
-        chunks=chunks or 0,
+        **lm_kw,
     )
-    return out, _summary(summ)
 
 
 def _optimize_banded_direct(poses, edges_from, edges_to, measurements, information,
@@ -214,3 +236,163 @@ def se3_edge_residual(xi, xj, meas_tangent):
     the measurement given as a tangent [6]."""
     z = se3_exp(meas_tangent)
     return se3_log(se3_inverse(z) @ se3_inverse(se3_exp(xi)) @ se3_exp(xj))
+
+
+def se3_anchored_edge_residual(li, lj, meas48):
+    """Anchor-recentred SE(3) edge error in deviation space: with
+    X_i = A_i·exp(l_i) for host anchors A and small device-side locals l,
+
+        r = log(Z⁻¹ · X_i⁻¹ · X_j)
+          = log( M · exp(−hat(Ad_{rel⁻¹} l_i)) · exp(hat(l_j)) ),
+
+    where rel = A_i⁻¹A_j, M = Z⁻¹·rel and Ad_{rel⁻¹} come from the host in
+    f64 (core/lie_np.py). Every device-side factor is near the identity and
+    composed as a deviation E = T − I (core/lie.py se3_expm1,
+    se3_compose_dev, se3_logm1), so the f32 evaluation error is relative to
+    max(|residual|, |locals|), not absolute at the workspace's scale;
+    re-anchoring (anchor_rounds) shrinks it with the state.
+
+    meas48 packs [E_M's top three rows (12) | Ad_{rel⁻¹} (36)]."""
+    e_m = torch.cat([meas48[:12].reshape(3, 4), torch.zeros_like(meas48[:4])[None]], 0)
+    ad = meas48[12:].reshape(6, 6)
+    e_a = se3_expm1(-(ad @ li))
+    e_b = se3_expm1(lj)
+    return se3_logm1(se3_compose_dev(se3_compose_dev(e_m, e_a), e_b))
+
+
+def _auto_chunks(n, chunks):
+    """The JAX package's SPIKE chunk rule: the plain ladder to 262,144 poses,
+    beyond it the smallest power of two keeping each chunk <= 131,072 rows
+    (`solve_chain_lm` raises NotImplementedError for chunks > 1)."""
+    if chunks is not None:
+        return chunks
+    chunks = 0
+    if n > 262144:
+        chunks = 2
+        while -(-n // chunks) > 131072:
+            chunks *= 2
+    return chunks
+
+
+def _optimize_chain_direct_anchored_se3(pose_tangents, edges_from, edges_to,
+                                        measurement_tangents, information, max_iterations,
+                                        tolerance, fix_first=True, chunks=None, anchor_rounds=2,
+                                        device=None, dtype=torch.float32):
+    """The SE(3) chain solve in anchor-recentred deviation coordinates: the
+    anchors are the current tangents (composed in f64 on the host), the
+    device solves for small locals from zero, and the poses recompose in
+    f64; `anchor_rounds + 1` rounds, each re-anchored at the last one's
+    solution. LM semantics as the plain chain path; the summary is the last
+    round's. Each round reads its locals back once.
+
+    Unlike the JAX package, the capacitance system is factored by LU
+    (spd=False), not Cholesky: near the optimum the damping falls to ~1e-8,
+    where f32 assembly can make the system indefinite; IEEE f32 Cholesky
+    then rejects it and the round ends with numerical_failure. The JAX
+    package's own f32 10k test (tests/test_tridiag.py::
+    test_se3_anchored_f32_10k_closes_accuracy_island, marked slow) misses
+    its 1e-4 RMSE gate on the CPU; with LU the port meets it. In f64 both
+    factorisations give the same steps. Numbers in ROADMAP.md C4."""
+    device = resolve_device(device)
+    t64 = _host(pose_tangents).astype(np.float64)
+    n = t64.shape[0]
+    ef = _host(edges_from)
+    et = _host(edges_to)
+    z_inv = lie_np.se3_inverse(lie_np.se3_exp(_host(measurement_tangents).astype(np.float64)))
+    fixed = _first_fixed(n, fix_first, device)
+    chunks = _auto_chunks(n, chunks)
+    cur = t64
+    for _ in range(anchor_rounds + 1):
+        anchors, meas48 = anchored_measurements(cur, ef, et, z_inv)
+        out_locals, summ = _chain_lm(
+            torch.zeros((n, 6), dtype=dtype, device=device), ef, et, meas48, information, fixed,
+            se3_anchored_edge_residual, se3_retract, 6, max_iterations, tolerance, rdim=6,
+            chunks=chunks, spd=False)
+        cur = lie_np.se3_log(anchors @ lie_np.se3_exp(_host(out_locals).astype(np.float64)))
+    return to_tensor(cur, device, dtype), _summary(summ)
+
+
+def anchored_measurements(tangents, edges_from, edges_to, z_inv):
+    """One anchoring round's host f64 set-up: the anchors A = exp(tangents)
+    [N, 4, 4] and each edge's meas48 [E, 48] for
+    `se3_anchored_edge_residual` (E_M = Z⁻¹A_i⁻¹A_j − I's top rows, then
+    Ad of (A_i⁻¹A_j)⁻¹), given the measurements' inverses z_inv [E, 4, 4]."""
+    anchors = lie_np.se3_exp(tangents)
+    rel = lie_np.se3_inverse(anchors[edges_from]) @ anchors[edges_to]
+    e_m = (z_inv @ rel - np.eye(4))[:, :3, :].reshape(len(rel), 12)
+    ad = lie_np.se3_adjoint(lie_np.se3_inverse(rel)).reshape(len(rel), 36)
+    return anchors, np.concatenate([e_m, ad], -1)
+
+
+def build_pose_graph_3d(pose_tangents, edges_from, edges_to, measurement_tangents,
+                        information=None, fix_first=True):
+    """pose_tangents [N, 6]; edges_* [E]; measurement_tangents [E, 6];
+    information [E, 6, 6] (default identity). Tensors, on one device."""
+    n = pose_tangents.shape[0]
+    group = VariableGroup("pose", pose_tangents, retract=se3_retract,
+                          fixed_mask=_first_fixed(n, fix_first, pose_tangents.device))
+    idx = torch.stack([torch.as_tensor(edges_from, device=pose_tangents.device).long(),
+                       torch.as_tensor(edges_to, device=pose_tangents.device).long()], dim=-1)
+    block = FactorBlock("se3_edge", se3_edge_residual, ("pose", "pose"), idx,
+                        measurement=measurement_tangents, information=information)
+    return Problem((group,), (block,))
+
+
+def optimize_pose_graph_3d(pose_tangents, edges_from, edges_to, measurement_tangents,
+                           information=None, max_iterations=50, tolerance=1e-10,
+                           linear_solver="dense", refine=0, anchored=False, chunks=None,
+                           anchor_rounds=2, device=None, dtype=torch.float32):
+    """optimize_pose_graph_3d (pose_graph_optimization_3d.rs:53-119). Host
+    arrays (or tensors) go to `device` (default cuda) in `dtype`. Returns
+    (pose tangents [N, 6], SolverSummary).
+
+    linear_solver: the routes of `optimize_pose_graph_2d` on 6-dof tangents
+    ("dense", "pcg", "matfree_pcg", "chain_direct", "banded_direct",
+    "direct").
+
+    anchored=True (chain_direct or direct only): anchor-recentred residuals,
+    the f32 fix for a large workspace. The host composes the poses into
+    per-edge anchor-relative transforms in f64; the device solves small
+    local corrections only, `anchor_rounds + 1` times. Above 262,144 poses
+    it picks the SPIKE-chunked ladder as the JAX package does, which is not
+    ported and raises. chunks: see `optimize_pose_graph_2d`."""
+    device = resolve_device(device)
+    if anchored:
+        if linear_solver not in ("chain_direct", "direct"):
+            raise ValueError("anchored=True requires the chain_direct (or direct-routed chain) "
+                             "solver")
+        return _optimize_chain_direct_anchored_se3(
+            pose_tangents, edges_from, edges_to, measurement_tangents, information,
+            max_iterations, tolerance, chunks=chunks, anchor_rounds=anchor_rounds,
+            device=device, dtype=dtype)
+    if linear_solver == "direct":
+        linear_solver = ("chain_direct"
+                         if has_full_chain(len(pose_tangents), edges_from, edges_to)
+                         else "banded_direct")
+    if linear_solver == "chain_direct":
+        return _optimize_chain_direct(pose_tangents, edges_from, edges_to, measurement_tangents,
+                                      information, max_iterations, tolerance, refine=refine,
+                                      residual_fn=se3_edge_residual, retract_fn=se3_retract,
+                                      tdim=6, chunks=chunks, device=device, dtype=dtype)
+    if refine:
+        raise ValueError(f"refine is only supported by linear_solver='chain_direct', "
+                         f"got {linear_solver!r}")
+    if linear_solver == "banded_direct":
+        return _optimize_banded_direct(pose_tangents, edges_from, edges_to,
+                                       measurement_tangents, information, max_iterations,
+                                       tolerance, se3_edge_residual, se3_retract, 6,
+                                       device=device, dtype=dtype)
+    prob = build_pose_graph_3d(
+        to_tensor(pose_tangents, device, dtype), to_tensor(edges_from, device, torch.int64),
+        to_tensor(edges_to, device, torch.int64), to_tensor(measurement_tangents, device, dtype),
+        None if information is None else to_tensor(information, device, dtype))
+    cfg = SolverConfig(
+        method="lm",
+        max_iterations=max(max_iterations, 1),
+        gradient_tolerance=tolerance,
+        step_tolerance=tolerance,
+        cost_tolerance=tolerance * tolerance,
+        linear_solver=linear_solver,
+    )
+    solved, summary = solve(prob, cfg)
+    return solved.groups[0].values, summary

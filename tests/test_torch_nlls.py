@@ -227,11 +227,78 @@ def test_unknown_kernel_and_solver_raise():
 
 
 def test_not_yet_ported_names_say_which_slice():
-    for name in ("solve_device", "implicit_vjp", "solve_implicit"):
-        with pytest.raises(AttributeError, match="slice 4"):
-            getattr(tn, name)
-    for name in ("solve_chain_lm", "block_tridiag_solve", "classify_chain_edges"):
+    """Slice 4's names are all ported now: each is exported and callable, as
+    in the JAX package's `nlls`."""
+    for name in ("solve_device", "implicit_vjp", "solve_implicit", "solve_chain_lm",
+                 "block_tridiag_solve", "classify_chain_edges"):
         assert callable(getattr(tn, name))
+    with pytest.raises(AttributeError):
+        getattr(tn, "no_such_name")
+
+
+# solve_device on synthesize_chain(60) (tests/test_nlls.py:193-215, with a
+# PCG budget of 200: the masked PCG runs every step of its budget on the
+# CPU too). Held to JAX's solve_device: termination and every count equal,
+# costs at rtol 1e-9 (atol 1e-20: they end at ~1e-21), poses within 1e-8.
+SOLVE_DEVICE = dict(method="lm", max_iterations=25, gradient_tolerance=1e-10,
+                    step_tolerance=1e-10, cost_tolerance=1e-14, pcg_max_iterations=200,
+                    pcg_tolerance=1e-10)
+
+
+def _chain60(dtype=F64):
+    _, initial, ef, et, meas, info = synthesize_chain(60)
+    return (jpg.build_pose_graph_2d(jnp.asarray(initial), ef, et, jnp.asarray(meas),
+                                    jnp.asarray(info)),
+            tpg.build_pose_graph_2d(_t(initial).to(dtype), _t(ef), _t(et), _t(meas).to(dtype),
+                                    _t(info).to(dtype)))
+
+
+@pytest.mark.parametrize("linear_solver", ["dense", "matfree_pcg"])
+def test_solve_device_matches_jax(linear_solver):
+    jp, tp = _chain60()
+    cfg = dict(SOLVE_DEVICE, linear_solver=linear_solver)
+    j_solved, js = jn.solve_device(jp, jn.SolverConfig(**cfg))
+    t_solved, ts = tn.solve_device(tp, tn.SolverConfig(**cfg))
+    assert (ts.termination, ts.iterations, ts.accepted_steps, ts.linear_iterations) == \
+        (js.termination, js.iterations, js.accepted_steps, js.linear_iterations), (ts, js)
+    assert all(isinstance(v, (int, float, str)) for v in vars(ts).values())
+    for got, want in ((ts.initial_cost, js.initial_cost), (ts.final_cost, js.final_cost)):
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-20)
+    assert t_solved.groups[0].values.dtype == F64
+    np.testing.assert_allclose(t_solved.groups[0].values.numpy(),
+                               np.asarray(j_solved.groups[0].values), atol=1e-8)
+    # the host loop reaches the same solution
+    host, hs = tn.solve(tp, tn.SolverConfig(**cfg))
+    assert hs.termination == ts.termination
+    np.testing.assert_allclose(t_solved.groups[0].values.numpy(),
+                               host.groups[0].values.numpy(), atol=1e-10)
+
+
+def test_masked_pcg_iterates_equal_the_stopping_loop():
+    """`_pcg_masked` runs its whole budget with each step masked by `_pcg`'s
+    test, so x and the count equal `_pcg`'s bitwise, and a converged solve
+    stands still for the rest of the budget."""
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(30, 30))
+    h = _t(a @ a.T + 30 * np.eye(30))
+    b = _t(rng.normal(size=30))
+    pre = torch.diag(1.0 / torch.diagonal(h))
+    want, k = tsolver._pcg(lambda p: h @ p, lambda r: pre @ r, b, 200, 1e-10)
+    got, k_masked = tsolver._pcg_masked(lambda p: h @ p, lambda r: pre @ r, b, 200, 1e-10)
+    assert 0 < k < 200 and int(k_masked) == k
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_solve_device_float32_and_its_limits():
+    _, tp = _chain60(torch.float32)
+    solved, summary = tn.solve_device(tp, tn.SolverConfig(**SOLVE_DEVICE))
+    assert solved.groups[0].values.dtype == torch.float32
+    assert summary.termination != "numerical_failure" and summary.final_cost < 1e-8
+    with pytest.raises(ValueError, match="dense|matfree_pcg"):
+        tn.solve_device(tp, tn.SolverConfig(linear_solver="pcg"))
+    empty = tn.Problem((tn.VariableGroup("x", torch.zeros((0, 2), dtype=F64)),), ())
+    _, s0 = tn.solve_device(empty)
+    assert (s0.iterations, s0.termination) == (0, "gradient_converged")
 
 
 @pytest.mark.parametrize("linear_solver", ["dense", "pcg", "matfree_pcg"])

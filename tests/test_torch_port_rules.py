@@ -62,7 +62,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     from rust_robotics_tpu_torch.nlls.tridiag import build_w_inv, nested_partition
     from rust_robotics_tpu_torch.planning import grid
     from rust_robotics_tpu_torch.slam.bundle_adjustment import CameraIntrinsics, bundle_adjust
-    from rust_robotics_tpu_torch.slam.pose_graph import optimize_pose_graph_2d
+    from rust_robotics_tpu_torch.nlls.implicit import pose_graph_implicit_vjp
+    from rust_robotics_tpu_torch.slam.icp import icp_matching
+    from rust_robotics_tpu_torch.slam.pose_graph import (
+        optimize_pose_graph_2d,
+        optimize_pose_graph_3d,
+    )
 
     blocked = np.eye(4, 3, dtype=bool)
     ox, oy = np.array([0.0, 4.0, 4.0]), np.array([0.0, 0.0, 3.0])
@@ -71,6 +76,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     cams, points = np.eye(4)[None], np.array([[0.0, 0.0, 5.0], [1.0, 0.0, 5.0]])
     cam_idx, pt_idx, pixels = np.zeros(2, np.int32), np.arange(2), np.array([[0.0, 0.0], [1.0, 0.0]])
     poses, ef, et, meas = np.zeros((2, 3)), np.array([0]), np.array([1]), np.ones((1, 3))
+    poses6, meas6 = np.zeros((2, 6)), np.full((1, 6), 0.1)
+    cloud = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 2.0]])
     host_data_calls = {
         "run_ekf_localization_demo": lambda **kw: run_ekf_localization_demo(steps=3, **kw)["estimate"],
         "default_ekf_noise": lambda **kw: default_ekf_noise(**kw)[0],
@@ -89,6 +96,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
             lambda solver=solver, **kw: optimize_pose_graph_2d(
                 poses, ef, et, meas, max_iterations=1, linear_solver=solver, **kw)[0])
            for solver in ("chain_direct", "banded_direct", "direct")},
+        **{f"optimize_pose_graph_3d {solver}": (
+            lambda solver=solver, **kw: optimize_pose_graph_3d(
+                poses6, ef, et, meas6, max_iterations=1, linear_solver=solver, **kw)[0])
+           for solver in ("dense", "chain_direct", "banded_direct")},
+        "optimize_pose_graph_3d anchored": lambda **kw: optimize_pose_graph_3d(
+            poses6, ef, et, meas6, max_iterations=1, linear_solver="chain_direct",
+            anchored=True, anchor_rounds=0, **kw)[0],
+        "pose_graph_implicit_vjp": lambda **kw: pose_graph_implicit_vjp(
+            poses, ef, et, meas, None, lambda p: torch.sum(p[-1] ** 2), **kw)[1],
+        "icp_matching": lambda **kw: icp_matching(cloud, cloud + 0.1, max_iter=2, **kw).transform,
         "nested_partition": lambda **kw: nested_partition(6, np.array([0]), np.array([3]),
                                                           **kw).bounds,
         "build_w_inv": lambda **kw: build_w_inv(None, 2, 3, torch.float32, **kw),
