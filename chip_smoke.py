@@ -96,8 +96,30 @@ any failure exits non-zero before the final line.
     lock-step all converge, three lanes equal their solo runs, pair 0
     equals the CPU's within 1e-5; then one JSON line
     `{"slam_backend": {...}}`;
-17. one JSON line `{"kernels": [...]}`;
-18. the last line, `{"ok": true, "device": {...}}`.
+17. the SLAM front end and the remaining filters (no kernel on their path),
+    f64 unless noted, each part timed, each one step profiled (launches,
+    idle share) and run under sync debug mode "error": (a) EKF-SLAM, the
+    reference sim of tests/test_slam_filters.py on cuda against the CPU
+    (1e-9) and at its gates, then a fleet of 1024 filters of capacity 32
+    for 100 steps past 32 landmarks (every lane within the test's gates, the
+    map holding exactly the landmarks seen); (b) FastSLAM 1.0 and 2.0 with
+    8192 particles x 32 landmarks for 60 steps (weights finite and
+    normalised, pose and map within the test's gates), and cuda against the
+    CPU with zero control noise and fed draws (1e-9); (c)
+    `ekf_smooth_unicycle` at T = 4096, parallel against sequential on cuda
+    (1e-7) and smoothed RMSE below filtered, the parallel filter and
+    smoother timed at T = 65536; (d) SR-UKF against the UKF (1e-8) and the
+    adaptive filter (its first 64 lanes against the CPU) on 65536 filters x
+    200 steps, histogram filters on 1024 rasters of 80x80 (estimates within
+    0.5 m); (e) robust and point-to-line ICP on 256 pairs x 1000 points in
+    f32 (poses within the test's gates, three lanes equal their solo runs),
+    correlative matching of 21^3 candidates on a 400x400 likelihood (the
+    true pose found, cuda equal to the CPU), graph SLAM on cuda against the
+    CPU; (f) `run_slam_node_loop(60)` on cuda against the CPU (the same
+    reasons, poses within 1e-9); then one JSON line
+    `{"slam_frontend": {...}}`;
+18. one JSON line `{"kernels": [...]}`;
+19. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -115,8 +137,27 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from rust_robotics_tpu_torch.core.types import GaussianBelief
-from rust_robotics_tpu_torch.demos.ekf_localization import run_ekf_localization_demo
-from rust_robotics_tpu_torch.filters.kalman import ekf_step
+from rust_robotics_tpu_torch.demos.ekf_localization import (
+    default_ekf_noise,
+    run_ekf_localization_demo,
+)
+from rust_robotics_tpu_torch.filters import smoother
+from rust_robotics_tpu_torch.filters.extra import (
+    HistogramConfig,
+    adaptive_step,
+    histogram_estimate,
+    histogram_init,
+    histogram_predict,
+    histogram_update_ranges,
+    sr_ukf_step,
+)
+from rust_robotics_tpu_torch.filters.kalman import ekf_step, ukf_step
+from rust_robotics_tpu_torch.filters.smoother import (
+    ekf_smooth_unicycle,
+    parallel_kalman_filter,
+    parallel_rts_smoother,
+    sequential_rts_smoother,
+)
 from rust_robotics_tpu_torch.filters.particle import (
     init_particles,
     pf_estimate,
@@ -171,7 +212,17 @@ from rust_robotics_tpu_torch.slam.bundle_adjustment import (
 )
 from rust_robotics_tpu_torch.core import lie_np
 from rust_robotics_tpu_torch.nlls.implicit import pose_graph_implicit_vjp
+from rust_robotics_tpu_torch.slam.ekf_slam import ekf_slam_step, init_ekf_slam
+from rust_robotics_tpu_torch.slam.fastslam import estimate as fs_estimate
+from rust_robotics_tpu_torch.slam.fastslam import fastslam1_step, fastslam2_step, init_fastslam
 from rust_robotics_tpu_torch.slam.icp import icp_matching
+from rust_robotics_tpu_torch.slam.scan_matching import (
+    correlative_scan_match,
+    graph_slam_from_landmarks,
+    point_to_line_icp,
+    robust_icp,
+)
+from rust_robotics_tpu_torch.slam.slam_node import REASONS, run_slam_node_loop
 from rust_robotics_tpu_torch.slam.pose_graph import (
     anchored_measurements,
     build_pose_graph_2d,
@@ -1425,6 +1476,670 @@ def slam_backend_phase(card, device):
     return out
 
 
+# The SLAM front end and the remaining filters (phase 17), f64 unless noted.
+# The world: tests/test_slam_filters.py's circle drive (u = (1, 0.1), dt 0.1,
+# range noise 0.05, bearing noise 0.01, max range 20 m) past 32 landmarks on
+# a jittered 8 x 4 grid, 5 m apart, so that every landmark comes within
+# range and none lies within 3 m of another; the gates are that test's:
+# final position error < 1.5 m, every mapped landmark within 1 m of a true
+# one, the EKF map holding exactly the landmarks seen.
+FE_LANDMARKS, FE_DT, FE_CONTROL = 32, 0.1, (1.0, 0.1)
+FE_POSE_GATE, FE_MAP_GATE = 1.5, 1.0
+FE_Q = np.diag([0.2, (5 * np.pi / 180) ** 2])  # ekf_slam.rs Q_SIM
+FE_R = np.diag(np.array([0.05, 0.01]) ** 2 * 25)
+FAST_CHOL = np.diag(np.array([0.3, 0.0305]) ** 0.5)  # fastslam1.rs R_SIM-ish
+FAST_R = np.diag([0.1, 0.05])
+# (a) the reference sim (4 landmarks, capacity 8, 200 steps), then a fleet.
+# The fleet starts from a known pose (variance 1e-4: 1 cm, 0.01 rad), as a
+# SLAM run's first pose defines its map's frame; with the reference sim's
+# identity prior and ~20 landmarks in view at once, the first steps' updates
+# are far from linear and the maps came out up to 1-3 m off (8 lanes on
+# the CPU), where from a known pose they were within 0.12 m.
+# Its R takes standard deviations twice the simulation's noise (0.1 m,
+# 0.02 rad): the test's R (5x, 0.25 m and 0.05 rad) opens an association
+# gate ~5.6 m wide at 20 m range, wider than the 5 m between the fleet's
+# landmarks. 64 lanes on the CPU, worst pose / map error: 5x 0.513 /
+# 0.919 m (the 1 m gate all but missed; missed on the H100 at 1024 lanes);
+# 2x 0.096 / 0.181 m; 1x 23 lanes off by more than 2 m (overconfident).
+# Steps cut to keep the phase near 90 s (on an NVIDIA H100 80GB HBM3 at
+# 700 W: 19.9 s for 200 fleet steps, 8.4 + 11.1 s for 100 FastSLAM steps):
+# the fleet 100 steps (all 32 landmarks seen), FastSLAM 60 (31 seen) and
+# its CPU check 10.
+EKF_SLAM_REF_STEPS, EKF_SLAM_FLEET, EKF_SLAM_CAPACITY, EKF_SLAM_STEPS = 200, 1024, 32, 100
+EKF_SLAM_FLEET_POSE_VAR = 1e-4
+FE_R_FLEET = np.diag(np.array([0.1, 0.02]) ** 2)
+# the reference sim on cuda against the CPU, f64: the same updates, each
+# dividing by innovation covariances of ~1e-2 (the CPU tests measured up to
+# ~1e-11 between JAX and the port over 40 steps); 1e-9 over 200 steps
+EKF_SLAM_CUDA_CPU_ATOL = 1e-9
+# (b) one filter of P particles x 32 landmarks; the cuda-CPU check with zero
+# control noise and fed draws at a smaller P, within 1e-9 as in (a). The
+# map gate holds the posterior-mean map (weights x landmark means): the
+# test's best particle carries one sample's pose error into a landmark seen
+# a few times at the 20 m edge (FastSLAM 2.0 on the CPU, 3 seeds: best
+# particle 0.20-0.95 m, posterior mean 0.09-0.16 m; 1.23 m for the best
+# particle in a run on the H100).
+FAST_P, FAST_STEPS, FAST_CHECK_P, FAST_CHECK_STEPS = 8192, 60, 1024, 10
+FAST_CUDA_CPU_ATOL, FAST_WEIGHT_SUM_ATOL = 1e-9, 1e-9
+# (c) ekf_smooth_unicycle at T = 4096 against the sequential RTS on cuda,
+# within tests/test_smoother.py's atol; the parallel filter and smoother
+# timed at T = 65536
+SMOOTH_T, SMOOTH_T_TIMED, SMOOTH_ATOL = 4096, 65536, 1e-7
+# (d) a fleet of unicycle filters, 200 steps; SR-UKF against the UKF at
+# tests/test_filters_extra.py's 1e-8; the adaptive filter on cuda against
+# the CPU on its first lanes (the same decisions; states within 1e-9);
+# histogram filters on 80 x 80 rasters, tests/test_filters_extra.py's run
+# (10 updates at rest, estimate within 0.5 m)
+FILTER_FLEET, FILTER_STEPS, SR_UKF_ATOL, ADAPTIVE_CPU_LANES = 65536, 200, 1e-8, 64
+ADAPTIVE_CUDA_CPU_ATOL = 1e-9
+HIST_FLEET, HIST_ITERS, HIST_GATE = 1024, 10, 0.5
+# 4 lanes on cuda against the CPU: probabilities of ~1e-4 after sums that
+# differ in order, ~1e-20 apart
+HIST_CUDA_CPU_ATOL = 1e-12
+# (e) scan matching: pairs of two-wall scans (tests/test_scan_matching_g2o.py's
+# shape, 500 points a wall, 0.01 m noise), turns in +-0.1 rad, shifts of
+# 0.1 m, f32 as phase 16's ICP; lanes equal their solo runs. The current
+# scans are exact images of the noisy previous ones, so point-to-line ICP
+# must find the pose (gate 0.02 m/rad, tests/test_scan_matching_g2o.py's).
+# Robust ICP runs with 4 % of the points moved 5 m away (that test's share):
+# Huber (δ = 0.3) caps each outlier's pull at δ, which leaves a bias of
+# order n_out·δ/n_in ≈ 0.0125 m per axis, more along the walls, where
+# point-to-point residuals hold weakly; measured on the CPU: up to
+# 0.038 m over 16 pairs (0.045 at the test's 200 points, whose gate of 0.03
+# holds for its one pair): the gate is 0.06.
+SM_PAIRS, SM_POINTS, SM_LANES = 256, 1000, (0, 97, 255)
+SM_ROBUST_GATE, SM_P2L_GATE = 0.06, 0.02
+# correlative matching: 21 x 21 x 21 candidates (0.1 m, 0.035 rad apart)
+# on a 400 x 400 likelihood of 0.05 m cells; the true pose lies on the
+# candidate grid, so the search must return it exactly
+CSM_CELLS, CSM_RES, CSM_SIGMA, CSM_N = 400, 0.05, 0.1, 21
+CSM_POSE = (0.4, -0.3, 0.105)
+# graph SLAM on cuda against the CPU in f64: an LM run that ends at the
+# rounding floor may take another number of steps (ROADMAP C); poses within
+# tests/test_torch_scan_matching.py's 1e-8
+GRAPH_CUDA_CPU_ATOL = 1e-8
+# (f) the SLAM node loop, 60 steps, cuda against the CPU in f64: each step's
+# ICP solves 3x3 normal equations of ~700 points, condition number below
+# ~1e4, so its pose delta carries ~1e4 · 1.1e-16 ≈ 1e-12 of rounding that
+# differs between the two devices' orders of summation; 60 compositions
+# give ≲ 1e-10; 1e-9 leaves 10x. The decisions and reasons must be equal.
+NODE_STEPS, NODE_POSE_ATOL = 60, 1e-9
+
+
+def frontend_landmarks(seed=SEED):
+    rng = np.random.default_rng(seed + 17)
+    gx, gy = np.meshgrid(np.arange(8) * 5.0 - 12.5, np.arange(4) * 5.0 - 0.5, indexing="ij")
+    return np.stack([gx.ravel(), gy.ravel()], -1) + rng.uniform(-1.0, 1.0, (FE_LANDMARKS, 2))
+
+
+def frontend_drive(steps):
+    """The true poses [steps, 3] of the circle drive (after each step)."""
+    truth, out = np.zeros(3), []
+    u = FE_CONTROL
+    for _ in range(steps):
+        truth = np.array([truth[0] + u[0] * FE_DT * np.cos(truth[2]),
+                          truth[1] + u[0] * FE_DT * np.sin(truth[2]),
+                          (truth[2] + u[1] * FE_DT + np.pi) % (2 * np.pi) - np.pi])
+        out.append(truth)
+    return np.stack(out)
+
+
+def frontend_observations(landmarks, truth, lanes, seed):
+    """Range-bearing observations [steps, lanes, L, 3] (range, bearing, id),
+    one slot per landmark in id order, and their masks [steps, lanes, L]
+    (in range); the noise differs per lane."""
+    rng = np.random.default_rng(seed)
+    d = landmarks[None] - truth[:, None, :2]  # [T, L, 2]
+    rngs = np.linalg.norm(d, axis=-1)
+    bearing = (np.arctan2(d[..., 1], d[..., 0]) - truth[:, None, 2] + np.pi) % (2 * np.pi) - np.pi
+    steps, n = rngs.shape
+    noise = rng.standard_normal((steps, lanes, n, 2))
+    obs = np.empty((steps, lanes, n, 3))
+    obs[..., 0] = rngs[:, None] + 0.05 * noise[..., 0]
+    obs[..., 1] = bearing[:, None] + 0.01 * noise[..., 1]
+    obs[..., 2] = np.arange(n)
+    return obs, np.broadcast_to((rngs <= 20.0)[:, None], (steps, lanes, n)).copy()
+
+
+def reference_sim_observations(steps, seed=0):
+    """tests/test_slam_filters.py's simulate(): 4 landmarks, compact slots."""
+    lms = np.array([[10.0, -2.0], [15.0, 10.0], [3.0, 15.0], [-5.0, 20.0]])
+    rng = np.random.default_rng(seed)
+    truth = frontend_drive(steps)
+    obs, mask = np.zeros((steps, 4, 2)), np.zeros((steps, 4), bool)
+    for k in range(steps):
+        d = lms - truth[k, :2]
+        rngs = np.linalg.norm(d, axis=-1)
+        bearing = (np.arctan2(d[:, 1], d[:, 0]) - truth[k, 2] + np.pi) % (2 * np.pi) - np.pi
+        j = 0
+        for i in range(4):
+            if rngs[i] <= 20.0:
+                obs[k, j] = [rngs[i] + 0.05 * rng.standard_normal(),
+                             bearing[i] + 0.01 * rng.standard_normal()]
+                mask[k, j] = True
+                j += 1
+    return lms, truth, obs, mask
+
+
+def map_errors(mapped, landmarks):
+    """Each mapped landmark's distance to the nearest true one."""
+    return np.linalg.norm(mapped[..., :, None, :] - landmarks, axis=-1).min(-1)
+
+
+def profile_step(label, fn):
+    """One call's device launches and idle share under the profiler."""
+    prof = device_breakdown(label, fn)
+    return {"launches": len(prof["names"]), **{k: v for k, v in prof.items() if k != "names"}}
+
+
+def ekf_slam_part(card, device):
+    """(a) EKF-SLAM: the reference sim on cuda against the CPU, then a fleet."""
+    f64 = torch.float64
+    lms, truth, obs, mask = reference_sim_observations(EKF_SLAM_REF_STEPS)
+    q, r, u = (torch.tensor(a, dtype=f64) for a in (FE_Q, FE_R, FE_CONTROL))
+
+    def run(dev):
+        b = init_ekf_slam(8, device=dev)
+        o, m = torch.tensor(obs, dtype=f64, device=dev), torch.tensor(mask, device=dev)
+        qd, rd, ud = q.to(dev), r.to(dev), u.to(dev)
+        for k in range(EKF_SLAM_REF_STEPS):
+            b = ekf_slam_step(b, ud, o[k], m[k], FE_DT, qd, rd)
+        return b
+
+    on_cuda, on_cpu = run(device), run("cpu")
+    diff = max(max_err(on_cuda.mean.cpu(), on_cpu.mean), max_err(on_cuda.cov.cpu(), on_cpu.cov))
+    n_lm = int(on_cuda.n_lm)
+    pose_err = float(np.linalg.norm(on_cuda.mean[:2].cpu().numpy() - truth[-1, :2]))
+    lm_err = map_errors(on_cuda.mean[3:3 + 2 * n_lm].cpu().numpy().reshape(n_lm, 2), lms)
+    print(f"EKF-SLAM reference sim ({EKF_SLAM_REF_STEPS} steps, capacity 8) on {card}: cuda "
+          f"against the CPU max|diff| {diff!r} (atol {EKF_SLAM_CUDA_CPU_ATOL}); {n_lm} landmarks, "
+          f"pose error {pose_err!r}, worst map error {lm_err.max()!r}")
+    if not (diff <= EKF_SLAM_CUDA_CPU_ATOL and int(on_cpu.n_lm) == n_lm == 4
+            and pose_err < FE_POSE_GATE and lm_err.max() < FE_MAP_GATE):
+        fail("EKF-SLAM reference sim: cuda differs from the CPU or misses the test's gates")
+    ref = {"steps": EKF_SLAM_REF_STEPS, "cuda_minus_cpu": diff, "landmarks": n_lm,
+           "pose_error": pose_err, "map_error_max": float(lm_err.max())}
+
+    landmarks = frontend_landmarks()
+    truth = frontend_drive(EKF_SLAM_STEPS)
+    obs, mask = frontend_observations(landmarks, truth, EKF_SLAM_FLEET, SEED + 170)
+    seen = int(mask.any(axis=(0, 1)).sum())
+    obs_d = torch.tensor(obs[..., :2], dtype=f64, device=device)
+    mask_d = torch.tensor(mask, device=device)
+    qd, rd, ud = q.to(device), torch.tensor(FE_R_FLEET, dtype=f64, device=device), u.to(device)
+
+    def start():
+        b = init_ekf_slam(EKF_SLAM_CAPACITY, device=device, batch_shape=(EKF_SLAM_FLEET,))
+        b.cov[:, :3, :3] *= EKF_SLAM_FLEET_POSE_VAR
+        return b
+
+    def fleet():
+        b = start()
+        for k in range(EKF_SLAM_STEPS):
+            b = ekf_slam_step(b, ud, obs_d[k], mask_d[k], FE_DT, qd, rd)
+        return b
+
+    seconds, b = timed(fleet)
+    n_lm = b.n_lm.cpu().numpy()
+    pose_err = np.linalg.norm(b.mean[:, :2].cpu().numpy() - truth[-1, :2], axis=-1)
+    mapped = b.mean[:, 3:].cpu().numpy().reshape(EKF_SLAM_FLEET, EKF_SLAM_CAPACITY, 2)
+    slots = np.arange(EKF_SLAM_CAPACITY) < n_lm[:, None]
+    lm_err = np.where(slots, map_errors(mapped, landmarks), 0.0)
+    print(f"EKF-SLAM fleet {EKF_SLAM_FLEET} filters x capacity {EKF_SLAM_CAPACITY} (state "
+          f"{3 + 2 * EKF_SLAM_CAPACITY}), {EKF_SLAM_STEPS} steps on {card}: {seconds!r} s, "
+          f"{EKF_SLAM_STEPS / seconds!r} steps/s, {EKF_SLAM_FLEET * EKF_SLAM_STEPS / seconds!r} "
+          f"filter-steps/s; landmarks mapped min {n_lm.min()} max {n_lm.max()} (seen {seen}); "
+          f"pose error max {pose_err.max()!r}; map error max {lm_err.max()!r}")
+    if not ((n_lm == seen).all() and (pose_err < FE_POSE_GATE).all()
+            and (lm_err < FE_MAP_GATE).all()):
+        fail("EKF-SLAM fleet misses the test's gates")
+    b0 = start()
+    step = lambda: ekf_slam_step(b0, ud, obs_d[0], mask_d[0], FE_DT, qd, rd)  # noqa: E731
+    no_read_in("EKF-SLAM fleet, one step", step)
+    prof = profile_step(f"EKF-SLAM fleet, one step ({EKF_SLAM_FLEET} filters) on {card}", step)
+    return {"reference_sim": ref,
+            "fleet": {"filters": EKF_SLAM_FLEET, "capacity": EKF_SLAM_CAPACITY,
+                      "steps": EKF_SLAM_STEPS, "seconds": seconds,
+                      "steps_per_s": EKF_SLAM_STEPS / seconds,
+                      "filter_steps_per_s": EKF_SLAM_FLEET * EKF_SLAM_STEPS / seconds,
+                      "landmarks_seen": seen, "pose_error_max": float(pose_err.max()),
+                      "map_error_max": float(lm_err.max()), "one_step": prof}}
+
+
+def fastslam_part(card, device):
+    """(b) FastSLAM 1.0 and 2.0: one filter of FAST_P particles x 32
+    landmarks; then cuda against the CPU with zero control noise and fed
+    draws."""
+    f64 = torch.float64
+    landmarks = frontend_landmarks()
+    truth = frontend_drive(FAST_STEPS)
+    obs, mask = frontend_observations(landmarks, truth, 1, SEED + 171)
+    obs, mask = obs[:, 0], mask[:, 0]
+    t = lambda a, dev=device: torch.tensor(a, dtype=f64, device=dev)  # noqa: E731
+    obs_d, mask_d = t(obs), torch.tensor(mask, device=device)
+    u, chol, r = t(FE_CONTROL), t(FAST_CHOL), t(FAST_R)
+    out = {}
+    for name, step_fn in (("fastslam1", fastslam1_step), ("fastslam2", fastslam2_step)):
+        gen = torch.Generator(device=device).manual_seed(SEED)
+
+        def run():
+            p = init_fastslam(FAST_P, FE_LANDMARKS, device=device)
+            for k in range(FAST_STEPS):
+                p = step_fn(p, u, obs_d[k], mask_d[k], FE_DT, chol, r, generator=gen)
+            return p
+
+        seconds, p = timed(run)
+        w = p.weights
+        wsum = float(w.sum())
+        pose, best = fs_estimate(p)
+        pose_err = float(np.linalg.norm(pose[:2].cpu().numpy() - truth[-1, :2]))
+        seen = mask.any(axis=0)
+        best = int(best)
+        # the map as the posterior mean over the particles: the gate's
+        # statistic (the best particle's map is printed beside it)
+        lm_mean = torch.einsum("p,pli->li", w / w.sum(), p.lm_mean).cpu().numpy()
+        lm_err = np.linalg.norm(lm_mean - landmarks, axis=-1)[seen]
+        best_err = np.linalg.norm(p.lm_mean[best].cpu().numpy() - landmarks, axis=-1)[seen]
+        all_seen = bool(p.lm_seen.cpu().numpy()[:, seen].all())
+        print(f"{name} {FAST_P} particles x {FE_LANDMARKS} landmarks, {FAST_STEPS} steps on "
+              f"{card}: {seconds!r} s ({FAST_STEPS / seconds!r} steps/s); weights finite "
+              f"{bool(torch.isfinite(w).all())}, sum {wsum!r}; pose error {pose_err!r}; map "
+              f"error max {lm_err.max()!r} over {int(seen.sum())} seen (the best particle's "
+              f"{best_err.max()!r})")
+        if not (torch.isfinite(w).all() and abs(wsum - 1.0) <= FAST_WEIGHT_SUM_ATOL
+                and pose_err < FE_POSE_GATE and lm_err.max() < FE_MAP_GATE and all_seen):
+            fail(f"{name} misses the test's gates")
+        p0 = init_fastslam(FAST_P, FE_LANDMARKS, device=device)
+        p0 = step_fn(p0, u, obs_d[0], mask_d[0], FE_DT, chol, r, generator=gen)
+        step = lambda: step_fn(p0, u, obs_d[1], mask_d[1], FE_DT, chol, r,  # noqa: E731
+                               generator=gen)
+        no_read_in(f"{name}, one step", step)
+        out[name] = {"particles": FAST_P, "landmarks": FE_LANDMARKS, "steps": FAST_STEPS,
+                     "seconds": seconds, "steps_per_s": FAST_STEPS / seconds,
+                     "weight_sum": wsum, "pose_error": pose_err,
+                     "map_error_max": float(lm_err.max()),
+                     "best_particle_map_error_max": float(best_err.max()),
+                     "one_step": profile_step(f"{name}, one step ({FAST_P} particles) on {card}",
+                                              step)}
+
+    # cuda against the CPU: zero control noise, the same fed draws
+    rng = np.random.default_rng(SEED + 172)
+    zero = np.zeros((2, 2))
+    for name, step_fn, dim in (("fastslam1", fastslam1_step, 2), ("fastslam2", fastslam2_step, 3)):
+        noise = rng.standard_normal((FAST_CHECK_STEPS, FAST_CHECK_P, dim))
+        unif = rng.uniform(size=(FAST_CHECK_STEPS, 1))
+
+        def run(dev):
+            p = init_fastslam(FAST_CHECK_P, FE_LANDMARKS, device=dev)
+            for k in range(FAST_CHECK_STEPS):
+                p = step_fn(p, t(FE_CONTROL, dev), t(obs[k], dev),
+                            torch.tensor(mask[k], device=dev), FE_DT, t(zero, dev),
+                            t(FAST_R, dev), draws=(t(noise[k], dev), t(unif[k], dev)))
+            return p
+
+        a, b = run(device), run("cpu")
+        diff = max(max_err(getattr(a, f).cpu().double(), getattr(b, f).double())
+                   for f in ("poses", "weights", "lm_mean", "lm_cov", "lm_seen"))
+        print(f"{name} cuda against the CPU ({FAST_CHECK_P} particles, {FAST_CHECK_STEPS} steps, "
+              f"zero control noise, fed draws): max|diff| {diff!r} (atol {FAST_CUDA_CPU_ATOL})")
+        if not diff <= FAST_CUDA_CPU_ATOL:
+            fail(f"{name}: cuda differs from the CPU by {diff!r}")
+        out[name]["cuda_minus_cpu"] = diff
+    return out
+
+
+def smoother_part(card, device):
+    """(c) ekf_smooth_unicycle at T = SMOOTH_T, parallel against sequential
+    on cuda; the parallel filter and smoother timed at T = SMOOTH_T_TIMED."""
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED + 173)
+    dt = 0.1
+    us = np.stack([np.full(SMOOTH_T, 1.0), 0.2 * np.sin(0.1 * np.arange(SMOOTH_T))], -1)
+    x, truth = np.zeros(4), []
+    for k in range(SMOOTH_T):
+        x = np.array([x[0] + dt * us[k, 0] * np.cos(x[2]), x[1] + dt * us[k, 0] * np.sin(x[2]),
+                      x[2] + dt * us[k, 1], us[k, 0]])
+        truth.append(x)
+    truth = np.stack(truth)
+    zs = truth[:, :2] + 0.3 * rng.standard_normal((SMOOTH_T, 2))
+    t = lambda a: torch.tensor(a, dtype=f64, device=device)  # noqa: E731
+    q, r = t(np.diag([0.05, 0.05, 0.01, 0.1]) ** 2), t(np.diag([0.3, 0.3]) ** 2)
+    m0, p0 = torch.zeros(4, dtype=f64, device=device), torch.eye(4, dtype=f64, device=device)
+    zs_d, us_d = t(zs), t(us)
+    seconds, res = timed(lambda: ekf_smooth_unicycle(zs_d, us_d, dt, q, r, m0, p0))
+    fs, qs, h, cs = smoother._ekf_affine_system(zs_d, us_d, dt, q, r, m0, p0)
+    seq_s, seq = timed(lambda: sequential_rts_smoother(fs, qs, h, r, zs_d, m0, p0, cs))
+    diff = max(max_err(res["smoothed_means"], seq[0]), max_err(res["smoothed_covs"], seq[1]),
+               max_err(res["filtered_means"], seq[2]), max_err(res["filtered_covs"], seq[3]))
+    rmse = {k: float(np.sqrt(np.mean(np.sum((res[k][:, :2].cpu().numpy() - truth[:, :2]) ** 2,
+                                            -1))))
+            for k in ("filtered_means", "smoothed_means")}
+    print(f"ekf_smooth_unicycle T={SMOOTH_T} f64 on {card}: {seconds!r} s (EKF loop + parallel "
+          f"smoother); sequential RTS {seq_s!r} s; parallel against sequential max|diff| "
+          f"{diff!r} (atol {SMOOTH_ATOL}); RMSE filtered {rmse['filtered_means']!r}, smoothed "
+          f"{rmse['smoothed_means']!r}")
+    if not (diff <= SMOOTH_ATOL and rmse["smoothed_means"] < rmse["filtered_means"]):
+        fail("the smoother: parallel differs from sequential, or smoothing does not help")
+
+    n, m = 4, 2
+    fs = np.eye(n) + 0.05 * rng.standard_normal((SMOOTH_T_TIMED, n, n))
+    qs = np.broadcast_to(0.01 * np.eye(n), (SMOOTH_T_TIMED, n, n))
+    hh = rng.standard_normal((m, n))
+    cs = 0.1 * rng.standard_normal((SMOOTH_T_TIMED, n))
+    zz = rng.standard_normal((SMOOTH_T_TIMED, m))
+    args = (t(fs), t(qs), t(hh), t(0.1 * np.eye(m)), t(zz), m0, p0, t(cs))
+    times = {}
+    for name, fn in (("parallel_kalman_filter", parallel_kalman_filter),
+                     ("parallel_rts_smoother", parallel_rts_smoother)):
+        runs = [timed(lambda: fn(*args)) for _ in range(3)]
+        out_fn = runs[-1][1]
+        if not all(torch.isfinite(o).all() for o in out_fn):
+            fail(f"{name} at T={SMOOTH_T_TIMED}: non-finite values")
+        times[name] = min(s for s, _ in runs[1:])
+    print(f"parallel filter and smoother at T={SMOOTH_T_TIMED} f64 on {card}: {times} s "
+          f"(best of 2 warm)")
+    prof = profile_step(f"parallel_rts_smoother, one call at T={SMOOTH_T_TIMED} on {card}",
+                        lambda: parallel_rts_smoother(*args))
+    no_read_in("parallel_rts_smoother, one call", lambda: parallel_rts_smoother(*args))
+    return {"ekf_smooth_unicycle": {"T": SMOOTH_T, "seconds": seconds,
+                                    "sequential_rts_s": seq_s, "parallel_minus_sequential": diff,
+                                    "rmse": rmse},
+            "timed": {"T": SMOOTH_T_TIMED, "seconds": times, "one_call": prof}}
+
+
+def filters_part(card, device):
+    """(d) SR-UKF and the adaptive filter on a fleet of unicycle filters;
+    histogram filters on 80 x 80 rasters."""
+    f64 = torch.float64
+    gen = torch.Generator(device=device).manual_seed(SEED + 174)
+    b = FILTER_FLEET
+    q, r = default_ekf_noise(dtype=f64, device=device)
+    qc, rc = torch.linalg.cholesky(q), torch.linalg.cholesky(r)
+    mean0 = torch.tensor([10.0, 0.0, np.pi / 2, 0.0], dtype=f64, device=device).expand(b, 4)
+    # per lane: a circle drive with its own speed and GPS-like fixes (0.5 m);
+    # the adaptive filter's fixes are wild (30 m) in 5 % of the steps, which
+    # pushes it to its CKF
+    speed = 1.0 + 0.1 * torch.randn(b, dtype=f64, device=device, generator=gen)
+    zs, wild_zs, us = [], [], []
+    x = mean0.clone()
+    for _ in range(FILTER_STEPS):
+        u = torch.stack([speed, torch.full_like(speed, 0.1)], -1)
+        x = unicycle_propagate(x, u, DT)
+        wild = torch.rand(b, dtype=f64, device=device, generator=gen) < 0.05
+        noise = torch.randn((b, 2), dtype=f64, device=device, generator=gen)
+        zs.append(x[:, :2] + 0.5 * noise)
+        wild_zs.append(x[:, :2] + torch.where(wild[:, None], 30.0, 0.5) * noise)
+        us.append(u)
+    truth = x
+    eye = torch.eye(4, dtype=f64, device=device).expand(b, 4, 4)
+
+    def sr_run():
+        m, s = mean0, eye
+        for k in range(FILTER_STEPS):
+            m, s = sr_ukf_step(m, s, zs[k], us[k], DT, qc, rc)
+        return m, s
+
+    def ukf_run():
+        bel = GaussianBelief(mean0, eye)
+        for k in range(FILTER_STEPS):
+            bel = ukf_step(bel, zs[k], us[k], DT, q, r)
+        return bel
+
+    def sr_against_ukf():
+        """Each SR-UKF step against a UKF step from the same belief, as
+        tests/test_filters_extra.py holds one step: the largest difference
+        over the run."""
+        m, s = mean0, eye
+        worst = torch.zeros((), dtype=f64, device=device)
+        for k in range(FILTER_STEPS):
+            ref = ukf_step(GaussianBelief(m, s @ s.mT), zs[k], us[k], DT, q, r)
+            m, s = sr_ukf_step(m, s, zs[k], us[k], DT, qc, rc)
+            worst = torch.maximum(worst, torch.maximum((m - ref.mean).abs().max(),
+                                                       (s @ s.mT - ref.cov).abs().max()))
+        return float(worst)
+
+    def adaptive_run(lanes=slice(None), dev=device):
+        lane = lambda a: a[lanes].to(dev)  # noqa: E731
+        bel = GaussianBelief(lane(mean0), lane(eye))
+        use = torch.zeros(bel.mean.shape[0], dtype=torch.bool, device=dev)
+        switched = torch.zeros_like(use)
+        for k in range(FILTER_STEPS):
+            bel, use, _ = adaptive_step(bel, use, lane(wild_zs[k]), lane(us[k]), DT, q.to(dev),
+                                        r.to(dev))
+            switched = switched | use
+        return bel, use, switched
+
+    sr_s, (sr_m, _) = timed(sr_run)
+    ukf_s, _ = timed(ukf_run)
+    sr_diff = sr_against_ukf()
+    ad_s, (ad_b, ad_use, switched) = timed(adaptive_run)
+    lanes = slice(0, ADAPTIVE_CPU_LANES)
+    cpu_b, cpu_use, cpu_switched = adaptive_run(lanes, "cpu")
+    ad_diff = max(max_err(ad_b.mean[lanes].cpu(), cpu_b.mean),
+                  max_err(ad_b.cov[lanes].cpu(), cpu_b.cov))
+    same_use = bool(torch.equal(switched[lanes].cpu(), cpu_switched)
+                    and torch.equal(ad_use[lanes].cpu(), cpu_use))
+    err = {k: float(torch.linalg.norm(v[:, :2] - truth[:, :2], dim=-1).max())
+           for k, v in (("sr_ukf", sr_m), ("adaptive", ad_b.mean))}
+    print(f"SR-UKF {b} filters x {FILTER_STEPS} steps f64 on {card}: {sr_s!r} s "
+          f"({b * FILTER_STEPS / sr_s!r} filter-steps/s); UKF {ukf_s!r} s; each SR-UKF step "
+          f"against a UKF step max|diff| {sr_diff!r} (atol {SR_UKF_ATOL}); adaptive {ad_s!r} s, "
+          f"{int(switched.sum())} lanes used the CKF, the first {ADAPTIVE_CPU_LANES} lanes "
+          f"against the CPU max|diff| {ad_diff!r} (atol {ADAPTIVE_CUDA_CPU_ATOL}), same switches "
+          f"{same_use}; worst final position error {err}")
+    if not (sr_diff <= SR_UKF_ATOL and ad_diff <= ADAPTIVE_CUDA_CPU_ATOL and same_use
+            and int(switched.sum()) > 0 and all(np.isfinite(v) for v in err.values())):
+        fail("SR-UKF or the adaptive filter misses its gate")
+    sr_step = lambda: sr_ukf_step(mean0, eye, zs[0], us[0], DT, qc, rc)  # noqa: E731
+    use0 = torch.zeros(b, dtype=torch.bool, device=device)
+    bel0 = GaussianBelief(mean0, eye)
+    ad_step = lambda: adaptive_step(bel0, use0, wild_zs[0], us[0], DT, q, r)  # noqa: E731
+    no_read_in("sr_ukf_step", sr_step)
+    no_read_in("adaptive_step", ad_step)
+    out = {"fleet": b, "steps": FILTER_STEPS,
+           "sr_ukf": {"seconds": sr_s, "filter_steps_per_s": b * FILTER_STEPS / sr_s,
+                      "ukf_seconds": ukf_s, "minus_ukf": sr_diff,
+                      "one_step": profile_step(f"sr_ukf_step, {b} filters on {card}", sr_step)},
+           "adaptive": {"seconds": ad_s, "filter_steps_per_s": b * FILTER_STEPS / ad_s,
+                        "lanes_switched": int(switched.sum()), "cuda_minus_cpu": ad_diff,
+                        "one_step": profile_step(f"adaptive_step, {b} filters on {card}",
+                                                 ad_step)},
+           "final_position_error_max": err}
+
+    cfg = HistogramConfig()
+    lms = torch.tensor([[5.0, 5.0], [-5.0, 5.0], [0.0, -5.0]], dtype=f64, device=device)
+    hist_truth = 8.0 * torch.rand((HIST_FLEET, 2), dtype=f64, device=device, generator=gen) - 4.0
+    ranges = [torch.linalg.norm(lms - hist_truth[:, None], dim=-1)
+              + 0.1 * torch.randn((HIST_FLEET, 3), dtype=f64, device=device, generator=gen)
+              for _ in range(HIST_ITERS)]
+    still = torch.zeros((HIST_FLEET, 2), dtype=f64, device=device)
+
+    def hist_run(lanes=slice(None), dev=device):
+        bel = histogram_init(cfg, f64, device=dev, batch_shape=(hist_truth[lanes].shape[0],))
+        for z in ranges:
+            bel = histogram_update_ranges(bel, z[lanes].to(dev), lms.to(dev), cfg)
+            bel = histogram_predict(bel, still[lanes].to(dev), cfg)
+        return bel
+
+    hist_run()  # warm-up: cuDNN picks its convolution on the first call
+    hist_s, bel = timed(hist_run)
+    est = histogram_estimate(bel, cfg)
+    hist_err = torch.linalg.norm(est - hist_truth, dim=-1)
+    cpu_bel = hist_run(slice(0, 4), "cpu")
+    hist_diff = max_err(bel[:4].cpu(), cpu_bel)
+    print(f"histogram filter {HIST_FLEET} rasters of {cfg.width}x{cfg.height} f64, {HIST_ITERS} "
+          f"update+predict on {card}: {hist_s!r} s ({hist_s / HIST_ITERS * 1e3!r} ms per "
+          f"update+predict); worst estimate error {float(hist_err.max())!r} (gate {HIST_GATE}); "
+          f"4 lanes against the CPU max|diff| {hist_diff!r}")
+    if not (float(hist_err.max()) < HIST_GATE and hist_diff <= HIST_CUDA_CPU_ATOL):
+        fail("the histogram filter misses its gate")
+    hist_step = lambda: histogram_predict(histogram_update_ranges(  # noqa: E731
+        bel, ranges[0], lms, cfg), still, cfg)
+    no_read_in("histogram update+predict", hist_step)
+    out["histogram"] = {"rasters": HIST_FLEET, "cells": cfg.width * cfg.height,
+                        "iterations": HIST_ITERS, "seconds": hist_s,
+                        "estimate_error_max": float(hist_err.max()), "cuda_minus_cpu": hist_diff,
+                        "one_step": profile_step(f"histogram update+predict, {HIST_FLEET} "
+                                                 f"rasters on {card}", hist_step)}
+    return out
+
+
+def two_wall_scans(rng, pairs, points, outliers=False):
+    """prev [pairs, points, 2]: two noisy walls meeting at the origin; cur:
+    prev seen from a pose of a turn in +-0.1 rad and a 0.1 m shift, so that
+    the pose maps cur onto prev; the poses [pairs, 3]."""
+    t = np.linspace(0.0, 6.0, points // 2)
+    walls = np.concatenate([np.stack([t, 0 * t], -1), np.stack([0 * t, t], -1)])
+    prev = walls + 0.01 * rng.standard_normal((pairs, points, 2))
+    th = rng.uniform(-0.1, 0.1, pairs)
+    phi = rng.uniform(0.0, 2 * np.pi, pairs)
+    poses = np.stack([0.1 * np.cos(phi), 0.1 * np.sin(phi), th], -1)
+    c, s = np.cos(th), np.sin(th)
+    rot = np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)
+    cur = np.einsum("bpi,bij->bpj", prev - poses[:, None, :2], rot)  # Rᵀ(p − t), as rows
+    if outliers:
+        cur[:, ::25] += 5.0
+    return prev, cur, poses
+
+
+def scan_matching_part(card, device):
+    """(e) robust and point-to-line ICP on a fleet of scan pairs in
+    lock-step; correlative matching; graph SLAM on cuda."""
+    rng = np.random.default_rng(SEED + 175)
+    out = {}
+    for name, fn, gate, outliers in (
+            ("robust_icp", lambda a, b: robust_icp(a, b, huber_delta=0.3), SM_ROBUST_GATE, True),
+            ("point_to_line_icp", point_to_line_icp, SM_P2L_GATE, False)):
+        prev, cur, poses = two_wall_scans(rng, SM_PAIRS, SM_POINTS, outliers)
+        prev_d = torch.tensor(prev, dtype=torch.float32, device=device)
+        cur_d = torch.tensor(cur, dtype=torch.float32, device=device)
+        runs = [timed(lambda: fn(prev_d, cur_d)) for _ in range(2)]
+        seconds, (pose, dist) = min(s for s, _ in runs), runs[-1][1]
+        err = np.abs(pose.cpu().numpy() - poses).max(0)
+        lanes = {}
+        for k in SM_LANES:
+            solo = fn(prev_d[k], cur_d[k])
+            lanes[k] = float((solo[0] - pose[k]).abs().max())
+        print(f"{name} {SM_PAIRS} pairs x {SM_POINTS} points f32 on {card}: {seconds!r} s warm "
+              f"(best of 2), {SM_PAIRS / seconds!r} pairs/s; worst pose error (x, y, yaw) "
+              f"{err.tolist()} (gate {gate}); lanes against solo runs max|diff| {lanes}")
+        if not ((err < gate).all() and all(d == 0.0 for d in lanes.values())):
+            fail(f"{name}: a pose misses the gate, or a lane differs from its solo run")
+        no_read_in(f"{name}, one call", lambda: fn(prev_d, cur_d))
+        out[name] = {"pairs": SM_PAIRS, "points": SM_POINTS, "seconds": seconds,
+                     "pairs_per_s": SM_PAIRS / seconds, "pose_error_max": err.tolist(),
+                     "lanes_minus_solo": lanes,
+                     "one_call": profile_step(f"{name}, one call ({SM_PAIRS} pairs) on {card}",
+                                              lambda: fn(prev_d, cur_d))}
+
+    # correlative matching on a Gaussian likelihood of one scan's points
+    prev, _, _ = two_wall_scans(rng, 1, SM_POINTS)
+    pts = prev[0]
+    f64 = torch.float64
+    min_xy = -5.0
+    cells = min_xy + CSM_RES * (np.arange(CSM_CELLS) + 0.5)
+    pts_d = torch.tensor(pts, dtype=f64, device=device)
+    grid = torch.tensor(np.stack(np.meshgrid(cells, cells, indexing="ij"), -1), dtype=f64,
+                        device=device).reshape(-1, 2)
+    d2 = torch.cdist(grid, pts_d).min(-1).values ** 2
+    lik = torch.exp(-0.5 * d2 / CSM_SIGMA**2).reshape(CSM_CELLS, CSM_CELLS)
+    pose = np.array(CSM_POSE)
+    c, s = np.cos(pose[2]), np.sin(pose[2])
+    scan = (pts - pose[:2]) @ np.array([[c, -s], [s, c]])
+    kw = dict(search_xy=1.0, search_theta=0.35, n_xy=CSM_N, n_theta=CSM_N)
+    scan_d = torch.tensor(scan, dtype=f64, device=device)
+    runs = [timed(lambda: correlative_scan_match(scan_d, lik, min_xy, min_xy, CSM_RES, **kw))
+            for _ in range(3)]
+    csm_s, (best, score, scores) = min(s for s, _ in runs[1:]), runs[-1][1]
+    cpu = correlative_scan_match(scan_d.cpu(), lik.cpu(), min_xy, min_xy, CSM_RES, **kw)
+    csm_err = np.abs(best.cpu().numpy() - pose).max()
+    scores_diff = max_err(scores.cpu(), cpu[2])
+    print(f"correlative_scan_match {CSM_N}^3 candidates x {SM_POINTS} points on a "
+          f"{CSM_CELLS}x{CSM_CELLS} likelihood f64 on {card}: {csm_s!r} s warm; best "
+          f"{best.tolist()} "
+          f"(true {list(CSM_POSE)}, max|diff| {csm_err!r}); scores cuda against the CPU "
+          f"max|diff| {scores_diff!r}, the same best {torch.equal(best.cpu(), cpu[0])}")
+    if not (csm_err < 1e-9 and torch.equal(best.cpu(), cpu[0]) and scores_diff <= 1e-9):
+        fail("correlative_scan_match: the true pose was not found, or cuda differs from the CPU")
+    no_read_in("correlative_scan_match, one call",
+               lambda: correlative_scan_match(scan_d, lik, min_xy, min_xy, CSM_RES, **kw))
+    out["correlative_scan_match"] = {
+        "candidates": CSM_N**3, "points": SM_POINTS, "cells": CSM_CELLS**2, "seconds": csm_s,
+        "pose_error": csm_err, "scores_cuda_minus_cpu": scores_diff,
+        "one_call": profile_step(f"correlative_scan_match, one call on {card}",
+                                 lambda: correlative_scan_match(scan_d, lik, min_xy, min_xy,
+                                                                CSM_RES, **kw))}
+
+    # graph SLAM: tests/test_scan_matching_g2o.py's 15 poses seeing 3 landmarks
+    n = 15
+    truth = np.stack([np.linspace(0, 7, n), 0.5 * np.sin(np.linspace(0, 3, n)), 0.2 * np.ones(n)],
+                     -1)
+    lms = np.array([[3.0, 4.0], [6.0, -2.0], [1.0, -3.0]])
+    d = lms[None] - truth[:, None, :2]
+    obs = np.stack([np.linalg.norm(d, axis=-1),
+                    np.arctan2(d[..., 1], d[..., 0]) - truth[:, None, 2]], -1)
+    noisy = truth.copy()
+    noisy[1:, :2] += 0.2 * rng.standard_normal((n - 1, 2))
+    mask = np.ones((n, 3), bool)
+    g_s, (g_poses, g_sum) = timed(lambda: graph_slam_from_landmarks(noisy, obs, mask,
+                                                                    device=device, dtype=f64))
+    c_poses, c_sum = graph_slam_from_landmarks(noisy, obs, mask, device="cpu", dtype=f64)
+    g_diff = max_err(g_poses.cpu(), c_poses)
+    before = np.abs(noisy[:, :2] - truth[:, :2]).mean()
+    after = np.abs(g_poses.cpu().numpy()[:, :2] - truth[:, :2]).mean()
+    print(f"graph_slam_from_landmarks {n} poses f64 on {card}: {g_s!r} s; {g_sum}; cuda against "
+          f"the CPU max|diff| {g_diff!r} (atol {GRAPH_CUDA_CPU_ATOL}); mean error {before!r} -> "
+          f"{after!r}")
+    if not (g_diff <= GRAPH_CUDA_CPU_ATOL and after < before):
+        fail("graph_slam_from_landmarks: cuda differs from the CPU, or no improvement")
+    out["graph_slam"] = {"poses": n, "seconds": g_s, "summary": vars(g_sum),
+                         "cuda_minus_cpu": g_diff, "mean_error": [before, after]}
+    return out
+
+
+def slam_node_part(card, device):
+    """(f) run_slam_node_loop on cuda against the CPU."""
+    seconds, on_cuda = timed(lambda: run_slam_node_loop(steps=NODE_STEPS, device=device))
+    cpu_s, on_cpu = timed(lambda: run_slam_node_loop(steps=NODE_STEPS, device="cpu"))
+    gd, cd = on_cuda["diagnostics"], on_cpu["diagnostics"]
+    same = all(torch.equal(getattr(gd, f).cpu(), getattr(cd, f))
+               for f in ("reason_xy", "reason_yaw", "submap_points"))
+    alpha_diff = max(max_err(gd.alpha_xy.cpu(), cd.alpha_xy), max_err(gd.alpha_yaw.cpu(),
+                                                                      cd.alpha_yaw))
+    pose_diff = max(max_err(on_cuda[k].cpu(), on_cpu[k]) for k in ("truth", "raw_odom",
+                                                                   "corrected"))
+    reasons = sorted({REASONS[int(x)] for x in gd.reason_xy.cpu()})
+    final = {"pose_error": float(gd.pose_error[-1]), "odom_error": float(gd.odom_error[-1])}
+    print(f"run_slam_node_loop({NODE_STEPS}) f64 on {card}: {seconds!r} s "
+          f"({NODE_STEPS / seconds!r} steps/s; the CPU {cpu_s!r} s); reasons and submap counts "
+          f"equal to the CPU's {same}; alphas max|diff| {alpha_diff!r}, poses max|diff| "
+          f"{pose_diff!r} (atol "
+          f"{NODE_POSE_ATOL}); reasons {reasons}; final {final}")
+    if not (same and alpha_diff <= NODE_POSE_ATOL and pose_diff <= NODE_POSE_ATOL
+            and final["pose_error"] < final["odom_error"]):
+        fail("run_slam_node_loop: cuda differs from the CPU, or the gate does not help")
+    prof = profile_step(f"run_slam_node_loop, one step on {card}",
+                        lambda: run_slam_node_loop(steps=1, device=device))
+    return {"steps": NODE_STEPS, "seconds": seconds, "steps_per_s": NODE_STEPS / seconds,
+            "cpu_seconds": cpu_s, "alphas_cuda_minus_cpu": alpha_diff,
+            "poses_cuda_minus_cpu": pose_diff, "reasons": reasons, "final": final,
+            "one_step": prof}
+
+
+def slam_frontend_phase(card, device):
+    """The SLAM front end and the remaining filters (phase 17; no kernel on
+    its path): each part checks its gates and returns its numbers."""
+    out = {"card": card}
+    for name, part in (("ekf_slam", ekf_slam_part), ("fastslam", fastslam_part),
+                       ("smoother", smoother_part), ("filters", filters_part),
+                       ("scan_matching", scan_matching_part), ("slam_node", slam_node_part)):
+        start = time.perf_counter()
+        out[name] = part(card, device)
+        out[name]["part_s"] = time.perf_counter() - start
+        print(f"SLAM front end, part {name}: {out[name]['part_s']!r} s")
+    return out
+
+
 def main() -> int:
     # 1. the card
     smi = subprocess.run(
@@ -1933,7 +2648,12 @@ def main() -> int:
     # (no kernel on their path)
     print(json.dumps({"slam_backend": slam_backend_phase(card, device)}))
 
-    # 17. the kernels line
+    # 17. the SLAM front end and the remaining filters: EKF-SLAM, FastSLAM,
+    # the smoother, SR-UKF / adaptive / histogram, scan matching, the SLAM
+    # node (no kernel on their path)
+    print(json.dumps({"slam_frontend": slam_frontend_phase(card, device)}))
+
+    # 18. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -2043,7 +2763,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 18. the result
+    # 19. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -2,7 +2,8 @@
 
 The system has no learned weights; what crosses is state: a Gaussian belief
 and its noise model, a particle cloud, an occupancy grid, a bundle-adjustment
-or pose-graph problem. Each function takes numpy arrays as the JAX side holds them
+or pose-graph problem, an EKF-SLAM or FastSLAM state, a square-root
+belief. Each function takes numpy arrays as the JAX side holds them
 (`np.asarray` of a JAX array) and returns tensors on the given device
 (default `cuda`) and dtype. `belief_to_lanes`/`belief_from_lanes` switch a
 belief between the filter layout (mean [B, 4], cov [B, 4, 4]) and the scan
@@ -90,3 +91,30 @@ def belief_from_lanes(mean, cov) -> GaussianBelief:
     """mean [4, B], cov [16, B] -> GaussianBelief (mean [B, 4], cov [B, 4, 4])."""
     b = mean.shape[-1]
     return GaussianBelief(mean.T, cov.reshape(4, 4, b).permute(2, 0, 1))
+
+
+def ekf_slam_from_numpy(mean, cov, n_lm, device=None, dtype=torch.float64):
+    """A JAX `EKFSLAMBelief`'s mean [..., 3+2L], cov [..., n, n] and
+    landmark count [...] (as int64)."""
+    from rust_robotics_tpu_torch.slam.ekf_slam import EKFSLAMBelief
+
+    return EKFSLAMBelief(to_tensor(mean, device, dtype), to_tensor(cov, device, dtype),
+                         to_tensor(n_lm, device, torch.int64))
+
+
+def fastslam_from_numpy(poses, weights, lm_mean, lm_cov, lm_seen, device=None,
+                        dtype=torch.float64):
+    """A JAX `FastSLAMParticles`: poses [..., P, 3], weights [..., P],
+    lm_mean [..., P, L, 2], lm_cov [..., P, L, 2, 2], lm_seen [..., P, L]
+    (as bool)."""
+    from rust_robotics_tpu_torch.slam.fastslam import FastSLAMParticles
+
+    return FastSLAMParticles(to_tensor(poses, device, dtype), to_tensor(weights, device, dtype),
+                             to_tensor(lm_mean, device, dtype), to_tensor(lm_cov, device, dtype),
+                             to_tensor(lm_seen, device, torch.bool))
+
+
+def sqrt_belief_from_numpy(mean, sqrt_cov, device=None, dtype=torch.float32):
+    """The square-root UKF's belief: mean [..., n] and the lower Cholesky
+    factor [..., n, n] -> (mean, sqrt_cov)."""
+    return to_tensor(mean, device, dtype), to_tensor(sqrt_cov, device, dtype)

@@ -187,11 +187,13 @@ def ukf_weights(n: int, alpha=1e-3, beta=2.0, kappa=0.0, dtype=torch.float32,
     device = resolve_device(device)
     lam = alpha**2 * (n + kappa) - n
     scale = n + lam
-    wm = torch.full((2 * n + 1,), 1.0 / (2.0 * scale), dtype=dtype, device=device)
-    wc = wm.clone()
-    wm[0] = lam / scale
-    wc[0] = lam / scale + (1.0 - alpha**2 + beta)
-    gamma = torch.sqrt(torch.tensor(scale, dtype=dtype, device=device))
+    # fills, not copies from the host (a Python number assigned into a CUDA
+    # tensor is one): no device synchronisation
+    kw = dict(dtype=dtype, device=device)
+    rest = torch.full((2 * n,), 1.0 / (2.0 * scale), **kw)
+    wm = torch.cat([torch.full((1,), lam / scale, **kw), rest])
+    wc = torch.cat([torch.full((1,), lam / scale + (1.0 - alpha**2 + beta), **kw), rest])
+    gamma = torch.sqrt(torch.full((), scale, **kw))
     return wm, wc, gamma
 
 

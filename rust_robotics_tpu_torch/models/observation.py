@@ -19,9 +19,9 @@ def position_observe(state):
 def position_jacobian(state, dtype=None):
     """Constant H [..., 2, 4] = [[1,0,0,0],[0,1,0,0]]. `ekf.rs:243`."""
     dtype = dtype or state.dtype
-    h = torch.tensor(
-        [[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0]], dtype=dtype, device=state.device
-    )
+    # built on the device (a tensor from a host list is a copy that
+    # synchronises)
+    h = torch.eye(2, 4, dtype=dtype, device=state.device)
     return h.expand(state.shape[:-1] + (2, 4))
 
 

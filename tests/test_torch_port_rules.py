@@ -58,12 +58,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         run_ekf_localization_demo,
     )
     from rust_robotics_tpu_torch.demos import pose_graph_bench
+    from rust_robotics_tpu_torch.filters.extra import HistogramConfig, histogram_init
     from rust_robotics_tpu_torch.nlls import SolverConfig
     from rust_robotics_tpu_torch.nlls.tridiag import build_w_inv, nested_partition
     from rust_robotics_tpu_torch.planning import grid
     from rust_robotics_tpu_torch.slam.bundle_adjustment import CameraIntrinsics, bundle_adjust
     from rust_robotics_tpu_torch.nlls.implicit import pose_graph_implicit_vjp
+    from rust_robotics_tpu_torch.slam.ekf_slam import init_ekf_slam
+    from rust_robotics_tpu_torch.slam.fastslam import init_fastslam
     from rust_robotics_tpu_torch.slam.icp import icp_matching
+    from rust_robotics_tpu_torch.slam.slam_node import run_slam_node_loop
     from rust_robotics_tpu_torch.slam.pose_graph import (
         optimize_pose_graph_2d,
         optimize_pose_graph_3d,
@@ -117,6 +121,17 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
             poses, ef, et, meas, **kw)[0],
         "grid_from_obstacle_points": lambda **kw: grid.grid_from_obstacle_points(
             ox, oy, 1.0, 0.5, **kw).blocked,
+        "init_ekf_slam": lambda **kw: init_ekf_slam(2, **kw).cov,
+        "init_fastslam": lambda **kw: init_fastslam(4, 2, **kw).lm_cov,
+        "histogram_init": lambda **kw: histogram_init(HistogramConfig(width=4, height=3), **kw),
+        "run_slam_node_loop": lambda **kw: run_slam_node_loop(steps=1, **kw)["corrected"],
+        "convert.ekf_slam_from_numpy": lambda **kw: convert.ekf_slam_from_numpy(
+            np.zeros(5), np.eye(5), 0, **kw).n_lm,
+        "convert.fastslam_from_numpy": lambda **kw: convert.fastslam_from_numpy(
+            np.zeros((4, 3)), np.full(4, 0.25), np.zeros((4, 2, 2)),
+            np.tile(np.eye(2), (4, 2, 1, 1)), np.zeros((4, 2), bool), **kw).lm_seen,
+        "convert.sqrt_belief_from_numpy": lambda **kw: convert.sqrt_belief_from_numpy(
+            np.zeros(4), np.eye(4), **kw)[1],
     }
     for name, call in host_data_calls.items():
         if torch.cuda.is_available():
