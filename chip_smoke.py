@@ -65,8 +65,10 @@ any failure exits non-zero before the final line.
     iteration's device time by phase; last, a torch.profiler breakdown of
     each grid call (one B2 launch), one PF step and one BA iteration
     (device busy and idle share, top device consumers), and of one B4
-    factorisation, which must be one kernel launch; ptxas's registers and
-    spills of B2's bodies (the register body must not spill);
+    factorisation, which must be one kernel launch; B3's own device time at
+    bench.py's pinned shape (B=256, P=1024) from the profiler, beside the
+    CUDA events around its wrapper; ptxas's registers and spills of B2's
+    bodies (the register body must not spill);
 15. bench.py's four pose-graph workloads (bench.py:113-117; no kernel on
     their path), f32 on cuda, LM at most 25 iterations, tolerance 1e-8: the
     10k chain through `chain_direct` (RMSE < 5e-3, warm time best of 2,
@@ -118,12 +120,33 @@ any failure exits non-zero before the final line.
     CPU; (f) `run_slam_node_loop(60)` on cuda against the CPU (the same
     reasons, poses within 1e-9); then one JSON line
     `{"slam_frontend": {...}}`;
-18. one JSON line `{"kernels": [...]}`;
-19. the last line, `{"ok": true, "device": {...}}`.
+18. the VIO path (no kernel of its own; B4 on the batch VIO's BA), on a
+    EuRoC-layout sequence the script writes and loads through the port's
+    loader (10 s of 3-D flight, IMU at 200 Hz with the pipeline's noise,
+    201 keyframes of EuRoC's cam0, 2000 landmarks on a machine hall's
+    walls, 0.5 px): (b) `run_vio_pipeline` in f32 (B4 launched once per BA
+    solve, counted) and f64, cold and warm, seconds per stage, LM
+    iterations, fused and dead-reckoned RMSE against truth (fused <= dead
+    and under twice the port's f64 CPU run), B4 held against its twin and
+    the f64 factor on the first and the last retained system (n = 1206)
+    that the f32 BA gave it, one BA and one IMU-LM iteration profiled, and
+    cuda = CPU in f64 on 40 keyframes; (c) `run_vio_pipeline_windowed` (67
+    windows of 3, f64) pipelined, RMSE gated alike, and the sequential
+    order on its first 12 windows bitwise equal to the pipelined run's; (d) `detect_corners` +
+    `track_with_fb_check` on 64 pairs of 752x480 f32 images shifted by known
+    sub-pixel flows (median flow error <= 0.25 px), 4 pairs against the
+    CPU, `triangulate_tracks` of the 2000 landmarks over 201 views; (e) one
+    batched preintegration, one `lk_track` and one stage-D fusion step
+    under sync debug mode "error"; the f32 histogram update and
+    `shi_tomasi_response` equal with cuDNN's TF32 flag on and off; then one
+    JSON line `{"vio": {...}}`;
+19. one JSON line `{"kernels": [...]}`;
+20. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -166,10 +189,12 @@ from rust_robotics_tpu_torch.filters.particle import (
     pf_update_ranges,
     resample_if_needed_fused,
 )
-from rust_robotics_tpu_torch.core.lie import se3_exp
+from rust_robotics_tpu_torch.core.lie import se3_exp, se3_inverse
+from rust_robotics_tpu_torch.data.euroc import EurocDataset
 from rust_robotics_tpu_torch.models.motion import unicycle_propagate
-from rust_robotics_tpu_torch.nlls import SolverConfig
+from rust_robotics_tpu_torch.nlls import RobustKernel, SolverConfig
 from rust_robotics_tpu_torch.nlls import solver as nlls_solver
+from rust_robotics_tpu_torch.nlls.solver import device_lm_start
 from rust_robotics_tpu_torch.ops import _build
 from rust_robotics_tpu_torch.ops.cholesky import (
     cholesky_blocked,
@@ -223,6 +248,12 @@ from rust_robotics_tpu_torch.slam.scan_matching import (
     robust_icp,
 )
 from rust_robotics_tpu_torch.slam.slam_node import REASONS, run_slam_node_loop
+from rust_robotics_tpu_torch.parallel.pipeline import pipeline_schedule, run_sequential
+from rust_robotics_tpu_torch.slam import vio, vio_pp
+from rust_robotics_tpu_torch.slam import visual_frontend as vfe
+from rust_robotics_tpu_torch.slam.imu import optimize_imu_trajectory, preintegrate
+from rust_robotics_tpu_torch.slam.vio import run_vio_pipeline
+from rust_robotics_tpu_torch.slam.vio_pp import make_stages, run_vio_pipeline_windowed
 from rust_robotics_tpu_torch.slam.pose_graph import (
     anchored_measurements,
     build_pose_graph_2d,
@@ -957,6 +988,24 @@ def ba_iteration_phases(problem, device, damping=1e-3):
             "triangular solves": triangular, "back-substitution + trial cost": rest}, state
 
 
+def kernel_device_ms(fn, name_part, reps=20):
+    """A kernel's own device time under torch.profiler: `reps` calls of fn,
+    the device events whose name holds `name_part`; {min_ms, mean_ms,
+    launches}. Fails unless each call launched it once."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name_part in e.name]
+    if len(durs) != reps:
+        fail(f"the profiler saw {len(durs)} launches of {name_part} in {reps} calls")
+    return {"min_ms": min(durs) / 1e3, "mean_ms": sum(durs) / len(durs) / 1e3,
+            "launches": len(durs)}
+
+
 def phase_times(phases, bursts=3):
     """Device time of each phase (CUDA events around it, phases run in
     order), the minimum over `bursts` passes after one warm-up pass."""
@@ -1626,6 +1675,30 @@ def map_errors(mapped, landmarks):
     return np.linalg.norm(mapped[..., :, None, :] - landmarks, axis=-1).min(-1)
 
 
+def device_launches(label, fn):
+    """`profile_step`'s numbers from a trace of the device alone: a call of
+    ~30k launches leaves ~10^5 host events, whose processing under
+    `device_breakdown` takes tens of seconds."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - start) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        fail(f"{label}: the profiler saw no device events")
+    busy_ms = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    span_ms = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
+    print(f"{label}: host clock {host_ms!r} ms; under the profiler device busy {busy_ms!r} ms of "
+          f"a {span_ms!r} ms span ({1 - busy_ms / span_ms:.3f} idle), {len(events)} device events")
+    return {"launches": len(events), "host_ms": host_ms, "busy_ms": busy_ms, "span_ms": span_ms,
+            "idle": 1 - busy_ms / span_ms}
+
+
 def profile_step(label, fn):
     """One call's device launches and idle share under the profiler."""
     prof = device_breakdown(label, fn)
@@ -2140,6 +2213,673 @@ def slam_frontend_phase(card, device):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 18: the VIO path (no kernel of its own; B4 in the batch VIO's BA)
+# ---------------------------------------------------------------------------
+
+# A 10 s stretch of a EuRoC flight (EuRoC MAV, Burri et al. 2016: IMU at
+# 200 Hz, cam0 at 20 Hz, 752x480): 2001 IMU samples, 201 keyframes, cam0's
+# intrinsics and T_BS from EuRoC's cam0/sensor.yaml, noise at the pipeline's
+# accel_sigma 0.02 and gyro_sigma 0.002, 2000 landmarks on the walls of a
+# 14 x 10 x 5 m machine-hall box, 0.5 px pixel noise.
+VIO_SECONDS, VIO_IMU_HZ, VIO_CAM_HZ = 10.0, 200, 20
+VIO_LANDMARKS, VIO_PIXEL_SIGMA = 2000, 0.5
+VIO_ACCEL_SIGMA, VIO_GYRO_SIGMA = 0.02, 0.002
+VIO_INTRINSICS = (458.654, 457.296, 367.215, 248.375)
+VIO_RESOLUTION = (752, 480)
+VIO_T_BS = np.array([
+    [0.0148655429818, -0.999880929698, 0.00414029679422, -0.0216401454975],
+    [0.999557249008, 0.0149672133247, 0.025715529948, -0.064676986768],
+    [-0.0257744366974, 0.00375618835797, 0.999660727178, 0.00981073058949],
+    [0.0, 0.0, 0.0, 1.0]])
+VIO_HALL = (7.0, 5.0, 5.0)  # half-length x, half-width y, height z (m)
+VIO_MIN_VISIBLE = 30  # landmarks every keyframe must see
+VIO_CUT = 40  # keyframes of the cuda-against-CPU run
+VIO_WINDOW_FRAMES = 3
+# The windowed runs take f64. In f32, stage D's LM sits on its rounding
+# floor and runs 13-18 of its 20 iterations (step_converged) where f64 stops
+# after 5 by the gradient test (the port's runs on the CPU); at ~2,600
+# launches an LM iteration, the first f32 run on the H100 took 1.51 s a
+# window, 101 s a run of 67 windows (measured on one H100).
+VIO_WINDOWED_DTYPE = torch.float64
+# windows that the sequential order runs, to be held bitwise against the
+# pipelined run's first windows (a window depends on no later one): the
+# whole flight in both orders took 56.4 and 56.6 s, 121 s of the part
+# (measured on one H100)
+VIO_WINDOWED_PREFIX = 12
+FRONT_PAIRS, FRONT_CORNERS, FRONT_MAX_SHIFT = 64, 200, 3.0
+FRONT_CPU_PAIRS = 4
+# tests/test_visual_frontend.py:62-75: the median flow of the valid points
+# within 0.25 px of the true shift; JAX's test asks >15 of 30 corners to
+# pass the forward-backward check, half of them, as here of 200
+FRONT_MEDIAN_ATOL, FRONT_MIN_OK = 0.25, FRONT_CORNERS // 2
+
+
+def _rot_x(a):
+    c, s = np.cos(a), np.sin(a)
+    o, z = np.ones_like(a), np.zeros_like(a)
+    return np.stack([np.stack([o, z, z], -1), np.stack([z, c, -s], -1),
+                     np.stack([z, s, c], -1)], -2)
+
+
+def _rot_y(a):
+    c, s = np.cos(a), np.sin(a)
+    o, z = np.ones_like(a), np.zeros_like(a)
+    return np.stack([np.stack([c, z, s], -1), np.stack([z, o, z], -1),
+                     np.stack([-s, z, c], -1)], -2)
+
+
+def _rot_z(a):
+    c, s = np.cos(a), np.sin(a)
+    o, z = np.ones_like(a), np.zeros_like(a)
+    return np.stack([np.stack([c, -s, z], -1), np.stack([s, c, z], -1),
+                     np.stack([z, z, o], -1)], -2)
+
+
+# body x up, body y along -y, body z (cam0's optical axis) along +x at zero
+# yaw: EuRoC's MAV carries its IMU with x up and cam0 looking ahead
+VIO_R0 = np.array([[0.0, 0.0, 1.0], [0.0, -1.0, 0.0], [1.0, 0.0, 0.0]])
+
+
+def vio_flight(t):
+    """The smooth 3-D flight at times t [N]: (positions, velocities,
+    accelerations [N, 3], world-from-body rotations [N, 3, 3], body rates
+    [N, 3]). Yaw turns through ~320 degrees, so that every wall is seen;
+    pitch and roll sway; position sways on all three axes."""
+    ax, wx = np.array([1.5, 1.2, 0.4]), np.array([0.5, 0.7, 0.9])
+    ph = np.array([0.0, 0.3, 0.0])
+    arg = wx * t[:, None] + ph
+    pos = np.array([0.0, 0.0, 1.6]) + ax * np.sin(arg)
+    vel = ax * wx * np.cos(arg)
+    acc = -ax * wx**2 * np.sin(arg)
+    yaw, dyaw = 0.55 * t + 0.3 * np.sin(0.7 * t), 0.55 + 0.21 * np.cos(0.7 * t)
+    pitch, dpitch = 0.12 * np.sin(0.8 * t + 0.2), 0.096 * np.cos(0.8 * t + 0.2)
+    roll, droll = 0.1 * np.sin(0.6 * t + 0.5), 0.06 * np.cos(0.6 * t + 0.5)
+    rot = _rot_z(yaw) @ _rot_y(pitch) @ _rot_x(roll) @ VIO_R0
+    # body rates of Rz(yaw) Ry(pitch) Rx(roll), then into the body frame of R0
+    rates_e = np.stack([
+        droll - dyaw * np.sin(pitch),
+        dpitch * np.cos(roll) + dyaw * np.cos(pitch) * np.sin(roll),
+        -dpitch * np.sin(roll) + dyaw * np.cos(pitch) * np.cos(roll)], -1)
+    return pos, vel, acc, rot, rates_e @ VIO_R0
+
+
+def _rot_to_quat(r):
+    """(w, x, y, z) of rotations [N, 3, 3] (Shepperd's method)."""
+    out = np.zeros((len(r), 4))
+    for i, m in enumerate(r):
+        tr = np.trace(m)
+        k = int(np.argmax([tr, m[0, 0], m[1, 1], m[2, 2]]))
+        if k == 0:
+            s = 2.0 * np.sqrt(1.0 + tr)
+            q = [0.25 * s, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+                 (m[1, 0] - m[0, 1]) / s]
+        else:
+            i1, i2, i3 = k - 1, k % 3, (k + 1) % 3
+            s = 2.0 * np.sqrt(1.0 + m[i1, i1] - m[i2, i2] - m[i3, i3])
+            q = [0.0] * 4
+            q[0] = (m[i3, i2] - m[i2, i3]) / s
+            q[1 + i1] = 0.25 * s
+            q[1 + i2] = (m[i2, i1] + m[i1, i2]) / s
+            q[1 + i3] = (m[i3, i1] + m[i1, i3]) / s
+        out[i] = q
+    return out
+
+
+def _hall_landmarks(rng, n):
+    """n points uniform over the four walls of the hall, by wall area."""
+    hx, hy, hz = VIO_HALL
+    walls = np.array([2 * hy * hz, 2 * hy * hz, 2 * hx * hz, 2 * hx * hz])
+    which = rng.choice(4, size=n, p=walls / walls.sum())
+    u, z = rng.uniform(-1.0, 1.0, n), rng.uniform(0.0, hz, n)
+    x = np.where(which == 0, hx, np.where(which == 1, -hx, u * hx))
+    y = np.where(which == 2, hy, np.where(which == 3, -hy, u * hy))
+    return np.stack([x, y, z], -1)
+
+
+def _project(world_from_cam, points):
+    """Pixels [C, L, 2] and depths [C, L] of points [L, 3] in cameras [C, 4, 4]."""
+    inv = np.linalg.inv(world_from_cam)
+    pc = np.einsum("cij,lj->cli", inv[:, :3, :3], points) + inv[:, None, :3, 3]
+    fx, fy, cx, cy = VIO_INTRINSICS
+    z = pc[..., 2]
+    safe = np.where(z > 1e-9, z, 1.0)
+    return np.stack([fx * pc[..., 0] / safe + cx, fy * pc[..., 1] / safe + cy], -1), z
+
+
+def write_vio_sequence(root, seed=SEED, seconds=VIO_SECONDS):
+    """Write the EuRoC layout of the flight under root/mav0 (imu0, cam0,
+    ground truth at 200 Hz, the rust_robotics feature-track sidecar) and
+    return the truth: keyframe positions [K, 3], world-from-camera poses
+    [K, 4, 4], landmarks [L, 3], visibility [L, K] and the noisy pixels
+    [L, K, 2]. With `seconds` below VIO_SECONDS it writes the first
+    `seconds` of the same flight, draws included (a cut of keyframes)."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    n_all = int(VIO_SECONDS * VIO_IMU_HZ) + 1
+    t = np.arange(n_all) / VIO_IMU_HZ
+    pos, vel, acc, rot, rates = vio_flight(t)
+    gravity = np.array([0.0, 0.0, -9.81])
+    accel = np.einsum("nji,nj->ni", rot, acc - gravity)
+    accel = accel + VIO_ACCEL_SIGMA * rng.standard_normal(accel.shape)
+    gyro = rates + VIO_GYRO_SIGMA * rng.standard_normal(rates.shape)
+    ts = 1_000_000_000 + np.round(t * 1e9).astype(np.int64)
+    cam_idx = np.arange(0, n_all, VIO_IMU_HZ // VIO_CAM_HZ)
+    body = np.tile(np.eye(4), (len(cam_idx), 1, 1))
+    body[:, :3, :3], body[:, :3, 3] = rot[cam_idx], pos[cam_idx]
+    cams = body @ VIO_T_BS
+    landmarks = _hall_landmarks(rng, VIO_LANDMARKS)
+    pix, depth = _project(cams, landmarks)
+    w, h = VIO_RESOLUTION
+    seen = (depth > 0.3) & (pix[..., 0] >= 0) & (pix[..., 0] < w) & (pix[..., 1] >= 0) \
+        & (pix[..., 1] < h)
+    pix = pix + VIO_PIXEL_SIGMA * rng.standard_normal(pix.shape)
+    n = int(seconds * VIO_IMU_HZ) + 1
+    k = int(np.sum(cam_idx < n))
+    t, pos, vel, rot, accel, gyro, ts = (x[:n] for x in (t, pos, vel, rot, accel, gyro, ts))
+    cam_idx, cams, pix, seen = cam_idx[:k], cams[:k], pix[:k], seen[:k]
+
+    mav0 = os.path.join(root, "mav0")
+    for sub in ("imu0", "cam0", "state_groundtruth_estimate0", "rust_robotics"):
+        os.makedirs(os.path.join(mav0, sub), exist_ok=True)
+    rows = np.concatenate([ts[:, None].astype(np.float64), gyro, accel], -1)
+    np.savetxt(os.path.join(mav0, "imu0", "data.csv"), rows, delimiter=",",
+               fmt=["%d"] + ["%.17g"] * 6, header="timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z")
+    with open(os.path.join(mav0, "imu0", "sensor.yaml"), "w") as f:
+        f.write("sensor_type: imu\nT_BS:\n  cols: 4\n  rows: 4\n"
+                "  data: [1,0,0,0, 0,1,0,0, 0,0,1,0, 0,0,0,1]\nrate_hz: 200\n")
+    with open(os.path.join(mav0, "cam0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n")
+        f.writelines(f"{ts[i]},{ts[i]}.png\n" for i in cam_idx)
+    with open(os.path.join(mav0, "cam0", "sensor.yaml"), "w") as f:
+        f.write("sensor_type: camera\ncomment: VI-Sensor cam0 (MT9M034)\nT_BS:\n  cols: 4\n"
+                "  rows: 4\n  data: [" + ", ".join(repr(float(v)) for v in VIO_T_BS.ravel())
+                + "]\nrate_hz: 20\nresolution: [752, 480]\ncamera_model: pinhole\n"
+                "intrinsics: [" + ", ".join(repr(v) for v in VIO_INTRINSICS) + "]\n")
+    quat = _rot_to_quat(rot)
+    gt = np.concatenate([ts[:, None].astype(np.float64), pos, quat, vel, np.zeros((n, 6))], -1)
+    np.savetxt(os.path.join(mav0, "state_groundtruth_estimate0", "data.csv"), gt,
+               delimiter=",", fmt=["%d"] + ["%.17g"] * 16,
+               header="timestamp,p_x,p_y,p_z,q_w,q_x,q_y,q_z,v_x,v_y,v_z,"
+                      "b_w_x,b_w_y,b_w_z,b_a_x,b_a_y,b_a_z")
+    np.savetxt(os.path.join(mav0, "rust_robotics", "landmarks.csv"),
+               np.concatenate([np.arange(VIO_LANDMARKS)[:, None], landmarks], -1),
+               delimiter=",", fmt=["%d"] + ["%.17g"] * 3, header="landmark_id,x,y,z")
+    kf, lm = np.nonzero(seen)  # keyframe-major, as a tracker emits them
+    obs = np.stack([ts[cam_idx][kf].astype(np.float64), lm, pix[kf, lm, 0], pix[kf, lm, 1]], -1)
+    np.savetxt(os.path.join(mav0, "rust_robotics", "observations.csv"), obs, delimiter=",",
+               fmt=["%d", "%d", "%.17g", "%.17g"], header="timestamp_ns,landmark_id,u,v")
+    return {"positions": pos[cam_idx], "cams": cams, "landmarks": landmarks,
+            "seen": seen.T, "pixels": pix.transpose(1, 0, 2), "observations": len(kf),
+            "visible_min": int(seen.sum(1).min())}
+
+
+def vio_rmse(poses, positions):
+    """Translation RMSE of poses [K, 4, 4] (tensor or array) against
+    positions [K', 3], on the first K."""
+    if isinstance(poses, torch.Tensor):
+        poses = poses.double().cpu().numpy()
+    d = poses[:, :3, 3] - positions[:len(poses)]
+    return float(np.sqrt(np.mean(np.sum(d**2, axis=-1))))
+
+
+# Gates set from the port's own f64 run on the CPU of this sequence
+# (`vio_cpu_reference()`, run on the CPU): fused RMSE 0.015868 m
+# (dead-reckoned 0.08674) for the batch pipeline at 201 keyframes, 0.049982 m
+# (dead-reckoned 0.08674) for the windowed one; triangulation of the
+# landmarks seen 3+ times, median 0.014915 m, 95th percentile 0.14158 m. Each
+# limit is twice that: f32 on the card may lose some (the port's f32 CPU
+# runs: fused 0.013384-0.018041 m over three); a broken stage loses far more.
+VIO_FUSED_RMSE_LIMIT = 2 * 0.015868205467337436
+VIO_WINDOWED_RMSE_LIMIT = 2 * 0.04998211456850511
+TRI_MEDIAN_LIMIT, TRI_P95_LIMIT = 2 * 0.014914909488638746, 2 * 0.14157684770975054
+# cuda against the CPU in f64 on VIO_CUT keyframes: the same f64 solves with
+# sums in another order. The BA stops by a step below 1e-10 and may stop an
+# iteration apart (26 and 27 on the H100), near the optimum, where the last
+# steps still move weakly observed points: 2.7e-7 m measured over poses,
+# states and points (measured on one H100); 1e-6 is a thousandth of the
+# 0.5 px noise's effect on a point (~1e-3 m), so a wrong step cannot hide
+VIO_CUDA_CPU_ATOL = 1e-6
+# front end cuda against the CPU, f32: the corners come from elementwise
+# arithmetic (bitwise); LK's 49-term window sums add in another order,
+# ~1e-6 px after 10 iterations on 3 levels; 1e-3 px leaves ~1000x
+FRONT_CUDA_CPU_ATOL = 1e-3
+
+
+def _vio_stage_profiles(card, device, ds, tracks, res, dtype):
+    """One BA iteration and one IMU-LM iteration of the batch pipeline's
+    stages 2 and 3, on its own inputs, under the profiler."""
+    cam_ts = ds.cam.timestamps
+    t_bs = torch.as_tensor(ds.cam.t_bs, device=device).to(dtype)
+    cams0 = vio.nav_to_se3(res.dead_reckoned) @ t_bs
+    cam_idx = np.searchsorted(cam_ts, tracks.obs_timestamps)
+    intr = CameraIntrinsics(*[float(v) for v in ds.cam.intrinsics])
+    prob = build_bundle_adjustment(
+        cams0, torch.as_tensor(tracks.landmarks, device=device).to(dtype),
+        torch.as_tensor(cam_idx, device=device), torch.as_tensor(tracks.obs_landmark_ids,
+                                                                 device=device),
+        torch.as_tensor(tracks.obs_pixels, device=device).to(dtype), intr, fixed_cameras=2,
+        robust=RobustKernel("huber", 2.0))
+    one_ba = SolverConfig(linear_solver="schur", max_iterations=1)
+    ba = profile_step(f"VIO BA, one LM iteration ({len(cam_ts)} cameras, {dtype}) on {card}",
+                      lambda: nlls_solver.solve(prob, one_ba))
+    nav0, bias0 = vio.initial_state(ds, device, dtype)
+    lanes = [torch.as_tensor(x, device=device).to(dtype) for x in vio.interval_lanes(ds, cam_ts)]
+    pres = preintegrate(*lanes, bias0, VIO_ACCEL_SIGMA, VIO_GYRO_SIGMA)
+    kw = vio.imu_refine_kwargs(res.dead_reckoned, bias0, res.ba_cameras @ se3_inverse(t_bs),
+                               cam_ts)
+    k = len(cam_ts)
+    imu = profile_step(
+        f"VIO IMU refinement, one LM iteration ({k} nav states, {dtype}) on {card}",
+        lambda: optimize_imu_trajectory(res.dead_reckoned, bias0.expand(k, 6).clone(), pres,
+                                        config=SolverConfig(max_iterations=1), **kw))
+    return {"ba_iteration": ba, "imu_iteration": imu}
+
+
+@contextlib.contextmanager
+def retained_systems():
+    """Yields a list that gets a copy of each retained system the Schur LM
+    hands to B4 (`cholesky_solve_blocked`) while the context is open."""
+    entry, kept = nlls_solver.cholesky_solve_blocked, []
+
+    def keep(s, rhs):
+        kept.append(s.clone())
+        return entry(s, rhs)
+
+    nlls_solver.cholesky_solve_blocked = keep
+    try:
+        yield kept
+    finally:
+        nlls_solver.cholesky_solve_blocked = entry
+
+
+def vio_batch_part(card, device, ds, tracks, truth, counted):
+    """(b) run_vio_pipeline on cuda in f32 (B4 on its BA path) and f64, cold
+    and warm; B4 against its twin on the f32 BA's own retained systems; cuda
+    against the CPU in f64 on the first VIO_CUT keyframes."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        key = "f32" if dtype == torch.float32 else "f64"
+        for run in ("cold", "warm"):
+            for fn in counted:
+                fn.launches = 0
+            with retained_systems() as systems:
+                seconds, res = timed(lambda: run_vio_pipeline(ds, tracks, device=device,
+                                                              dtype=dtype))
+            launches = {fn.__name__: fn.launches for fn in counted}
+            s = res.summaries
+            fused = vio_rmse(res.fused_poses, truth["positions"])
+            dead = vio_rmse(vio.nav_to_se3(res.dead_reckoned), truth["positions"])
+            ba_rmse_m = vio_rmse(res.ba_cameras @ se3_inverse(
+                torch.as_tensor(VIO_T_BS, device=device).to(dtype)), truth["positions"])
+            rec = {"seconds": seconds, "stage_seconds": s["seconds"],
+                   "iterations": {st: s[st].iterations for st in ("ba", "imu", "fusion")},
+                   "terminations": {st: s[st].termination for st in ("ba", "imu", "fusion")},
+                   "launches": launches, "fused_rmse": fused, "dead_reckoned_rmse": dead,
+                   "ba_rmse": ba_rmse_m}
+            out[f"{key}_{run}"] = rec
+            print(f"run_vio_pipeline {len(truth['positions'])} keyframes {key} {run} on {card}: "
+                  f"{seconds!r} s; stages {s['seconds']}; LM iterations {rec['iterations']} "
+                  f"{rec['terminations']}; launches {launches}; RMSE fused {fused!r} m, "
+                  f"dead-reckoned {dead!r} m, BA cameras {ba_rmse_m!r} m")
+            if key == "f32" and not (launches["cholesky_blocked"] == s["ba"].linear_iterations
+                                     == len(systems)):
+                fail(f"VIO f32: B4 launched {launches['cholesky_blocked']} times for "
+                     f"{s['ba'].linear_iterations} BA solves ({len(systems)} systems handed)")
+            if key == "f32" and run == "cold":
+                # the kernel on the path's own systems: the first (at the
+                # start point) and the last (nearest the optimum)
+                rec["b4_on_path"] = {
+                    which: check_cholesky(
+                        f"cholesky f32 n={a.shape[0]}, the VIO BA's {which} retained system "
+                        f"of {len(systems)}", a.cpu().numpy(), device)
+                    for which, a in (("first", systems[0]), ("last", systems[-1]))}
+            if not (fused <= dead and fused <= VIO_FUSED_RMSE_LIMIT):
+                fail(f"VIO {key}: fused RMSE {fused!r} against dead-reckoned {dead!r} "
+                     f"(limit {VIO_FUSED_RMSE_LIMIT})")
+        out[f"{key}_profile"] = _vio_stage_profiles(card, device, ds, tracks, res, dtype)
+
+    cpu_s, on_cpu = timed(lambda: run_vio_pipeline(ds, tracks, max_keyframes=VIO_CUT,
+                                                   device="cpu", dtype=torch.float64))
+    cut_s, on_cuda = timed(lambda: run_vio_pipeline(ds, tracks, max_keyframes=VIO_CUT,
+                                                    device=device, dtype=torch.float64))
+    diff = max(max_err(getattr(on_cuda, n).cpu(), getattr(on_cpu, n))
+               for n in ("fused_poses", "ba_cameras", "nav_states", "ba_points"))
+    print(f"run_vio_pipeline {VIO_CUT} keyframes f64: cuda {cut_s!r} s, the CPU {cpu_s!r} s; "
+          f"max|diff| {diff!r} (atol {VIO_CUDA_CPU_ATOL}); iterations cuda "
+          f"{[on_cuda.summaries[s].iterations for s in ('ba', 'imu', 'fusion')]}, CPU "
+          f"{[on_cpu.summaries[s].iterations for s in ('ba', 'imu', 'fusion')]}")
+    if not diff <= VIO_CUDA_CPU_ATOL:
+        fail(f"run_vio_pipeline f64 on cuda differs from the CPU by {diff!r}")
+    out["cut"] = {"keyframes": VIO_CUT, "cuda_minus_cpu": diff, "cuda_s": cut_s, "cpu_s": cpu_s}
+    return out
+
+
+def vio_windowed_part(card, device, ds, tracks, truth):
+    """(c) run_vio_pipeline_windowed pipelined over the whole flight in f64
+    (see VIO_WINDOWED_DTYPE), timed and gated; the sequential order on the
+    first VIO_WINDOWED_PREFIX windows, bitwise against the pipelined run's."""
+    f = VIO_WINDOWED_DTYPE
+    pipe_s, pipe = timed(lambda: run_vio_pipeline_windowed(
+        ds, tracks, window_frames=VIO_WINDOW_FRAMES, pipelined=True, device=device, dtype=f))
+    stages, windows, _, _ = make_stages(ds, tracks, VIO_WINDOW_FRAMES, device=device, dtype=f)
+    seq_s, seq = timed(lambda: run_sequential(stages, windows[:VIO_WINDOWED_PREFIX]))
+    rows = sum(o["fused"].shape[0] for o in seq)
+    same = all(bitwise_equal(getattr(pipe, attr)[:rows], torch.cat([o[n] for o in seq]))
+               for n, attr in (("fused", "fused_poses"), ("dead_reckoned", "dead_reckoned"),
+                               ("refined_body", "refined_body")))
+    fused = vio_rmse(pipe.fused_poses, truth["positions"])
+    dead = vio_rmse(pipe.dead_reckoned, truth["positions"])
+    n_w = pipe.num_windows
+    prof = device_launches(f"windowed VIO, one window through the four stages, {f}, on {card}",
+                           lambda: run_sequential(stages, windows[:1]))
+    print(f"run_vio_pipeline_windowed {n_w} windows of {VIO_WINDOW_FRAMES} {f} on {card}: "
+          f"pipelined {pipe_s!r} s ({pipe_s / n_w!r} s a window); sequential on the first "
+          f"{VIO_WINDOWED_PREFIX} windows {seq_s!r} s ({seq_s / VIO_WINDOWED_PREFIX!r} s a "
+          f"window), bitwise equal to the pipelined run's {same}; RMSE fused {fused!r} m, "
+          f"dead-reckoned {dead!r} m (limit {VIO_WINDOWED_RMSE_LIMIT})")
+    if not (same and pipe.schedule == pipeline_schedule(n_w, 4)):
+        fail("windowed VIO: pipelined differs from sequential, or the schedule is not GPipe's")
+    if not (fused <= dead and fused <= VIO_WINDOWED_RMSE_LIMIT):
+        fail(f"windowed VIO: fused RMSE {fused!r} against dead-reckoned {dead!r}")
+    return {"windows": n_w, "pipelined_s": pipe_s, "s_per_window": pipe_s / n_w,
+            "sequential_windows": VIO_WINDOWED_PREFIX, "sequential_s": seq_s,
+            "bitwise_equal": same, "fused_rmse": fused, "dead_reckoned_rmse": dead,
+            "one_window": prof}
+
+
+def front_end_images(rng, device, pairs=FRONT_PAIRS):
+    """Pairs of 752x480 textured float32 images (uniform noise under a 5x5
+    box blur, tests/test_visual_frontend.py:17) and the second of each
+    shifted by a known sub-pixel flow [pairs, 2] (bilinear resampling)."""
+    w, h = VIO_RESOLUTION
+    noise = torch.from_numpy(rng.uniform(size=(pairs, h, w)).astype(np.float32)).to(device)
+    img0 = vfe._conv2(noise, np.ones((5, 5)) / 25.0)
+    flow = rng.uniform(-FRONT_MAX_SHIFT, FRONT_MAX_SHIFT, size=(pairs, 2))
+    yy, xx = torch.meshgrid(torch.arange(h, device=device, dtype=torch.float32),
+                            torch.arange(w, device=device, dtype=torch.float32), indexing="ij")
+    f = torch.from_numpy(flow.astype(np.float32)).to(device)
+    coords = torch.stack([xx - f[:, None, None, 0], yy - f[:, None, None, 1]], dim=-1)
+    return img0, vfe._bilinear(img0, coords), flow
+
+
+def track_pairs(img0, img1):
+    pts, _ = vfe.detect_corners(img0, max_features=FRONT_CORNERS, border=16)
+    fwd, ok, err = vfe.track_with_fb_check(img0, img1, pts, window=7, levels=3, iterations=10)
+    return pts, fwd, ok, err
+
+
+def vio_front_end_part(card, device, truth):
+    """(d) detect_corners + track_with_fb_check on FRONT_PAIRS pairs;
+    triangulate_tracks of the sequence's landmarks; cuda against the CPU."""
+    rng = np.random.default_rng(SEED + 18)
+    img0, img1, flow = front_end_images(rng, device)
+    seconds, (pts, fwd, ok, err) = timed(lambda: track_pairs(img0, img1))
+    seconds, (pts, fwd, ok, err) = timed(lambda: track_pairs(img0, img1))
+    est = (fwd - pts).double().cpu().numpy()
+    okn = ok.cpu().numpy()
+    medians = np.array([np.median(np.abs(est[i][okn[i]] - flow[i]), axis=0).max()
+                        if okn[i].any() else np.inf for i in range(len(flow))])
+    counts = okn.sum(1)
+    prof = profile_step(f"front end, {FRONT_PAIRS} pairs detect + track on {card}",
+                        lambda: track_pairs(img0, img1))
+    print(f"front end {FRONT_PAIRS} pairs 752x480 f32 on {card}: {seconds!r} s "
+          f"({FRONT_PAIRS / seconds!r} pairs/s); forward-backward ok per pair min "
+          f"{int(counts.min())} of {FRONT_CORNERS}; worst median |flow error| {medians.max()!r} px "
+          f"(limit {FRONT_MEDIAN_ATOL})")
+    if not (medians.max() <= FRONT_MEDIAN_ATOL and counts.min() >= FRONT_MIN_OK):
+        fail("front end: a pair's flow error or its tracked count misses the gate")
+
+    n = FRONT_CPU_PAIRS
+    on_cpu = track_pairs(img0[:n].cpu(), img1[:n].cpu())
+    corners_equal = bitwise_equal(pts[:n].cpu(), on_cpu[0])
+    pt_diff = max_err(fwd[:n].cpu(), on_cpu[1])
+    masks_equal = torch.equal(ok[:n].cpu(), on_cpu[2])
+    print(f"front end {n} pairs cuda against the CPU: corners bitwise {corners_equal}; tracked "
+          f"points max|diff| {pt_diff!r} px (atol {FRONT_CUDA_CPU_ATOL}); masks equal "
+          f"{masks_equal}")
+    if not (corners_equal and pt_diff <= FRONT_CUDA_CPU_ATOL and masks_equal):
+        fail("front end: cuda differs from the CPU")
+
+    cams = torch.as_tensor(truth["cams"], device=device).to(torch.float32)
+    seen = torch.as_tensor(truth["seen"], device=device)
+    pixels = torch.as_tensor(truth["pixels"], device=device).to(torch.float32)
+    tri_s, xyz = timed(lambda: vfe.triangulate_tracks(cams, pixels, seen, VIO_INTRINSICS))
+    views = truth["seen"].sum(1)
+    errs = np.linalg.norm(xyz.double().cpu().numpy() - truth["landmarks"], axis=-1)[views >= 3]
+    tri = {"landmarks": int((views >= 3).sum()), "median_m": float(np.median(errs)),
+           "p95_m": float(np.percentile(errs, 95)), "seconds": tri_s}
+    print(f"triangulate_tracks {VIO_LANDMARKS} landmarks x {len(truth['cams'])} views f32 on "
+          f"{card}: {tri_s!r} s; landmarks seen 3+ times {tri['landmarks']}: error median "
+          f"{tri['median_m']!r} m, 95th percentile {tri['p95_m']!r} m (limits "
+          f"{TRI_MEDIAN_LIMIT}, {TRI_P95_LIMIT})")
+    if not (tri["median_m"] <= TRI_MEDIAN_LIMIT and tri["p95_m"] <= TRI_P95_LIMIT):
+        fail("triangulate_tracks: the landmark error misses the gate")
+    return {"pairs": FRONT_PAIRS, "seconds": seconds, "pairs_per_s": FRONT_PAIRS / seconds,
+            "min_ok": int(counts.min()), "worst_median_flow_error": float(medians.max()),
+            "cuda_minus_cpu_px": pt_diff, "profile": prof, "triangulation": tri}
+
+
+def vio_no_read_part(device, ds, tracks):
+    """(e) one batched preintegration, one lk_track call and one stage-D
+    fusion step, each under sync debug mode "error"."""
+    nav0, bias0 = vio.initial_state(ds, device, torch.float32)
+    lanes = [torch.as_tensor(x, device=device).to(torch.float32)
+             for x in vio.interval_lanes(ds, ds.cam.timestamps)]
+    no_read_in(f"preintegrate, {lanes[0].shape[0]} intervals as lanes",
+               lambda: preintegrate(*lanes, bias0, VIO_ACCEL_SIGMA, VIO_GYRO_SIGMA))
+    rng = np.random.default_rng(SEED + 19)
+    img0, img1, _ = front_end_images(rng, device, pairs=8)
+    pts = vfe.detect_corners(img0, max_features=FRONT_CORNERS, border=16)[0]
+    no_read_in("lk_track, 8 pairs x 200 points", lambda: vfe.lk_track(img0, img1, pts))
+    stages, windows, _, _ = make_stages(ds, tracks, VIO_WINDOW_FRAMES, device=device)
+    win = windows[0]
+    for st in stages[:3]:
+        win = st.fn(st.init_carry, win)[1] if st.chain else st.fn(win)
+
+    def fusion_step():
+        state, step = device_lm_start(*vio_pp.fuse_problem(None, win))
+        return step(state)
+
+    no_read_in("windowed VIO stage D, one fusion LM step", fusion_step)
+    return True
+
+
+def tf32_part(device):
+    """Satellite: the f32 convolutions give the same result with cuDNN's
+    TF32 flag at PyTorch's default (True) as with it off."""
+    rng = np.random.default_rng(SEED + 20)
+    cfg = HistogramConfig()
+    belief = histogram_init(cfg, device=device, batch_shape=(16,))
+    lm = torch.tensor([[10.0, 0.0], [10.0, 10.0], [0.0, 15.0]], device=device)
+    z = torch.from_numpy(rng.uniform(5.0, 15.0, size=(16, 3)).astype(np.float32)).to(device)
+    du = torch.from_numpy(rng.uniform(-1.0, 1.0, size=(16, 2)).astype(np.float32)).to(device)
+    img = front_end_images(rng, device, pairs=2)[0]
+
+    def run():
+        hist = histogram_update_ranges(histogram_predict(belief, du, cfg), z, lm, cfg)
+        return hist, vfe.shi_tomasi_response(img)
+
+    off = run()
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        on = run()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    same = all(bitwise_equal(a, b) for a, b in zip(on, off))
+    print(f"f32 histogram update and shi_tomasi_response with cudnn.allow_tf32 True equal to "
+          f"False: {same}")
+    if not same:
+        fail("an f32 convolution changes with cudnn.allow_tf32")
+    return same
+
+
+def vio_phase(card, device, counted=(cholesky_blocked, cholesky_blocked_large)):
+    """The VIO path (phase 18; B4 on the batch VIO's BA): each part checks
+    its gates and returns its numbers."""
+    import tempfile
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="vio_seq_") as root:
+        start = time.perf_counter()
+        truth = write_vio_sequence(root)
+        ds = EurocDataset.load(root)
+        tracks = ds.load_feature_tracks()
+        out["sequence"] = {"imu_samples": len(ds.imu.timestamps),
+                           "keyframes": len(ds.cam.timestamps),
+                           "landmarks": len(tracks.landmarks),
+                           "observations": len(tracks.obs_pixels),
+                           "visible_min": truth["visible_min"],
+                           "seconds": time.perf_counter() - start}
+        print(f"VIO sequence: {out['sequence']}")
+        if truth["visible_min"] < VIO_MIN_VISIBLE:
+            fail(f"a keyframe sees {truth['visible_min']} landmarks (< {VIO_MIN_VISIBLE})")
+        for name, part in (
+                ("batch", lambda: vio_batch_part(card, device, ds, tracks, truth, counted)),
+                ("windowed", lambda: vio_windowed_part(card, device, ds, tracks, truth)),
+                ("front_end", lambda: vio_front_end_part(card, device, truth)),
+                ("no_read", lambda: vio_no_read_part(device, ds, tracks)),
+                ("tf32", lambda: tf32_part(device))):
+            start = time.perf_counter()
+            result = part()
+            out[name] = result if isinstance(result, dict) else {"ok": result}
+            out[name]["part_s"] = time.perf_counter() - start
+            print(f"VIO path, part {name}: {out[name]['part_s']!r} s")
+    return out
+
+
+# aten ops that launch nothing (views, allocations, host scalars)
+_VIEW_OPS = {"empty", "empty_strided", "as_strided", "view", "_reshape_alias", "resize_",
+             "detach", "lift_fresh", "alias", "_unsafe_view", "expand", "slice", "select", "t",
+             "transpose", "permute", "unsqueeze", "squeeze", "item", "_local_scalar_dense",
+             "set_", "unbind", "split", "result_type", "is_nonzero", "numpy_T", "diagonal",
+             "narrow", "chunk", "reshape", "broadcast_to", "expand_as", "view_as",
+             "_has_compatible_shallow_copy_type", "conj", "resolve_conj", "resolve_neg",
+             "_to_copy"}
+
+
+def cpu_op_count(fn):
+    """The aten ops of fn() that would launch work, under the CPU profiler:
+    leaf ops outside _VIEW_OPS (an upper bound on a device's launches)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(1 for e in prof.events()
+               if e.name.startswith("aten::") and e.name[6:] not in _VIEW_OPS
+               and not any(c.name.startswith("aten::") for c in e.cpu_children))
+
+
+def _cpu_sequence(root, seconds):
+    truth = write_vio_sequence(root, seconds=seconds)
+    ds = EurocDataset.load(root)
+    return truth, ds, ds.load_feature_tracks()
+
+
+def vio_cpu_reference(seconds=VIO_SECONDS):
+    """The port's own run on the CPU of phase 18's flight (its first
+    `seconds`), which sets the phase's fused-RMSE and triangulation bounds:
+    the batch pipeline in f64 and f32 (a solve that raises on a non-finite
+    step is recorded), the windowed pipeline in f64, stage D's LM
+    iterations in the first 12 windows in f64 and f32, triangulation in
+    f64. Needs no card:
+    `python3 -c 'import chip_smoke as cs; cs.vio_cpu_reference()'`."""
+    import tempfile
+
+    cpu = torch.device("cpu")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vio_seq_") as root:
+        truth, ds, tracks = _cpu_sequence(root, seconds)
+        for dtype in (torch.float64, torch.float32):
+            start = time.perf_counter()
+            try:
+                res = run_vio_pipeline(ds, tracks, device=cpu, dtype=dtype)
+            except FloatingPointError as exc:  # the host LM's non-finite step
+                out[f"batch {dtype}"] = {"raised": f"FloatingPointError: {exc}"}
+            else:
+                out[f"batch {dtype}"] = {
+                    "seconds": time.perf_counter() - start,
+                    "fused_rmse": vio_rmse(res.fused_poses, truth["positions"]),
+                    "dead_reckoned_rmse": vio_rmse(vio.nav_to_se3(res.dead_reckoned),
+                                                   truth["positions"]),
+                    "summaries": {s: vars(res.summaries[s]) for s in ("ba", "imu", "fusion")}}
+            print(f"CPU batch {dtype}: {out[f'batch {dtype}']}", flush=True)
+        start = time.perf_counter()
+        win = run_vio_pipeline_windowed(ds, tracks, window_frames=VIO_WINDOW_FRAMES,
+                                        pipelined=False, device=cpu, dtype=torch.float64)
+        out["windowed"] = {"seconds": time.perf_counter() - start,
+                           "fused_rmse": vio_rmse(win.fused_poses, truth["positions"]),
+                           "dead_reckoned_rmse": vio_rmse(win.dead_reckoned, truth["positions"])}
+        print(f"CPU f64 windowed: {out['windowed']}", flush=True)
+        for dtype in (torch.float64, torch.float32):
+            stages, windows, nav, _ = make_stages(ds, tracks, VIO_WINDOW_FRAMES, device=cpu,
+                                                  dtype=dtype)
+            pose, iterations = None, []
+            for w in windows[:12]:
+                w = stages[0].fn(w)
+                nav, w = stages[1].fn(nav, w)
+                w = stages[2].fn(w)
+                iterations.append(nlls_solver.solve_device(*vio_pp.fuse_problem(pose, w))[1]
+                                  .iterations)
+                pose, _ = stages[3].fn(pose, w)
+            out[f"stage D iterations {dtype}"] = iterations
+            print(f"CPU stage D LM iterations, first 12 windows, {dtype}: {iterations}",
+                  flush=True)
+        xyz = vfe.triangulate_tracks(torch.as_tensor(truth["cams"]), torch.as_tensor(
+            truth["pixels"]), torch.as_tensor(truth["seen"]), VIO_INTRINSICS).numpy()
+        views = truth["seen"].sum(1)
+        errs = np.linalg.norm(xyz - truth["landmarks"], axis=-1)[views >= 3]
+        out["triangulation"] = {"median_m": float(np.median(errs)),
+                                "p95_m": float(np.percentile(errs, 95))}
+        print(f"CPU f64 triangulation: {out['triangulation']}", flush=True)
+    return out
+
+
+def vio_cpu_op_counts():
+    """Phase 18's prediction: the CPU profiler's op counts (f32, the whole
+    flight) of one BA iteration, one IMU-LM iteration, the batched
+    preintegration, one window, the front end on FRONT_PAIRS small pairs
+    (the count does not depend on the image size) and one batch pipeline.
+    `python3 -c 'import chip_smoke as cs; cs.vio_cpu_op_counts()'`."""
+    import tempfile
+
+    cpu, f32 = torch.device("cpu"), torch.float32
+    with tempfile.TemporaryDirectory(prefix="vio_seq_") as root:
+        _, ds, tracks = _cpu_sequence(root, VIO_SECONDS)
+        res = run_vio_pipeline(ds, tracks, device=cpu, dtype=f32)
+        t_bs = torch.as_tensor(ds.cam.t_bs).to(f32)
+        prob = build_bundle_adjustment(
+            vio.nav_to_se3(res.dead_reckoned) @ t_bs, torch.as_tensor(tracks.landmarks).to(f32),
+            torch.as_tensor(np.searchsorted(ds.cam.timestamps, tracks.obs_timestamps)),
+            torch.as_tensor(tracks.obs_landmark_ids), torch.as_tensor(tracks.obs_pixels).to(f32),
+            CameraIntrinsics(*[float(v) for v in ds.cam.intrinsics]), fixed_cameras=2,
+            robust=RobustKernel("huber", 2.0))
+        _, bias0 = vio.initial_state(ds, cpu, f32)
+        lanes = [torch.as_tensor(x).to(f32) for x in vio.interval_lanes(ds, ds.cam.timestamps)]
+        pres = preintegrate(*lanes, bias0, VIO_ACCEL_SIGMA, VIO_GYRO_SIGMA)
+        k = len(ds.cam.timestamps)
+        kw = vio.imu_refine_kwargs(res.dead_reckoned, bias0, res.ba_cameras @ se3_inverse(t_bs),
+                                   ds.cam.timestamps)
+        stages, windows, _, _ = make_stages(ds, tracks, VIO_WINDOW_FRAMES, device=cpu)
+        imgs = torch.rand(2, FRONT_PAIRS, 96, 128, generator=torch.Generator().manual_seed(SEED))
+        counts = {
+            "ba_iteration": cpu_op_count(lambda: nlls_solver.solve(
+                prob, SolverConfig(linear_solver="schur", max_iterations=1))),
+            "imu_iteration": cpu_op_count(lambda: optimize_imu_trajectory(
+                res.dead_reckoned, bias0.expand(k, 6).clone(), pres,
+                config=SolverConfig(max_iterations=1), **kw)),
+            "preintegrate": cpu_op_count(lambda: preintegrate(*lanes, bias0, VIO_ACCEL_SIGMA,
+                                                              VIO_GYRO_SIGMA)),
+            "one_window_f32": cpu_op_count(lambda: run_sequential(stages, windows[:1])),
+            "front_end": cpu_op_count(lambda: track_pairs(imgs[0], imgs[1])),
+            "batch_pipeline_f32": cpu_op_count(lambda: run_vio_pipeline(ds, tracks, device=cpu,
+                                                                        dtype=f32)),
+        }
+    print(f"CPU profiler op counts (f32): {counts}")
+    return counts
+
+
 def main() -> int:
     # 1. the card
     smi = subprocess.run(
@@ -2626,6 +3366,19 @@ def main() -> int:
     del free, goals, belief, estimate, err, step_args, u, z, lm, gen
     device_breakdown("BA main path, one LM iteration (f32, n = 1200 retained)",
                      lambda: [fn() for fn in phases.values()])
+    # B3 at bench.py's pinned shape: the kernel's own device time, beside
+    # time_interleaved_ms's events around the wrapper (host time included)
+    pb, pp = RESAMPLE_SHAPES["pinned"]
+    pinned_args = resample_inputs(np.random.default_rng(SEED + 2), pb, pp, RESAMPLE_D,
+                                  torch.float32, device)
+    b3_pinned_profiler = kernel_device_ms(lambda: systematic_resample_gather(*pinned_args),
+                                          "resample_kernel")
+    print(f"resample pinned B={pb} P={pp} D={RESAMPLE_D} f32 on {card}: the kernel's own device "
+          f"time (profiler) min {b3_pinned_profiler['min_ms']!r} ms, mean "
+          f"{b3_pinned_profiler['mean_ms']!r} ms over {b3_pinned_profiler['launches']} launches; "
+          f"CUDA events around the wrapper {b3_times['pinned']['ms']!r} ms; bound "
+          f"{b3_times['pinned']['bound_ms']!r} ms")
+    del pinned_args
     b4_events = device_breakdown("B4, one factorisation of the BA's retained system (n = 1200, f32)",
                                  lambda: cholesky_blocked(ba_state["s"]))["names"]
     print(f"B4 kernel launches per factorisation (profiler): {len(b4_events)} {b4_events}")
@@ -2653,7 +3406,12 @@ def main() -> int:
     # node (no kernel on their path)
     print(json.dumps({"slam_frontend": slam_frontend_phase(card, device)}))
 
-    # 18. the kernels line
+    # 18. the VIO path: batch VIO (B4 on its BA), windowed VIO, the front
+    # end, no read in a step, the f32 convolutions under cuDNN's TF32 flag
+    vio_out = vio_phase(card, device, counted)
+    print(json.dumps({"vio": vio_out}))
+
+    # 19. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -2675,6 +3433,10 @@ def main() -> int:
         "library": f"{no_library} (the resampler is cumsum + searchsorted + gather)",
         "shape": {"B": RESAMPLE_SHAPES[key][0], "P": rp, "D": RESAMPLE_D, "dtype": "float32"},
         "particles_per_s": b3_times[key]["particles_per_s"],
+        **({"pinned": {"shape": {"B": RESAMPLE_SHAPES["pinned"][0], "P": 1024},
+                       "events_ms": b3_times["pinned"]["ms"],
+                       "profiler_kernel_ms": b3_pinned_profiler,
+                       "bound_ms": b3_times["pinned"]["bound_ms"]}} if rp == 1024 else {}),
         "card": card,
     } for key, rp, replaces in (
         ("saturated", 1024, "rust_robotics_tpu/ops/resample_pallas.py:109"),
@@ -2687,6 +3449,12 @@ def main() -> int:
         "replaces": replaces,
         "launches": launches_n,
         "path": path,
+        **({"launches_vio": vio_out["batch"]["f32_cold"]["launches"]["cholesky_blocked"],
+            "path_vio": f"run_vio_pipeline f32, {vio_out['sequence']['keyframes']} keyframes: "
+                        f"the BA's {vio_out['batch']['f32_cold']['iterations']['ba']} linear "
+                        f"solves",
+            "vio_systems": vio_out["batch"]["f32_cold"]["b4_on_path"]}
+           if name == "cholesky_blocked" else {}),
         "launches_per_factorisation": len(b4_events),
         "max_abs_err": b4[n]["max_abs_err"],
         "rel_err_to_f64_factor": b4[n]["rel_f64"],
@@ -2763,7 +3531,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 19. the result
+    # 20. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -2,7 +2,7 @@
 
 The JAX package `rust_robotics_tpu` is the reference; this package mirrors
 its layout (`core/`, `models/`, `ops/`, `filters/`, `planning/`, `nlls/`,
-`slam/`, `demos/`) with the same
+`slam/`, `data/`, `parallel/`, `demos/`) with the same
 module and function names, so each function has an obvious counterpart.
 
 Idiom: the JAX pytree dataclasses become frozen dataclasses of tensors with

@@ -3,7 +3,8 @@
 The system has no learned weights; what crosses is state: a Gaussian belief
 and its noise model, a particle cloud, an occupancy grid, a bundle-adjustment
 or pose-graph problem, an EKF-SLAM or FastSLAM state, a square-root
-belief. Each function takes numpy arrays as the JAX side holds them
+belief, an IMU preintegration, nav and bias states, a windowed-VIO window.
+Each function takes numpy arrays as the JAX side holds them
 (`np.asarray` of a JAX array) and returns tensors on the given device
 (default `cuda`) and dtype. `belief_to_lanes`/`belief_from_lanes` switch a
 belief between the filter layout (mean [B, 4], cov [B, 4, 4]) and the scan
@@ -12,6 +13,8 @@ ekf_pallas.py:157-170 does.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -118,3 +121,26 @@ def sqrt_belief_from_numpy(mean, sqrt_cov, device=None, dtype=torch.float32):
     """The square-root UKF's belief: mean [..., n] and the lower Cholesky
     factor [..., n, n] -> (mean, sqrt_cov)."""
     return to_tensor(mean, device, dtype), to_tensor(sqrt_cov, device, dtype)
+
+
+def preintegrated_from_numpy(pre, device=None, dtype=torch.float64):
+    """A JAX `Preintegrated` (any object with its seven fields, each with
+    the intervals' leading dims) -> the port's `Preintegrated`."""
+    from rust_robotics_tpu_torch.slam.imu import Preintegrated
+
+    names = [f.name for f in dataclasses.fields(Preintegrated)]
+    return Preintegrated(*(to_tensor(getattr(pre, n), device, dtype) for n in names))
+
+
+def nav_from_numpy(nav_states, biases, device=None, dtype=torch.float64):
+    """Nav states [..., 9] ([rot tangent, position, velocity]) and biases
+    [..., 6] ([accel, gyro]) -> (nav_states, biases)."""
+    return to_tensor(nav_states, device, dtype), to_tensor(biases, device, dtype)
+
+
+def vio_window_from_numpy(window, device=None, dtype=torch.float64):
+    """One window dict of the JAX `vio_pp` (accel, gyro, dts, cam_local,
+    pt_idx, pixels, obs_mask) -> the port's: floats in `dtype`, indices as
+    int64, the mask as bool."""
+    kinds = {"cam_local": torch.int64, "pt_idx": torch.int64, "obs_mask": torch.bool}
+    return {k: to_tensor(v, device, kinds.get(k, dtype)) for k, v in window.items()}

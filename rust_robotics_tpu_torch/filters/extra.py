@@ -12,11 +12,13 @@ The port of rust_robotics_tpu/filters/extra.py. Reference
 Every function takes the JAX function's shapes plus optional leading batch
 dims. The histogram filter is a raster program over [..., W, H]: the
 motion is a per-lane cyclic shift (a gather, so nothing is read back) and a
-k×k box convolution with zero padding ("same"); the measurement an
-elementwise likelihood product. The SR-UKF takes the upper factor of the
-stacked weighted deviations by a batched Householder QR in plain torch
-(the algorithm of LAPACK's geqrf, elementwise over the batch); only RᵀR is
-used, so the signs of R's rows do not matter. The adaptive filter runs
+k×k box convolution with zero padding ("same", by `F.conv2d` with cuDNN's
+TF32 off in the call, so float32 stays float32 under PyTorch's default
+`cudnn.allow_tf32 = True`); the measurement an elementwise likelihood
+product. The SR-UKF takes the upper factor of the stacked weighted
+deviations by a batched Householder QR (`ops.smallmat.householder_r`) in
+plain torch (the algorithm of LAPACK's geqrf, elementwise over the batch);
+only RᵀR is used, so the signs of R's rows do not matter. The adaptive filter runs
 both candidate filters and selects per lane.
 """
 
@@ -35,7 +37,7 @@ from rust_robotics_tpu_torch.filters.kalman import (
     ukf_weights,
     unicycle_position_model,
 )
-from rust_robotics_tpu_torch.ops.smallmat import cholesky_small, solve_spd_small
+from rust_robotics_tpu_torch.ops.smallmat import cholesky_small, householder_r, solve_spd_small
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +106,11 @@ def histogram_predict(belief, du_xy, cfg: HistogramConfig):
     # "same": the centre of the full convolution; the box is symmetric, so
     # the correlation conv2d computes is the convolution
     flat = F.pad(rolled.reshape(-1, 1, w, h), (k // 2, (k - 1) // 2, k // 2, (k - 1) // 2))
-    out = F.conv2d(flat, kernel).reshape(*lead, w, h)
+    # cuDNN's flags as they stand, but TF32 off: float32 stays full float32
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        out = F.conv2d(flat, kernel).reshape(*lead, w, h)
     return _normalise(out)
 
 
@@ -133,31 +139,6 @@ def histogram_estimate(belief, cfg: HistogramConfig):
 # Square-root UKF (square_root_ukf.rs)
 # ---------------------------------------------------------------------------
 
-def _householder_r(a):
-    """The upper-triangular R [..., n, n] of a = QR for a [..., m, n],
-    m ≥ n, by Householder reflections (LAPACK's geqrf), each one
-    elementwise over the batch. Rows of R may differ in sign from another
-    QR's; RᵀR does not."""
-    n = a.shape[-1]
-    a = a.clone()
-    for j in range(n):
-        x = a[..., j:, j]
-        alpha = x[..., 0]
-        sigma = torch.sum(x[..., 1:] * x[..., 1:], dim=-1)
-        norm = torch.sqrt(alpha * alpha + sigma)
-        # beta = -sign(alpha)·|x|, so that v = x - beta·e1 does not cancel
-        beta = torch.where(alpha >= 0, -norm, norm)
-        v = torch.cat([(alpha - beta)[..., None], x[..., 1:]], dim=-1)
-        vv = torch.sum(v * v, dim=-1)
-        live = vv > 0
-        tau = torch.where(live, 2.0 / torch.where(live, vv, torch.ones_like(vv)),
-                          torch.zeros_like(vv))
-        block = a[..., j:, j:]
-        proj = torch.sum(v[..., :, None] * block, dim=-2)  # vᵀ A [..., n - j]
-        a[..., j:, j:] = block - (tau[..., None] * proj)[..., None, :] * v[..., :, None]
-    return torch.triu(a[..., :n, :])
-
-
 def _qr_sqrt(weighted_dev, noise_chol):
     """Upper-triangular sqrt factor of Σ wᵢ dᵢdᵢᵀ + N via QR of the stacked
     [dev; cholᵀ] matrix (the stable aggregate of the reference's rank-1
@@ -166,7 +147,7 @@ def _qr_sqrt(weighted_dev, noise_chol):
     lead = torch.broadcast_shapes(weighted_dev.shape[:-2], noise_t.shape[:-2])
     stacked = torch.cat([weighted_dev.expand(*lead, *weighted_dev.shape[-2:]),
                          noise_t.expand(*lead, *noise_t.shape[-2:])], dim=-2)
-    return _householder_r(stacked)  # S = rᵀ r
+    return householder_r(stacked)  # S = rᵀ r
 
 
 def _sqrt_factor(wc, dev, noise_chol):

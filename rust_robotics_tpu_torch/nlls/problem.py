@@ -4,11 +4,13 @@ The port of rust_robotics_tpu/nlls/problem.py (reference:
 rust_robotics_optimization/src/graph.rs — variables with an optional
 manifold retraction and a fixed flag (:34, :60-64), factors (:108), the
 problem (:119)). Factors of one type form one block: index tensors
-[F, arity] and a measurement with leading F (a tensor or a tuple of
-tensors), evaluated by one residual function under `torch.func.vmap`.
+[F, arity] and a measurement with leading F (a tensor, or a tuple or dict of
+tensors, which `torch.func.vmap` maps leaf by leaf — the IMU factor's is a
+dict), evaluated by one residual function under `torch.func.vmap`.
 Jacobians are taken with respect to the tangent increment through the
-group's retraction (`torch.func.jacfwd` at δ=0). Variables of one type live
-in one [N, dim] tensor; fixed variables are masked, not removed.
+group's retraction at δ=0, in reverse mode (`torch.func.jacrev`; see
+nlls/solver.py on forward mode). Variables of one type live in one
+[N, dim] tensor; fixed variables are masked, not removed.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ are the semantics the filters are held to; beyond n = 4 the generic
 `torch.linalg` routines take over.
 
 SPD structure is assumed where the name says so (covariances/innovation
-matrices are SPD by construction).
+matrices are SPD by construction). `householder_r` is the R of a tall
+matrix's QR, by reflections elementwise over the batch (the SR-UKF's
+square-root factor; triangulation's least squares).
 """
 
 from __future__ import annotations
@@ -128,3 +130,28 @@ def cholesky_small(m):
         for i in range(n)
     ]
     return torch.stack(full, dim=-2)
+
+
+def householder_r(a):
+    """The upper-triangular R [..., n, n] of a = QR for a [..., m, n],
+    m ≥ n, by Householder reflections (LAPACK's geqrf), each one
+    elementwise over the batch. Rows of R may differ in sign from another
+    QR's; RᵀR does not."""
+    n = a.shape[-1]
+    a = a.clone()
+    for j in range(n):
+        x = a[..., j:, j]
+        alpha = x[..., 0]
+        sigma = torch.sum(x[..., 1:] * x[..., 1:], dim=-1)
+        norm = torch.sqrt(alpha * alpha + sigma)
+        # beta = -sign(alpha)·|x|, so that v = x - beta·e1 does not cancel
+        beta = torch.where(alpha >= 0, -norm, norm)
+        v = torch.cat([(alpha - beta)[..., None], x[..., 1:]], dim=-1)
+        vv = torch.sum(v * v, dim=-1)
+        live = vv > 0
+        tau = torch.where(live, 2.0 / torch.where(live, vv, torch.ones_like(vv)),
+                          torch.zeros_like(vv))
+        block = a[..., j:, j:]
+        proj = torch.sum(v[..., :, None] * block, dim=-2)  # vᵀ A [..., n - j]
+        a[..., j:, j:] = block - (tau[..., None] * proj)[..., None, :] * v[..., :, None]
+    return torch.triu(a[..., :n, :])

@@ -17,6 +17,12 @@ from rust_robotics_tpu_torch.slam.fastslam import (  # noqa: F401
 )
 from rust_robotics_tpu_torch.slam.g2o import parse_g2o, write_g2o  # noqa: F401
 from rust_robotics_tpu_torch.slam.icp import ICPResult, icp_matching  # noqa: F401
+from rust_robotics_tpu_torch.slam.imu import (  # noqa: F401
+    Preintegrated,
+    optimize_imu_trajectory,
+    predict_nav_state,
+    preintegrate,
+)
 from rust_robotics_tpu_torch.slam.pose_graph import (  # noqa: F401
     build_pose_graph_2d,
     build_pose_graph_3d,
@@ -42,4 +48,8 @@ from rust_robotics_tpu_torch.slam.slam_node import (  # noqa: F401
     run_slam_node_loop,
     scan_to_points,
     subsample_stride,
+)
+from rust_robotics_tpu_torch.slam.vio import pose_error_se3, run_vio_pipeline  # noqa: F401
+from rust_robotics_tpu_torch.slam.vio_pp import (  # noqa: F401
+    run_vio_pipeline_windowed,
 )

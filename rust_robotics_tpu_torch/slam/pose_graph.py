@@ -173,9 +173,9 @@ def _optimize_chain_direct(poses, edges_from, edges_to, measurements, informatio
 
 
 def _first_fixed(n, fix_first, device):
-    fixed = torch.zeros((n,), dtype=torch.bool, device=device)
-    fixed[0] = fix_first
-    return fixed
+    """[n] bool, the first pose fixed when `fix_first`; built on the device
+    (an item write from the host would synchronise)."""
+    return torch.arange(n, device=device) < (1 if fix_first else 0)
 
 
 def _chain_lm(values, edges_from, edges_to, measurements, information, fixed, residual_fn,
@@ -382,6 +382,18 @@ def optimize_pose_graph_3d(pose_tangents, edges_from, edges_to, measurement_tang
                                        measurement_tangents, information, max_iterations,
                                        tolerance, se3_edge_residual, se3_retract, 6,
                                        device=device, dtype=dtype)
+    solved, summary = solve(*pose_graph_3d_lm(
+        pose_tangents, edges_from, edges_to, measurement_tangents, information, max_iterations,
+        tolerance, linear_solver, device, dtype))
+    return solved.groups[0].values, summary
+
+
+def pose_graph_3d_lm(pose_tangents, edges_from, edges_to, measurement_tangents,
+                     information=None, max_iterations=50, tolerance=1e-10,
+                     linear_solver="dense", device=None, dtype=torch.float32):
+    """The (Problem, SolverConfig) that `optimize_pose_graph_3d` hands to
+    `solve` on its dense, pcg and matfree_pcg routes; a caller that runs
+    another LM on the same graph (`solve_device`) takes its settings here."""
     prob = build_pose_graph_3d(
         to_tensor(pose_tangents, device, dtype), to_tensor(edges_from, device, torch.int64),
         to_tensor(edges_to, device, torch.int64), to_tensor(measurement_tangents, device, dtype),
@@ -394,5 +406,4 @@ def optimize_pose_graph_3d(pose_tangents, edges_from, edges_to, measurement_tang
         cost_tolerance=tolerance * tolerance,
         linear_solver=linear_solver,
     )
-    solved, summary = solve(prob, cfg)
-    return solved.groups[0].values, summary
+    return prob, cfg

@@ -24,6 +24,7 @@ from rust_robotics_tpu_torch import convert
 from rust_robotics_tpu_torch.core.types import GaussianBelief
 from rust_robotics_tpu_torch.filters import extra as te
 from rust_robotics_tpu_torch.filters.kalman import ukf_step
+from rust_robotics_tpu_torch.ops.smallmat import householder_r
 
 DT = 0.1
 ATOL = 1e-12
@@ -110,14 +111,14 @@ def test_histogram_filter_localizes_as_jax():
 
 def test_householder_r_gives_the_gram_matrix_of_lapack_qr():
     a = np.random.default_rng(1).normal(size=(3, 12, 4))
-    r = te._householder_r(t64(a)).numpy()
+    r = householder_r(t64(a)).numpy()
     want = np.asarray(jnp.linalg.qr(jnp.asarray(a), mode="r"))
     np.testing.assert_array_equal(r, np.triu(r))
     np.testing.assert_allclose(np.swapaxes(r, -1, -2) @ r, np.swapaxes(want, -1, -2) @ want,
                                atol=1e-12, rtol=0.0)
     # a zero column leaves its reflection out
     a[:, :, 2] = 0.0
-    r = te._householder_r(t64(a)).numpy()
+    r = householder_r(t64(a)).numpy()
     np.testing.assert_allclose(np.swapaxes(r, -1, -2) @ r, np.swapaxes(a, -1, -2) @ a, atol=1e-12)
 
 

@@ -49,8 +49,10 @@ def test_rule_scan_sees_what_it_must():
     assert len(PORT_FILES) > 10
 
 
-def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     import numpy as np
+
+    from fixture_gen import make_euroc_fixture
 
     from rust_robotics_tpu_torch import convert
     from rust_robotics_tpu_torch.demos.ekf_localization import (
@@ -72,6 +74,11 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         optimize_pose_graph_2d,
         optimize_pose_graph_3d,
     )
+    from rust_robotics_tpu_torch.data.euroc import EurocDataset
+    from rust_robotics_tpu_torch.demos.headless import headless_euroc_vio
+    from rust_robotics_tpu_torch.parallel.pipeline import Stage, run_pipelined
+    from rust_robotics_tpu_torch.slam.vio import run_vio_pipeline
+    from rust_robotics_tpu_torch.slam.vio_pp import make_stages, run_vio_pipeline_windowed
 
     blocked = np.eye(4, 3, dtype=bool)
     ox, oy = np.array([0.0, 4.0, 4.0]), np.array([0.0, 0.0, 3.0])
@@ -82,6 +89,14 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     poses, ef, et, meas = np.zeros((2, 3)), np.array([0]), np.array([1]), np.ones((1, 3))
     poses6, meas6 = np.zeros((2, 6)), np.full((1, 6), 0.1)
     cloud = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 2.0]])
+    make_euroc_fixture(str(tmp_path / "euroc"), duration=0.6)
+    euroc = EurocDataset.load(str(tmp_path / "euroc"))
+    tracks = euroc.load_feature_tracks()
+    pre_fields = [np.eye(3), np.zeros(3), np.zeros(3), 0.1, np.zeros((9, 9)), np.zeros((9, 6)),
+                  np.zeros(6)]
+    window = {"accel": np.zeros((3, 2, 3)), "gyro": np.zeros((3, 2, 3)), "dts": np.zeros((3, 2)),
+              "cam_local": np.zeros(4, np.int32), "pt_idx": np.zeros(4, np.int32),
+              "pixels": np.zeros((4, 2)), "obs_mask": np.ones(4, bool)}
     host_data_calls = {
         "run_ekf_localization_demo": lambda **kw: run_ekf_localization_demo(steps=3, **kw)["estimate"],
         "default_ekf_noise": lambda **kw: default_ekf_noise(**kw)[0],
@@ -132,6 +147,24 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
             np.tile(np.eye(2), (4, 2, 1, 1)), np.zeros((4, 2), bool), **kw).lm_seen,
         "convert.sqrt_belief_from_numpy": lambda **kw: convert.sqrt_belief_from_numpy(
             np.zeros(4), np.eye(4), **kw)[1],
+        "run_vio_pipeline": lambda **kw: run_vio_pipeline(euroc, tracks, max_keyframes=3,
+                                                          **kw).fused_poses,
+        "run_vio_pipeline_windowed": lambda **kw: run_vio_pipeline_windowed(
+            euroc, tracks, fuse_iterations=1, **kw).fused_poses,
+        "make_stages": lambda **kw: make_stages(euroc, tracks, **kw)[2],
+        "run_pipelined": lambda device=None: run_pipelined(
+            [Stage(lambda x: x + 1)], [torch.zeros(2)],
+            devices=None if device is None else [torch.device(device)])[0],
+        "headless_euroc_vio": lambda **kw: torch.tensor(headless_euroc_vio(
+            tmpdir=str(tmp_path / "headless"), **kw)["fused_position_rmse"]),
+        "convert.preintegrated_from_numpy": lambda **kw: convert.preintegrated_from_numpy(
+            type("Pre", (), dict(zip(("delta_rotation", "delta_position", "delta_velocity",
+                                      "delta_time", "covariance", "bias_jacobian", "lin_bias"),
+                                     pre_fields))), **kw).covariance,
+        "convert.nav_from_numpy": lambda **kw: convert.nav_from_numpy(
+            np.zeros((2, 9)), np.zeros((2, 6)), **kw)[0],
+        "convert.vio_window_from_numpy": lambda **kw: convert.vio_window_from_numpy(
+            window, **kw)["obs_mask"],
     }
     for name, call in host_data_calls.items():
         if torch.cuda.is_available():
