@@ -96,7 +96,11 @@ any failure exits non-zero before the final line.
     iteration with no device read, the reads of a whole solve, f32 times;
     (d) ICP: bench_icp's workload converges; 256 pairs of 1000 points in
     lock-step all converge, three lanes equal their solo runs, pair 0
-    equals the CPU's within 1e-5; then one JSON line
+    equals the CPU's within 1e-5; (e) the solver paths (the f32 IFT on a
+    10x8 grid and a 200-pose chain, `solve`'s dense, pcg and matfree_pcg,
+    `solve_device` and the Schur BA) with float32 matmul precision "high"
+    (TF32 allowed) within 1e-5 of "highest" (two "highest" runs differ by
+    the order of CUDA's atomic adds); then one JSON line
     `{"slam_backend": {...}}`;
 17. the SLAM front end and the remaining filters (no kernel on their path),
     f64 unless noted, each part timed, each one step profiled (launches,
@@ -140,8 +144,22 @@ any failure exits non-zero before the final line.
     under sync debug mode "error"; the f32 histogram update and
     `shi_tomasi_response` equal with cuDNN's TF32 flag on and off; then one
     JSON line `{"vio": {...}}`;
-19. one JSON line `{"kernels": [...]}`;
-20. the last line, `{"ok": true, "device": {...}}`.
+19. the distributed programs (no kernel on their path) on a one-rank NCCL
+    mesh (one card holds one rank): (a) the DP+TP training step at
+    B = 1024 x T = 200 x L = 64 in f32, three Adam steps (the loss finite
+    and falling; loss and grads against the unsharded autograd; a step's
+    host s, launches and idle share), f64 cuda against the CPU on 64
+    trajectories, one step (1e-9); (b) the PF banks at phase 12's fleet (8192 x 1024,
+    20 steps, f32) and the particle-sharded FastSLAM at phase 17's size
+    (8192 x 32, f64, 60 steps, resampling at least once), each bitwise
+    equal to its unsharded function; (c) `solve_sharded` on phase 16's
+    1000-pose chain in f64 against `solve(matfree_pcg)` (1e-7, the same
+    termination); (d) ring-halo scan odometry on 256 scans x 1000 points,
+    f32, bitwise equal to `scan_odometry_serial`; (e) `pipeline_shard_map`
+    of 64 microbatches, equal to the stage composition; the collectives of
+    each part counted; then one JSON line `{"parallel": {...}}`;
+20. one JSON line `{"kernels": [...]}`;
+21. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -248,7 +266,25 @@ from rust_robotics_tpu_torch.slam.scan_matching import (
     robust_icp,
 )
 from rust_robotics_tpu_torch.slam.slam_node import REASONS, run_slam_node_loop
-from rust_robotics_tpu_torch.parallel.pipeline import pipeline_schedule, run_sequential
+from rust_robotics_tpu_torch.parallel import mesh as pmesh
+from rust_robotics_tpu_torch.parallel.pipeline import (
+    pipeline_schedule,
+    pipeline_shard_map,
+    run_sequential,
+)
+from rust_robotics_tpu_torch.parallel.sharded_filters import (
+    fastslam_oracle_step,
+    make_fastslam_sharded_step,
+    make_pf_banks_step,
+    pf_bank_step,
+)
+from rust_robotics_tpu_torch.parallel.sharded_nlls import solve_sharded
+from rust_robotics_tpu_torch.parallel.sharded_scan import (
+    make_sharded_scan_odometry,
+    scan_odometry_serial,
+    shard_scans,
+)
+from rust_robotics_tpu_torch import train as ttrain
 from rust_robotics_tpu_torch.slam import vio, vio_pp
 from rust_robotics_tpu_torch.slam import visual_frontend as vfe
 from rust_robotics_tpu_torch.slam.imu import optimize_imu_trajectory, preintegrate
@@ -1512,12 +1548,90 @@ def icp_part(card, device):
                       "profile": {k: v for k, v in prof.items() if k != "names"}}}
 
 
+# The solver paths under TF32: the f32 IFT on tests/test_torch_implicit.py's
+# 10x8 grid with four closures (the banded IFT) and on a 200-pose chain with
+# closures (the chain IFT), and `solve`'s dense, pcg and matfree_pcg routes,
+# `solve_device`'s dense route and the Schur route of a 20-camera BA, each
+# run twice with torch.set_float32_matmul_precision("highest") and once
+# with "high", which lets cuBLAS take TF32. The solvers turn TF32 off
+# inside, so a path whose two "highest" runs agree bitwise must give the
+# same bits under "high". The banded IFT's scatter-adds (`index_add`) add
+# in the order CUDA's atomics take, and its two "highest" runs differ by
+# up to 3.4e-6 of the largest entry (an H100 at 700 W); it must stay
+# within TF32_REL of "highest". With the guards taken out (a mutated copy,
+# same card), the chain IFT moved by 6.3e-5 and the Schur BA by 6.4e-4.
+TF32_GRID, TF32_CHAIN, TF32_BA = (10, 8, 4), 200, (20, 200)
+TF32_REL = 2e-5
+
+
+def _rel_err(a, b):
+    """max|a − b| relative to max|b|."""
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp(min=1e-300))
+
+
+def tf32_solver_part(card, device):
+    """(e) The solver paths give the same result with TF32 allowed as
+    without, to the noise of their atomics."""
+    f32, f64 = torch.float32, torch.float64
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_grid(*TF32_GRID)
+    grid_poses = optimize_pose_graph_2d(initial, ef, et, meas, info, 25, 1e-10, "banded_direct",
+                                        device=device, dtype=f64)[0]
+    grid = (ef, et, meas, info)
+    truth, initial, cef, cet, cmeas, cinfo = pose_graph_bench.synthesize_chain(TF32_CHAIN)
+    chain_poses = optimize_pose_graph_2d(initial, cef, cet, cmeas, cinfo, 25, 1e-10,
+                                         "chain_direct", device=device, dtype=f64)[0]
+    t = lambda a, dt=f32: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+    chain_prob = build_pose_graph_2d(t(initial), t(cef, torch.int64), t(cet, torch.int64),
+                                     t(cmeas), t(cinfo))
+    ba = ba_problem(*TF32_BA)
+
+    def loss(p):
+        return torch.sum(p[-1] ** 2)
+
+    def runs():
+        out = {
+            "ift_grid": pose_graph_implicit_vjp(grid_poses.to(f32), *grid, loss, device=device,
+                                                dtype=f32)[1],
+            "ift_chain": pose_graph_implicit_vjp(chain_poses.to(f32), cef, cet, cmeas, cinfo,
+                                                 loss, device=device, dtype=f32)[1]}
+        for solver in ("dense", "pcg", "matfree_pcg"):
+            cfg = SolverConfig(linear_solver=solver, max_iterations=5, pcg_max_iterations=50)
+            out[f"solve_{solver}"] = nlls_solver.solve(chain_prob, cfg)[0].groups[0].values
+        out["solve_device_dense"] = nlls_solver.solve_device(
+            chain_prob, SolverConfig(max_iterations=5))[0].groups[0].values
+        cams, pts, _, _ = run_ba(ba, device, f32, "dense")
+        out["schur"] = torch.cat([cams.reshape(-1), pts.reshape(-1)])
+        return out
+
+    saved = torch.get_float32_matmul_precision()
+    results = {}
+    try:
+        for key, precision in (("highest", "highest"), ("again", "highest"), ("high", "high")):
+            torch.set_float32_matmul_precision(precision)
+            results[key] = runs()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    want = results["highest"]
+    noise = {k: _rel_err(results["again"][k], v) for k, v in want.items()}
+    tf32 = {k: _rel_err(results["high"][k], v) for k, v in want.items()}
+    bad = [k for k, v in want.items()
+           if not (bitwise_equal(results["high"][k], v) if bitwise_equal(results["again"][k], v)
+                   else tf32[k] <= TF32_REL)]
+    print(f"TF32 allowed (float32 matmul precision 'high') against 'highest' on {card}, f32, "
+          f"max rel diff {tf32} (0 where two 'highest' runs agree bitwise, else <= {TF32_REL}); "
+          f"two 'highest' runs {noise}")
+    if bad:
+        fail(f"solver paths change with TF32 allowed: {bad} ({tf32})")
+    return {"tf32_max_rel": tf32, "highest_twice_max_rel": noise}
+
+
 def slam_backend_phase(card, device):
     """The SLAM back end on the port (phase 16; no kernel on its path): each
     part checks its gates and returns its numbers for the JSON line."""
     out = {"card": card}
     for name, part in (("se3", se3_part), ("implicit", implicit_part),
-                       ("solve_device", solve_device_part), ("icp", icp_part)):
+                       ("solve_device", solve_device_part), ("icp", icp_part),
+                       ("tf32", tf32_solver_part)):
         start = time.perf_counter()
         out[name] = part(card, device)
         out[name]["part_s"] = time.perf_counter() - start
@@ -2752,6 +2866,292 @@ def vio_phase(card, device, counted=(cholesky_blocked, cholesky_blocked_large)):
 
 
 # aten ops that launch nothing (views, allocations, host scalars)
+# The distributed programs (phase 19): the port's parallel/ and train.py on
+# a one-rank NCCL mesh. NCCL refuses two ranks on one card, so one H100
+# holds one rank: the all-reduces, all-gathers and broadcasts still run
+# through NCCL (counted by `parallel.mesh.COLLECTIVES`), and a ring shift on
+# a one-rank axis is the local copy JAX's ppermute makes there. Each part
+# runs at full width and is held against the port's unsharded function on
+# the card.
+# (a) the training step at the width of `__graft_entry__.py::entry` (B = 1024
+# trajectories), T = 200 steps, L = 64 landmarks, f32, three Adam steps at
+# make_training_step's default rate; f64 cuda against the CPU on the first
+# 64 trajectories, one step (loss and updated parameters), within
+# PAR_TRAIN_CUDA_CPU_REL of each value (2.6e-16 on an H100): the same
+# ~1000 sums of a 200-step rollout in another rounding (FMA contraction),
+# each ~1e-16 relative, ~1e-13 at most, 1e-9 as the part's stated limit;
+# against the unsharded loss on the card within PAR_TRAIN_REL (f32): the
+# same operations in the same order, so any reordering costs a few ulps.
+PAR_TRAIN = dict(batch=1024, steps=200, num_landmarks=64)
+PAR_TRAIN_STEPS, PAR_TRAIN_CUT = 3, 64
+PAR_TRAIN_REL, PAR_TRAIN_CUDA_CPU_REL = 1e-6, 1e-9
+# (b) phase 12's fleet (B = 8192 banks x P = 1024, f32, 20 steps) and
+# phase 17's FastSLAM (8192 particles x 32 landmarks, f64, 60 steps)
+PAR_PF_BANKS, PAR_PF_P, PAR_PF_STEPS = 8192, 1024, 20
+# (c) phase 16's 1000-pose chain, f64, SD_CONFIG, solve_sharded against
+# solve(linear_solver="matfree_pcg") within SD_ATOL_F64
+# (d) 256 scans x 1000 points, f32 (phase 17's ICP size), 20 ICP
+# iterations (make_sharded_scan_odometry's default): a cloud uniform in
+# [-5, 5]^2 seen from a drive of 0.05 m and 0.03 rad a scan; each pair's
+# relative pose within PAR_SCAN_POSE_ATOL of the truth (noise-free scans:
+# f32 rounding of coordinates ~5 leaves ~1e-6)
+PAR_SCANS, PAR_SCAN_POINTS, PAR_SCAN_ITERS, PAR_SCAN_POSE_ATOL = 256, 1000, 20, 1e-4
+# (e) 64 microbatches of 4096 through the pipeline
+PAR_PIPE_W, PAR_PIPE_WIDTH = 64, 4096
+
+
+def _collectives_reset():
+    for k in pmesh.COLLECTIVES:
+        pmesh.COLLECTIVES[k] = 0
+
+
+def train_reference(params, controls, meas, ranges, landmarks, init_mean, dt=0.1, weight=0.01):
+    """The unsharded loss and grads: Σ nll / B + w·Σ lm / B by autograd on
+    the whole batch, no mesh."""
+    b = init_mean.shape[0]
+    leaves = [p.detach().requires_grad_(True) for p in params.tensors()]
+    nll, xy = ttrain.ekf_innovation_nll(ttrain.SysIdParams(*leaves), controls, meas, init_mean, dt)
+    nll_sum = torch.sum(nll)
+    lm_sum = torch.sum(ttrain.landmark_range_sq_error(xy, landmarks, ranges))
+    grads = torch.autograd.grad(nll_sum / b + weight * lm_sum / b, leaves)
+    loss = nll_sum.detach() / b + weight * lm_sum.detach() / b
+    return loss, ttrain.SysIdParams(*grads)
+
+
+def par_train_part(card, device, mesh):
+    f32, f64 = torch.float32, torch.float64
+    out = {"shape": PAR_TRAIN, "dtype": "float32"}
+    batch = ttrain.synthesize_batch(SEED, dtype=f32, device=device, **PAR_TRAIN)
+    local = ttrain.shard_training_batch(mesh, *batch)
+    init_fn, step_fn = ttrain.make_training_step(mesh)
+    params, state = init_fn(f32)
+    loss, grads = ttrain.make_loss_and_grad(mesh)(params, *local)
+    want, want_grads = train_reference(params, *batch)
+    errs = [_rel_err(loss, want)] + [_rel_err(g, w) for g, w in zip(grads.tensors(),
+                                                                    want_grads.tensors())]
+    losses, step_s = [], []
+    for _ in range(PAR_TRAIN_STEPS):
+        seconds, (params, state, step_loss) = timed(lambda: step_fn(params, state, *local))
+        step_s.append(seconds)
+        losses.append(float(step_loss))
+    print(f"training step B={PAR_TRAIN['batch']} T={PAR_TRAIN['steps']} "
+          f"L={PAR_TRAIN['num_landmarks']} f32 on {card}, (1, 1) NCCL mesh: losses {losses}; "
+          f"host s a step {step_s}; loss and grads against the unsharded autograd, max rel "
+          f"{max(errs)!r} (limit {PAR_TRAIN_REL})")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and max(errs) <= PAR_TRAIN_REL):
+        fail(f"training step: losses {losses}, against the unsharded loss {errs}")
+    out.update(losses=losses, step_s=step_s, rel_err_unsharded=max(errs))
+    out["one_step"] = device_launches(f"one training step on {card}",
+                                      lambda: step_fn(params, state, *local))
+
+    # f64: cuda (sharded) against the CPU (unsharded) on the first trajectories
+    controls, meas, ranges, landmarks, init_mean = ttrain.synthesize_batch(
+        SEED, dtype=f64, device="cpu", **PAR_TRAIN)
+    cut = (controls[:PAR_TRAIN_CUT], meas[:PAR_TRAIN_CUT], ranges[:PAR_TRAIN_CUT], landmarks,
+           init_mean[:PAR_TRAIN_CUT])
+    init_fn, step_fn = ttrain.make_training_step(mesh)
+    p_gpu, s_gpu = init_fn(f64)
+    p_cpu = ttrain.init_params(f64, device="cpu")
+    s_cpu = ttrain.adam_init(p_cpu)
+    local = ttrain.shard_training_batch(mesh, *(a.to(device) for a in cut))
+    p_gpu, s_gpu, l_gpu = step_fn(p_gpu, s_gpu, *local)
+    l_cpu, g_cpu = train_reference(p_cpu, *cut)
+    p_cpu, s_cpu = ttrain.adam_update(p_cpu, g_cpu, s_cpu, 1e-2)
+    rel = [_rel_err(l_gpu.cpu(), l_cpu)] + [_rel_err(a.cpu(), b) for a, b in
+                                            zip(p_gpu.tensors(), p_cpu.tensors())]
+    print(f"training step f64, B={PAR_TRAIN_CUT}: cuda (sharded) against the CPU (unsharded), "
+          f"one Adam step, max rel {max(rel)!r} (limit {PAR_TRAIN_CUDA_CPU_REL})")
+    if not max(rel) <= PAR_TRAIN_CUDA_CPU_REL:
+        fail(f"training step f64: cuda differs from the CPU by {max(rel)!r}")
+    out["f64_cuda_minus_cpu_rel"] = max(rel)
+    return out
+
+
+def par_filters_part(card, device, mesh):
+    out = {}
+    # PF banks: phase 12's fleet
+    f32 = torch.float32
+    gen = torch.Generator(device=device).manual_seed(SEED + 190)
+    lm = torch.tensor(PF_LANDMARKS, dtype=f32, device=device)
+    belief0 = init_particles(gen, torch.zeros(PAR_PF_BANKS, 4, device=device), PF_SPREAD, PAR_PF_P)
+    u = torch.tensor(PF_U, dtype=f32, device=device).expand(PAR_PF_BANKS, 2)
+    truth = torch.zeros(4, dtype=torch.float64)
+    zs = []
+    for k in range(PAR_PF_STEPS):
+        truth = unicycle_propagate(truth, torch.tensor(PF_U, dtype=torch.float64), PF_DT)
+        z = torch.linalg.norm(torch.tensor(PF_LANDMARKS, dtype=torch.float64) - truth[:2], dim=-1) \
+            + 0.05 * torch.sin(torch.arange(4.0, dtype=torch.float64) + 0.3 * k)
+        zs.append(z.to(device=device, dtype=f32).expand(PAR_PF_BANKS, -1))
+    step = make_pf_banks_step(mesh, PF_DT, PF_CONTROL_NOISE, PF_RANGE_NOISE, axis_name="data")
+
+    def run(sharded):
+        g = torch.Generator(device=device).manual_seed(SEED + 191)
+        b = belief0
+        for z in zs:
+            if sharded:
+                b, est = step(b, u, z, lm, generator=g)
+            else:
+                b, est = pf_bank_step(b, u, z, lm, PF_DT, PF_CONTROL_NOISE, PF_RANGE_NOISE,
+                                      generator=g)
+        return b, est
+
+    _collectives_reset()
+    sharded_s, (b_s, e_s) = timed(lambda: run(True))
+    plain_s, (b_p, e_p) = timed(lambda: run(False))
+    same = all(bitwise_equal(a, b) for a, b in ((b_s.states, b_p.states),
+                                                (b_s.weights, b_p.weights),
+                                                (e_s.mean, e_p.mean), (e_s.cov, e_p.cov)))
+    err = float(torch.linalg.norm(e_s.mean[:, :2].double() - truth[:2].to(device), dim=-1).median())
+    print(f"PF banks B={PAR_PF_BANKS} P={PAR_PF_P} f32, {PAR_PF_STEPS} steps on {card}: sharded "
+          f"{sharded_s!r} s, unsharded {plain_s!r} s; bitwise equal {same}; median position "
+          f"error {err!r} (limit {PF_MEDIAN_ERROR_LIMIT})")
+    if not (same and err <= PF_MEDIAN_ERROR_LIMIT):
+        fail(f"PF banks: bitwise {same}, median error {err!r}")
+    out["pf_banks"] = {"banks": PAR_PF_BANKS, "particles": PAR_PF_P, "steps": PAR_PF_STEPS,
+                       "sharded_s": sharded_s, "unsharded_s": plain_s,
+                       "median_position_error": err, "collectives": dict(pmesh.COLLECTIVES)}
+    del b_s, b_p, belief0
+
+    # one FastSLAM filter, the particle axis sharded: phase 17's
+    f64 = torch.float64
+    landmarks = frontend_landmarks()
+    truth = frontend_drive(FAST_STEPS)
+    obs, mask = frontend_observations(landmarks, truth, 1, SEED + 192)
+    t = lambda a: torch.tensor(a, dtype=f64, device=device)  # noqa: E731
+    obs_d, mask_d = t(obs[:, 0]), torch.tensor(mask[:, 0], device=device)
+    u, chol, r = t(FE_CONTROL), t(FAST_CHOL), t(FAST_R)
+    fs_step = make_fastslam_sharded_step(mesh, FE_DT, chol, r, axis_name="data")
+
+    def run_fs(sharded):
+        g = torch.Generator(device=device).manual_seed(SEED + 193)
+        p = init_fastslam(FAST_P, FE_LANDMARKS, device=device)
+        resampled = 0
+        for k in range(FAST_STEPS):
+            if sharded:
+                p = fs_step(p, u, obs_d[k], mask_d[k], generator=g)
+            else:
+                p = fastslam_oracle_step(p, u, obs_d[k], mask_d[k], FE_DT, chol, r, generator=g)
+            resampled += bool((p.weights == 1.0 / FAST_P).all())
+        return p, resampled
+
+    _collectives_reset()
+    sharded_s, (p_s, resampled) = timed(lambda: run_fs(True))
+    collectives = dict(pmesh.COLLECTIVES)
+    plain_s, (p_p, _) = timed(lambda: run_fs(False))
+    fields = ("poses", "weights", "lm_mean", "lm_cov", "lm_seen")
+    same = {f: bitwise_equal(getattr(p_s, f), getattr(p_p, f)) if f != "lm_seen"
+            else torch.equal(p_s.lm_seen, p_p.lm_seen) for f in fields}
+    print(f"sharded FastSLAM {FAST_P} particles x {FE_LANDMARKS} landmarks f64, {FAST_STEPS} "
+          f"steps on {card}: sharded {sharded_s!r} s, oracle {plain_s!r} s; bitwise equal "
+          f"{same}; resampled on {resampled} steps; collectives {collectives}")
+    if not (all(same.values()) and resampled >= 1):
+        fail(f"sharded FastSLAM: bitwise {same}, resampled {resampled}")
+    out["fastslam"] = {"particles": FAST_P, "landmarks": FE_LANDMARKS, "steps": FAST_STEPS,
+                       "sharded_s": sharded_s, "oracle_s": plain_s, "resampled_steps": resampled,
+                       "collectives": collectives}
+    return out
+
+
+def par_nlls_part(card, device, mesh):
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_chain(SD_CHAIN)
+    t = lambda a, dt=torch.float64: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
+    prob = build_pose_graph_2d(t(initial), t(ef, torch.int64), t(et, torch.int64), t(meas),
+                               t(info))
+    cfg = SolverConfig(linear_solver="matfree_pcg", **SD_CONFIG)
+    _collectives_reset()
+    sharded_s, (solved, summary) = timed(lambda: solve_sharded(prob, cfg, mesh, ("model",)))
+    collectives = dict(pmesh.COLLECTIVES)
+    plain_s, (want, want_summary) = timed(lambda: nlls_solver.solve(prob, cfg))
+    diff = float((solved.groups[0].values - want.groups[0].values).abs().max())
+    print(f"solve_sharded {SD_CHAIN} chain f64 on {card}: {summary} in {sharded_s!r} s; solve "
+          f"matfree_pcg {want_summary} in {plain_s!r} s; poses max|diff| {diff!r} (atol "
+          f"{SD_ATOL_F64}); collectives {collectives}")
+    if not (diff <= SD_ATOL_F64 and summary.termination == want_summary.termination):
+        fail(f"solve_sharded against solve: {summary} vs {want_summary}, max|diff| {diff!r}")
+    return {"poses": SD_CHAIN, "sharded_s": sharded_s, "solve_s": plain_s, "max_abs_diff": diff,
+            "summary": vars(summary), "solve_summary": vars(want_summary),
+            "collectives": collectives}
+
+
+def scan_sequence(scans, points, device, seed=SEED + 194):
+    """A cloud uniform in [-5, 5]^2 seen from the drive x = 0.05 t, y =
+    0.02 sin(0.3 t), yaw = 0.03 t (tests/test_sharded_scan.py's motion):
+    scans [T, M, 2] f32 and each pair's true relative pose [T - 1, 3]."""
+    rng = np.random.default_rng(seed)
+    world = rng.uniform(-5.0, 5.0, (points, 2))
+    k = np.arange(scans, dtype=np.float64)
+    pose = np.stack([0.05 * k, 0.02 * np.sin(0.3 * k), 0.03 * k], -1)
+    rot_t = np.transpose(_rot2(pose[:, 2]), (0, 2, 1))  # R(-yaw)
+    local = np.einsum("tij,tmj->tmi", rot_t, world[None] - pose[:, None, :2])
+    rel_xy = np.einsum("tij,tj->ti", rot_t[:-1], pose[1:, :2] - pose[:-1, :2])
+    rel = np.concatenate([rel_xy, np.diff(pose[:, 2])[:, None]], -1)
+    return torch.tensor(local, dtype=torch.float32, device=device), rel
+
+
+def par_scan_part(card, device, mesh):
+    scans, rel_truth = scan_sequence(PAR_SCANS, PAR_SCAN_POINTS, device)
+    run = make_sharded_scan_odometry(mesh, axis="data", iterations=PAR_SCAN_ITERS)
+    _collectives_reset()
+    sharded_s, (rel, absolute) = timed(lambda: run(shard_scans(mesh, scans, "data")))
+    collectives = dict(pmesh.COLLECTIVES)
+    serial_s, (rel_s, abs_s) = timed(lambda: scan_odometry_serial(scans, PAR_SCAN_ITERS))
+    same = bitwise_equal(rel, rel_s) and bitwise_equal(absolute, abs_s)
+    pose_err = float(np.abs(rel.cpu().double().numpy() - rel_truth).max())
+    print(f"scan odometry {PAR_SCANS} scans x {PAR_SCAN_POINTS} points f32 on {card}: sharded "
+          f"{sharded_s!r} s, serial {serial_s!r} s; bitwise equal {same}; pair poses max|err| "
+          f"to the truth {pose_err!r} (atol {PAR_SCAN_POSE_ATOL}); collectives {collectives}")
+    if not (same and pose_err <= PAR_SCAN_POSE_ATOL):
+        fail(f"scan odometry: bitwise {same}, pose error {pose_err!r}")
+    return {"scans": PAR_SCANS, "points": PAR_SCAN_POINTS, "sharded_s": sharded_s,
+            "serial_s": serial_s, "pair_pose_max_err": pose_err, "collectives": collectives}
+
+
+def par_pipeline_part(card, device, mesh):
+    xs = torch.linspace(-2.0, 2.0, PAR_PIPE_W * PAR_PIPE_WIDTH, device=device).reshape(
+        PAR_PIPE_W, PAR_PIPE_WIDTH)
+
+    def stage(k, x):
+        return torch.tanh(x * (k + 1.5)) + k
+
+    _collectives_reset()
+    seconds, ys = timed(lambda: pipeline_shard_map(stage, xs, mesh, "pipe"))
+    collectives = dict(pmesh.COLLECTIVES)
+    want = xs
+    for k in range(pmesh.axis_size(mesh, "pipe")):
+        want = stage(k, want)
+    same = bitwise_equal(ys, want)
+    print(f"pipeline_shard_map {PAR_PIPE_W} microbatches x {PAR_PIPE_WIDTH} f32 on {card}: "
+          f"{seconds!r} s; equal to the stage composition {same}; collectives {collectives}")
+    if not same:
+        fail("pipeline_shard_map differs from the stage composition")
+    return {"microbatches": PAR_PIPE_W, "width": PAR_PIPE_WIDTH, "seconds": seconds,
+            "collectives": collectives}
+
+
+def parallel_phase(card, device):
+    """The distributed programs on one NCCL rank (phase 19)."""
+    pmesh.init_process_group(0, 1, device_type="cuda")
+    out = {"card": card, "backend": torch.distributed.get_backend()}
+    try:
+        meshes = {"train": pmesh.make_mesh(device_type="cuda"),
+                  "data": pmesh.make_mesh(axis_names=("data",), device_type="cuda"),
+                  "model": pmesh.make_mesh(axis_names=("model",), device_type="cuda"),
+                  "pipe": pmesh.make_mesh(axis_names=("pipe",), device_type="cuda")}
+        for name, part, mesh in (("train", par_train_part, "train"),
+                                 ("filters", par_filters_part, "data"),
+                                 ("solve_sharded", par_nlls_part, "model"),
+                                 ("scan_odometry", par_scan_part, "data"),
+                                 ("pipeline", par_pipeline_part, "pipe")):
+            start = time.perf_counter()
+            out[name] = part(card, device, meshes[mesh])
+            out[name]["part_s"] = time.perf_counter() - start
+            print(f"distributed programs, part {name}: {out[name]['part_s']!r} s")
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
 _VIEW_OPS = {"empty", "empty_strided", "as_strided", "view", "_reshape_alias", "resize_",
              "detach", "lift_fresh", "alias", "_unsafe_view", "expand", "slice", "select", "t",
              "transpose", "permute", "unsqueeze", "squeeze", "item", "_local_scalar_dense",
@@ -2834,6 +3234,78 @@ def vio_cpu_reference(seconds=VIO_SECONDS):
                                 "p95_m": float(np.percentile(errs, 95))}
         print(f"CPU f64 triangulation: {out['triangulation']}", flush=True)
     return out
+
+
+def scatter_determinism(repeats=5):
+    """ROADMAP C8's op on the CPU (no card): `repeats` CPU
+    `index_put_(accumulate=True)` scatters of the same 200k values into
+    2000 slots, and as many `nlls.solver.scatter_add_`; the distinct
+    results of each (1: the same bits every time)."""
+    gen = torch.Generator().manual_seed(8)
+    idx = torch.randint(0, 2000, (200_000,), generator=gen)
+    vals = torch.randn(200_000, generator=gen)
+    distinct = {
+        "index_put_": len({torch.zeros(2000).index_put_((idx,), vals, accumulate=True)
+                           .numpy().tobytes() for _ in range(repeats)}),
+        "scatter_add_": len({nlls_solver.scatter_add_(torch.zeros(2000), (idx,), vals)
+                             .numpy().tobytes() for _ in range(repeats)})}
+    print(f"{repeats} repeats on {torch.get_num_threads()} threads, distinct results: {distinct}")
+    return distinct
+
+
+def vio_cpu_repeats(runs=4, seconds=3.0):
+    """ROADMAP C8's symptom on the CPU (no card): `runs` f32 runs of the
+    batch VIO pipeline on phase 18's flight cut to `seconds`, each with its
+    BA summary and a hash of its fused poses, or the error it raised (one
+    hash: the same bits every run).
+    `python3 -c 'import chip_smoke as cs; cs.vio_cpu_repeats()'`."""
+    import hashlib
+    import tempfile
+
+    out = []
+    with tempfile.TemporaryDirectory(prefix="vio_seq_") as root:
+        _, ds, tracks = _cpu_sequence(root, seconds)
+        for _ in range(runs):
+            try:
+                res = run_vio_pipeline(ds, tracks, device=torch.device("cpu"),
+                                       dtype=torch.float32)
+            except FloatingPointError as exc:
+                run = {"raised": f"FloatingPointError: {exc}"}
+            else:
+                run = {"ba": vars(res.summaries["ba"]), "fused_poses_md5": hashlib.md5(
+                    res.fused_poses.numpy().tobytes()).hexdigest()}
+            print(f"CPU f32 batch VIO, {seconds} s, {torch.get_num_threads()} threads: {run}",
+                  flush=True)
+            out.append(run)
+    return out
+
+
+def tf32_guard_mutation_check():
+    """Phase 16's TF32 part (`tf32_solver_part`) on a copy of this checkout
+    whose solvers lack their `full_fp32_matmul` guards (the decorators of
+    `nlls/implicit.py` and `nlls/solver.py` taken out): the check must fail
+    there, or it holds nothing. Needs a card:
+    `python3 -c 'import chip_smoke as cs; cs.tf32_guard_mutation_check()'`.
+    Returns (the copy's exit code, its TF32 line)."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    here = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="tf32_mutant_") as tmp:
+        copy = pathlib.Path(tmp) / "checkout"
+        shutil.copytree(here, copy, ignore=shutil.ignore_patterns(".git", "_build", "__pycache__"))
+        for name in ("implicit.py", "solver.py"):
+            path = copy / "rust_robotics_tpu_torch" / "nlls" / name
+            path.write_text(re.sub(r"^\s*@full_fp32_matmul\(\)\n", "", path.read_text(),
+                                   flags=re.M))
+        code = ("import torch, chip_smoke as cs; torch.backends.cuda.matmul.allow_tf32 = False; "
+                "cs.tf32_solver_part(torch.cuda.get_device_name(0), torch.device('cuda', 0))")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=copy, capture_output=True,
+                              text=True, timeout=600)
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("TF32 allowed")), "")
+    print(f"TF32 check without the guards: exit {proc.returncode} (must fail); {line}")
+    return proc.returncode, line
 
 
 def vio_cpu_op_counts():
@@ -3411,7 +3883,10 @@ def main() -> int:
     vio_out = vio_phase(card, device, counted)
     print(json.dumps({"vio": vio_out}))
 
-    # 19. the kernels line
+    # 19. the distributed programs on one NCCL rank (no kernel on their path)
+    print(json.dumps({"parallel": parallel_phase(card, device)}))
+
+    # 20. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -3531,7 +4006,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 20. the result
+    # 21. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -14,6 +14,13 @@ Entry points that create tensors take `device=` and `dtype=` and run on
 Every Pallas kernel of the reference becomes a CUDA kernel written for
 Hopper (`csrc/`), built by `ops/_build.py` at first use and launched by a
 wrapper that takes its plain-PyTorch twin only for CPU tensors.
+
+The JAX package's `shard_map` programs (`parallel/mesh.py`,
+`sharded_filters.py`, `sharded_nlls.py`, `sharded_scan.py`,
+`pipeline.py::pipeline_shard_map`, and `train.py`'s DP+TP training step)
+run here as SPMD code on `torch.distributed`: every rank runs the body on
+its shard, and the collectives are explicit (NCCL on `cuda`, gloo on the
+CPU).
 """
 
 __version__ = "0.1.0"

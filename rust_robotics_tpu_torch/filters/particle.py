@@ -58,13 +58,15 @@ def init_particles(generator, mean, spread, num_particles, weights_dtype=None):
     return ParticleBelief(states, w)
 
 
-def pf_predict(belief, control, dt, control_noise_std, generator):
+def pf_predict(belief, control, dt, control_noise_std, generator=None, noise=None):
     """Per-particle prediction with noisy control (particle_filter.rs:280-296):
     each particle draws its own (v, omega) perturbation, then unicycle-steps.
-    `control_noise_std` is [2] (std of v and yaw-rate noise)."""
+    `control_noise_std` is [2] (std of v and yaw-rate noise). `noise`
+    [..., P, 2] standard normals, else drawn from `generator`."""
     states = belief.states
-    noise = torch.randn(states.shape[:-1] + (2,), generator=generator,
-                        dtype=states.dtype, device=states.device)
+    if noise is None:
+        noise = torch.randn(states.shape[:-1] + (2,), generator=generator,
+                            dtype=states.dtype, device=states.device)
     u = _like(control, states)[..., None, :] + noise * _like(control_noise_std, states)
     return ParticleBelief(unicycle_propagate(states, u, dt), belief.weights)
 

@@ -50,6 +50,7 @@ from rust_robotics_tpu_torch.nlls.tridiag import (
     chain_linearize,
     chain_woodbury_solve,
     classify_chain_edges,
+    full_fp32_matmul,
     has_full_chain,
     small_mm,
 )
@@ -151,6 +152,7 @@ def _retractor(values, fixed, retract_fn):
     return retract_all
 
 
+@full_fp32_matmul()
 def chain_implicit_vjp(values, chain_meas, chain_info, loop_from, loop_to, loop_meas, loop_info,
                        fixed_mask, loss_fn, *, residual_fn, retract_fn, tdim):
     """IFT gradients through `solve_chain_lm`'s solution at full scale: H w
@@ -199,6 +201,7 @@ def chain_implicit_vjp(values, chain_meas, chain_info, loop_from, loop_to, loop_
 # General graphs (the banded supernodal engine)
 # ---------------------------------------------------------------------------
 
+@full_fp32_matmul()
 def banded_implicit_vjp(values_b, band_from, band_to, band_meas, band_info, loop_from, loop_to,
                         loop_meas, loop_info, fixed_mask, loss_fn, *, residual_fn, retract_fn,
                         tdim, supernode, num_super, fat_solve=None, ift_damping=1e-7,

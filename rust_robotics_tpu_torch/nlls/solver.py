@@ -16,17 +16,25 @@ elimination of the trailing group (sparse.rs:160)).
   combined with a Python scalar (`x * 0.5`, `x + 1.0`) to float64, and the
   next matmul of a float32 residual then fails; reverse mode keeps float32.
   For BA it also costs rdim = 2 passes instead of tdim = 9.
-- Assembly scatters into a dense [D, D] Hessian with
-  `index_put_(accumulate=True)`. On CUDA it adds in another order than on
-  the CPU, so f32 results differ from the CPU's in the last bits.
+- Assembly scatters into a dense [D, D] Hessian by `scatter_add_`:
+  `index_put_(accumulate=True)` on CUDA (sort-based, the same sums every
+  run), a flat `index_add_` on the CPU, where torch's `index_put_` adds
+  repeated indices in the order its threads take them, so that a CPU run
+  on fixed inputs gave other bits, and once a non-finite f32 BA step, from
+  run to run (ROADMAP C8). CUDA and the CPU add in different orders, so
+  f32 results differ from the CPU's in the last bits.
 - `matfree_pcg` never builds H: H·v streams over the cached factor
   Jacobians; the preconditioner is batched [N, t, t] inverses.
 - Schur eliminates the LAST group, whose diagonal blocks are independent
   (the BA landmarks): batched [N, t, t] inverses and two dense products
-  (full FP32: TF32 is never turned on here), then the retained system goes
+  (full FP32, as every product here), then the retained system goes
   to `_reduced_solve`, which routes to the blocked-Cholesky kernel
   (`ops/cholesky.py`, kernel B4) as the JAX package routes to its Pallas
   kernel.
+- `solve` and `solve_device`'s step run under `full_fp32_matmul`: float32
+  products at full precision whatever the caller's
+  `torch.set_float32_matmul_precision` (the North star's numerics rule; a
+  guard the JAX package's solver does not have, ROADMAP C7).
 - `solve` runs the LM loop on the host, with the reference's termination
   semantics; each PCG `while_loop` is a Python loop with the same test.
 - `solve_device` keeps the whole LM on the device (dense or matfree_pcg):
@@ -46,7 +54,7 @@ from typing import NamedTuple
 import torch
 
 from rust_robotics_tpu_torch.nlls.problem import FactorBlock, Problem
-from rust_robotics_tpu_torch.nlls.tridiag import TERMINATION_NAMES
+from rust_robotics_tpu_torch.nlls.tridiag import TERMINATION_NAMES, full_fp32_matmul
 from rust_robotics_tpu_torch.ops.cholesky import cholesky_solve_blocked
 from rust_robotics_tpu_torch.ops.smallmat import inv_spd_small
 
@@ -147,6 +155,23 @@ def _block_jacobians(problem: Problem, block: FactorBlock, gv: dict):
     return r, list(jacs)
 
 
+def scatter_add_(out, index, values):
+    """out[index] += values in place, summing repeated indices; index is a
+    tuple of index tensors over out's leading dims, as `index_put_` takes
+    it. Deterministic on both devices: `index_put_(accumulate=True)` on
+    CUDA (sort-based), a flat `index_add_` on the CPU (torch's CPU
+    `index_put_` accumulates in thread order). Returns out."""
+    if out.is_cuda:
+        return out.index_put_(index, values, accumulate=True)
+    if len(index) == 1:
+        return out.index_add_(0, index[0].reshape(-1), values.reshape(-1, *out.shape[1:]))
+    flat = index[0]
+    for k in range(1, len(index)):
+        flat = flat * out.shape[k] + index[k]
+    out.view(-1).index_add_(0, flat.reshape(-1), values.reshape(-1))
+    return out
+
+
 def _tangent_rows(offset, idx, tdim):
     """Global rows [F, tdim] of the variables idx [F] of a group at offset."""
     return (offset + idx.long() * tdim)[:, None] + torch.arange(tdim, device=idx.device)[None, :]
@@ -183,12 +208,12 @@ def _linearize_dense(problem: Problem, values_tuple, dtype):
         for k_i, gname_i in enumerate(block.groups):
             rows = _tangent_rows(offsets[gname_i], block.indices[:, k_i], groups[gname_i].tdim)
             g_contrib = w[:, None] * torch.einsum("fri,fr->fi", jacs[k_i], wr)
-            grad.index_put_((rows,), g_contrib, accumulate=True)
+            scatter_add_(grad, (rows,), g_contrib)
             for k_j, gname_j in enumerate(block.groups):
                 cols = _tangent_rows(offsets[gname_j], block.indices[:, k_j],
                                      groups[gname_j].tdim)
                 blk = w[:, None, None] * torch.einsum("fri,frj->fij", jacs[k_i], lam_j[k_j])
-                h.index_put_((rows[:, :, None], cols[:, None, :]), blk, accumulate=True)
+                scatter_add_(h, (rows[:, :, None], cols[:, None, :]), blk)
 
     # fixed variables: unit diagonal, zero gradient (h is this call's own
     # tensor, so its diagonal is updated in place)
@@ -232,13 +257,11 @@ def _linearize_matfree(problem: Problem, values_tuple, dtype):
         cache.append((tuple(jacs), w))
         for k_i, gname_i in enumerate(block.groups):
             rows = _tangent_rows(offsets[gname_i], block.indices[:, k_i], groups[gname_i].tdim)
-            grad.index_put_((rows,), w[:, None] * torch.einsum("fri,fr->fi", jacs[k_i], wr),
-                            accumulate=True)
+            scatter_add_(grad, (rows,), w[:, None] * torch.einsum("fri,fr->fi", jacs[k_i], wr))
             lam_jk = (jacs[k_i] if block.information is None
                       else torch.einsum("fij,fjk->fik", block.information, jacs[k_i]))
             contrib = w[:, None, None] * torch.einsum("fri,frj->fij", jacs[k_i], lam_jk)
-            diag_blocks[gname_i].index_put_((block.indices[:, k_i].long(),), contrib,
-                                            accumulate=True)
+            scatter_add_(diag_blocks[gname_i], (block.indices[:, k_i].long(),), contrib)
 
     fixed_diag = _fixed_rows(problem)
     for g in problem.groups:
@@ -338,8 +361,7 @@ def _solve_matfree_pcg(problem: Problem, cache, grad, fixed_diag, diag_blocks, d
                       else torch.einsum("fij,fj->fi", block.information, jv))
             for k, gname in enumerate(block.groups):
                 rows = _tangent_rows(offsets[gname], block.indices[:, k], jacs[k].shape[-1])
-                out.index_put_((rows,), w[:, None] * torch.einsum("fri,fr->fi", jacs[k], lam_jv),
-                               accumulate=True)
+                scatter_add_(out, (rows,), w[:, None] * torch.einsum("fri,fr->fi", jacs[k], lam_jv))
         return out
 
     return pcg(hvp, precond, -grad, max_iter, tol)
@@ -426,12 +448,15 @@ def _apply_increment(problem: Problem, values_tuple, delta):
     return tuple(new_values)
 
 
+@full_fp32_matmul()
 def solve(problem: Problem, config: SolverConfig = SolverConfig()):
     """Run the solver; returns (solved Problem, SolverSummary).
 
     The LM loop runs on the host, with the reference's termination
     semantics (solver.rs:81-188); each iteration reads the gradient's max,
-    the step's norm and the trial cost back to the host.
+    the step's norm and the trial cost back to the host. Every route runs
+    with float32 products at full precision (TF32 off), whatever the
+    caller's `torch.set_float32_matmul_precision`.
     """
     values = problem.values()
     dtype = values[0].dtype
@@ -562,6 +587,7 @@ def device_lm_start(problem: Problem, config: SolverConfig = SolverConfig()):
             iters = one
         return grad, delta, iters
 
+    @full_fp32_matmul()
     def step(s: DeviceLMState) -> DeviceLMState:
         live = ~s.done
         grad, delta, lin_iters = lin_and_solve(s.values, s.damping)

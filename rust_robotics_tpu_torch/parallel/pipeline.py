@@ -14,10 +14,10 @@ windows, e.g. pose-graph fusion) serialize only along their own stage row.
 The result is the sequential composition's: the same calls in the same
 order per dependency chain, so bitwise equal to `run_sequential`.
 
-The JAX package's second mechanism, `pipeline_shard_map` (a systolic ring
-of `ppermute` shifts inside one compiled program), is a multi-device
-collective; it belongs with the port's distributed code, on
-`torch.distributed`, and is not here.
+`pipeline_shard_map` is the systolic pipeline for homogeneous stages: S
+ranks on a 'pipe' mesh axis, microbatches streaming through ring shifts
+(`parallel/mesh.py::ppermute` on `torch.distributed`), with no host
+schedule between the ranks.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 
 from rust_robotics_tpu_torch._device import resolve_device
+from rust_robotics_tpu_torch.parallel.mesh import axis_index, axis_size, broadcast, ppermute
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,3 +117,31 @@ def run_sequential(stages: Sequence[Stage], windows: List[Any]):
                 x = st.fn(x)
         outs.append(x)
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the systolic pipeline (ring shifts over a mesh axis)
+# ---------------------------------------------------------------------------
+
+def pipeline_shard_map(stage_fn: Callable, xs, mesh, axis_name: str = "pipe"):
+    """Stream microbatches through the S ranks of `axis_name`.
+
+    stage_fn(stage_index, x) -> y must keep x's shape and dtype. xs [W, ...]
+    (the same on every rank) enter at stage 0. Each rank runs W + S − 1
+    ticks of (inject → its stage → shift one rank right along the ring);
+    window i leaves the last stage at tick i + S − 1, and the last stage's
+    outputs are broadcast, so every rank returns [W, ...]:
+    stage_{S-1}(...stage_0(x)) per microbatch (JAX `pipeline_shard_map`)."""
+    s = axis_size(mesh, axis_name)
+    stage = axis_index(mesh, axis_name)
+    w = xs.shape[0]
+    ring = [(i, (i + 1) % s) for i in range(s)]
+    h = torch.zeros_like(xs[0])
+    outs = []
+    for t in range(w + s - 1):
+        x = xs[t if t < w else 0] if stage == 0 else h
+        y = stage_fn(stage, x)
+        h = ppermute(y, mesh, axis_name, ring)
+        if t >= s - 1:
+            outs.append(y)
+    return broadcast(torch.stack(outs), mesh, axis_name, src=s - 1)

@@ -210,3 +210,41 @@ def test_general_graph_implicit_vjp_float32_stays_float32():
         retract_fn=tpg.se2_retract, tdim=3)
     assert loss.dtype == torch.float32 and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", ["chain", "grid"])
+def test_float32_ift_and_solve_ignore_tf32_on_cuda(topology):
+    """The f32 IFT (chain or banded) and the f32 dense `solve` give the same
+    bits with TF32 allowed (`set_float32_matmul_precision("high")`) as
+    without: both run under `full_fp32_matmul` (ROADMAP C7). The CPU has no
+    TF32, so only a card can show a difference."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CPU has no TF32 (chip_smoke.py phase 16 runs it)")
+    graph, solver = (_chain_with_loops(), "chain_direct") if topology == "chain" else (
+        synthesize_grid(10, 8, 4), "banded_direct")
+    _, initial, ef, et, meas, info = graph
+    poses, _ = tpg.optimize_pose_graph_2d(initial, ef, et, meas, info, device="cuda", dtype=F64,
+                                          max_iterations=40, tolerance=1e-12,
+                                          linear_solver=solver)
+    prob = tpg.build_pose_graph_2d(*(torch.tensor(np.asarray(a), device="cuda") for a in (
+        np.asarray(initial, np.float32), np.asarray(ef), np.asarray(et),
+        np.asarray(meas, np.float32), np.asarray(info, np.float32))))
+
+    def run():
+        _, g = ti.pose_graph_implicit_vjp(poses.float(), ef, et, meas, info,
+                                          lambda p: torch.sum(p[-1] ** 2), device="cuda",
+                                          dtype=torch.float32)
+        solved, _ = tn.solve(prob, tn.SolverConfig(max_iterations=5))
+        return g, solved.groups[0].values
+
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want = run()
+        torch.set_float32_matmul_precision("high")
+        got = run()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -354,3 +354,30 @@ def test_linearization_matches_jax():
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=1e-10)
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=1e-10)
     np.testing.assert_allclose(float(tc), float(jc), rtol=1e-12)
+
+
+def test_scatter_add_is_reproducible_and_sums_like_index_put():
+    """ROADMAP C8: torch's CPU `index_put_(accumulate=True)` adds repeated
+    indices in the order its threads take them, so the f32 BA's Hessian, and
+    with it a whole VIO run, changed from run to run on fixed inputs (and
+    once turned a landmark block indefinite). `scatter_add_` sums in a fixed
+    order: repeated calls give the same bits (these inputs gave five
+    different results in five repeats of `index_put_` on 8 threads), equal
+    to `index_put_`'s sums within rounding."""
+    gen = torch.Generator().manual_seed(8)
+    n, f = 2000, 200_000
+    idx = torch.randint(0, n, (f,), generator=gen)
+    vals = torch.randn(f, generator=gen)
+    rows = torch.randint(0, 300, (f // 10, 3), generator=gen)
+    cols = torch.randint(0, 300, (f // 10, 3), generator=gen)
+    blocks = torch.randn(f // 10, 3, 3, generator=gen)
+    for make, index, v in ((lambda: torch.zeros(n), (idx,), vals),
+                           (lambda: torch.zeros(300, 300), (rows[:, :, None], cols[:, None, :]),
+                            blocks),
+                           (lambda: torch.zeros(300, 3, 3), (rows[:, 0],), blocks)):
+        first = tsolver.scatter_add_(make(), index, v)
+        for _ in range(5):
+            assert torch.equal(tsolver.scatter_add_(make(), index, v), first)
+        want = make().double().index_put_(index, v.double(), accumulate=True)
+        np.testing.assert_allclose(first.double().numpy(), want.numpy(), rtol=0, atol=1e-4)
+

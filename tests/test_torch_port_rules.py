@@ -79,6 +79,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     from rust_robotics_tpu_torch.parallel.pipeline import Stage, run_pipelined
     from rust_robotics_tpu_torch.slam.vio import run_vio_pipeline
     from rust_robotics_tpu_torch.slam.vio_pp import make_stages, run_vio_pipeline_windowed
+    from rust_robotics_tpu_torch.train import init_params, synthesize_batch
 
     blocked = np.eye(4, 3, dtype=bool)
     ox, oy = np.array([0.0, 4.0, 4.0]), np.array([0.0, 0.0, 3.0])
@@ -165,6 +166,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
             np.zeros((2, 9)), np.zeros((2, 6)), **kw)[0],
         "convert.vio_window_from_numpy": lambda **kw: convert.vio_window_from_numpy(
             window, **kw)["obs_mask"],
+        "init_params": lambda **kw: init_params(**kw).log_q,
+        "synthesize_batch": lambda **kw: synthesize_batch(0, batch=2, steps=2, num_landmarks=2,
+                                                          **kw)[2],
     }
     for name, call in host_data_calls.items():
         if torch.cuda.is_available():
@@ -173,3 +177,29 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
         assert call(device="cpu").device.type == "cpu", name
+
+
+def test_distributed_entry_points_need_nccl_unless_asked_for_the_cpu():
+    """The mesh runs NCCL on the card by default and never falls back to
+    gloo: without a card (or NCCL) the default raises; device_type="cpu"
+    gives a gloo mesh."""
+    import torch.distributed as dist
+
+    from rust_robotics_tpu_torch.parallel import mesh as pmesh
+    from rust_robotics_tpu_torch.parallel.sharded_nlls import solve_sharded
+
+    if torch.cuda.is_available() and dist.is_nccl_available():
+        pytest.skip("a card with NCCL is present")
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        pmesh.init_process_group()
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        pmesh.make_mesh()
+    with pytest.raises(ValueError, match="needs a mesh"):
+        solve_sharded(None)
+    pmesh.init_process_group(device_type="cpu")
+    try:
+        mesh = pmesh.make_mesh(device_type="cpu")
+        assert dist.get_backend() == "gloo" and tuple(mesh.shape) == (1, 1)
+        assert pmesh.mesh_device(mesh).type == "cpu"
+    finally:
+        dist.destroy_process_group()
