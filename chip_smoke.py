@@ -158,8 +158,22 @@ any failure exits non-zero before the final line.
     f32, bitwise equal to `scan_odometry_serial`; (e) `pipeline_shard_map`
     of 64 microbatches, equal to the stage composition; the collectives of
     each part counted; then one JSON line `{"parallel": {...}}`;
-20. one JSON line `{"kernels": [...]}`;
-21. the last line, `{"ok": true, "device": {...}}`.
+20. the SPIKE programs (no kernel on their path) on a one-rank NCCL mesh, at
+    the dryrun's full width, each part timed and its collectives counted by
+    kind: (a) program 6, the SPIKE-partitioned chain LM on the 10k chain
+    with its closures in f32 (the dryrun's LM settings and gates: RMSE
+    against the oracle's, poses within 2e-3 of `solve_chain_lm`; warm s
+    against `solve_chain_lm`'s; one LM step under sync debug mode "error"
+    and its launches and idle share), and the f64 1000-pose chain within
+    1e-8 of `solve_chain_lm`; (b) program 7, `solve_general_graph_sharded`
+    on the dryrun's 9x8 grid in f64 (within 1e-9 of `solve_general_graph`)
+    and on the 100x100 grid in f32, both solves cut to 3 LM iterations
+    (within 5e-4; s an iteration each); (c) program 8, the sharded IFT of
+    (a)'s solution re-solved in f64 against `chain_implicit_vjp` (loss rel
+    1e-12, gradients 1e-7 of max|g|), the f32 call timed; then one JSON
+    line `{"parallel_spike": {...}}`;
+21. one JSON line `{"kernels": [...]}`;
+22. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -167,9 +181,11 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -254,7 +270,7 @@ from rust_robotics_tpu_torch.slam.bundle_adjustment import (
     bundle_adjust,
 )
 from rust_robotics_tpu_torch.core import lie_np
-from rust_robotics_tpu_torch.nlls.implicit import pose_graph_implicit_vjp
+from rust_robotics_tpu_torch.nlls.implicit import chain_implicit_vjp, pose_graph_implicit_vjp
 from rust_robotics_tpu_torch.slam.ekf_slam import ekf_slam_step, init_ekf_slam
 from rust_robotics_tpu_torch.slam.fastslam import estimate as fs_estimate
 from rust_robotics_tpu_torch.slam.fastslam import fastslam1_step, fastslam2_step, init_fastslam
@@ -279,6 +295,13 @@ from rust_robotics_tpu_torch.parallel.sharded_filters import (
     pf_bank_step,
 )
 from rust_robotics_tpu_torch.parallel.sharded_nlls import solve_sharded
+from rust_robotics_tpu_torch.parallel.sharded_banded import solve_general_graph_sharded
+from rust_robotics_tpu_torch.parallel.sharded_tridiag import (
+    _DENSE_INTERFACE_MAX,
+    make_sharded_chain_ift,
+    make_sharded_chain_solver,
+    sharded_chain_lm_start,
+)
 from rust_robotics_tpu_torch.parallel.sharded_scan import (
     make_sharded_scan_odometry,
     scan_odometry_serial,
@@ -3152,6 +3175,242 @@ def parallel_phase(card, device):
     return out
 
 
+# The SPIKE programs (phase 20): the dryrun's programs 6-8
+# (`__graft_entry__.py::dryrun_multichip`) on a one-rank NCCL mesh, at their
+# full width. One card holds one rank, so the interface system is the
+# rank's own 2t = 6 unknowns (dense) for the chain and 2·s·t for the fat
+# blocks (block-Thomas), and a rank with no neighbour computes no spike.
+# (a) program 6: the 10k chain with its 99 closures, f32, the dryrun's LM
+# settings (__graft_entry__.py:231-233), held at the dryrun's gates: RMSE <
+# 3·max(oracle RMSE, 1e-4) and poses within 2e-3 of `solve_chain_lm` on the
+# card; then the f64 1000-pose chain within SPIKE_F64_ATOL of
+# `solve_chain_lm` with the same termination (the two differ by the
+# capacitance factor, LU against Cholesky, and their summation order:
+# ~1e-14 on the CPU).
+SPIKE_CHAIN, SPIKE_CHAIN_F64 = 10000, 1000
+SPIKE_LM = dict(max_iterations=8, gradient_tolerance=1e-8, step_tolerance=1e-8,
+                cost_tolerance=1e-16)
+SPIKE_POSE_ATOL, SPIKE_F64_ATOL = 2e-3, 1e-8
+# (b) program 7: the dryrun's 9x8 grid with 4 closures, f64, its LM settings,
+# within SPIKE_GRID_SMALL_ATOL of `solve_general_graph`; bench.py's 100x100
+# grid with 50 closures (PG_GRID), f32, both solves cut to
+# SPIKE_GRID_ITERATIONS LM iterations (phase 15 runs it whole), poses within
+# the dryrun's atol 5e-4.
+SPIKE_GRID_SMALL, SPIKE_GRID_SMALL_KW = (9, 8, 4), dict(max_iterations=12, tolerance=1e-9)
+SPIKE_GRID_SMALL_ATOL, SPIKE_GRID_ITERATIONS, SPIKE_GRID_ATOL = 1e-9, 3, 5e-4
+# (c) program 8: the sharded IFT of (a)'s solution, re-solved in f64, against
+# `chain_implicit_vjp` on the card: the loss within rel 1e-12, the gradients
+# within IFT_CUDA_CPU_REL of max|g| (phase 16's limit for two orders of the
+# same undamped solve, κ ~ 1e8), the last odometry edge's gradient above
+# IFT_MIN_GRAD; the f32 call timed and held to finiteness only (C1: JAX's
+# f32 sharded IFT at this size has no accurate digits).
+SPIKE_IFT_LOSS_REL = 1e-12
+SE2 = dict(residual_fn=se2_edge_residual, retract_fn=se2_retract, tdim=3)
+
+
+def spike_chain_part(card, device, mesh):
+    """(a) program 6. Returns (its numbers, the f32 solution)."""
+    truth, values0, args = chain_problem_on(device, torch.float32, SPIKE_CHAIN)
+    solve = make_sharded_chain_solver(mesh, "data", **SE2, **SPIKE_LM)
+    oracle = [timed(lambda: tridiag.solve_chain_lm(values0, *args, **SE2, **SPIKE_LM))
+              for _ in range(2)]
+    oracle_s, (ref, ref_summary) = min(o[0] for o in oracle), oracle[-1][1]
+    _collectives_reset()
+    steps = tridiag.lm_run.steps
+    cold_s, _ = timed(lambda: solve(values0, *args))
+    iterations = tridiag.lm_run.steps - steps
+    collectives = dict(pmesh.COLLECTIVES)
+    warm = [timed(lambda: solve(values0, *args)) for _ in range(2)]
+    warm_s, (values, summary) = min(w[0] for w in warm), warm[-1][1]
+    err = pose_graph_bench.rmse(values.cpu().numpy(), truth)
+    err_or = pose_graph_bench.rmse(ref.cpu().numpy(), truth)
+    diff = float((values - ref).abs().max())
+    per_iteration = {k: v / iterations for k, v in collectives.items()}
+    print(f"SPIKE {SPIKE_CHAIN} chain f32 on {card}, {pmesh.axis_size(mesh, 'data')}-rank "
+          f"{torch.distributed.get_backend()} mesh: RMSE {err!r} (gate "
+          f"< 3 x max({err_or!r}, 1e-4)); poses max|diff| to solve_chain_lm {diff!r} (atol "
+          f"{SPIKE_POSE_ATOL}); warm {warm_s!r} s (best of 2), cold {cold_s!r} s; "
+          f"solve_chain_lm {oracle_s!r} s; {iterations} iterations, {summary}; oracle "
+          f"{ref_summary}; collectives a solve {collectives}, an iteration {per_iteration}")
+    if not (math.isfinite(err) and err < 3 * max(err_or, 1e-4) and diff <= SPIKE_POSE_ATOL):
+        fail(f"SPIKE 10k chain: RMSE {err!r} (oracle {err_or!r}), max|diff| {diff!r}")
+    state, step = sharded_chain_lm_start(
+        mesh, "data", values0, *args, **SE2,
+        **{k: v for k, v in SPIKE_LM.items() if k != "max_iterations"})
+    no_read_in("SPIKE chain, one LM step", lambda: step(state))
+    one_step = device_launches(f"SPIKE {SPIKE_CHAIN} chain, one LM step (f32) on {card}",
+                               lambda: step(state))
+    del state, step
+
+    _, v64, args64 = chain_problem_on(device, torch.float64, SPIKE_CHAIN_F64)
+    f64_s, (values64, s64) = timed(lambda: solve(v64, *args64))
+    ref64, r64 = tridiag.solve_chain_lm(v64, *args64, **SE2, **SPIKE_LM)
+    diff64 = float((values64 - ref64).abs().max())
+    print(f"SPIKE {SPIKE_CHAIN_F64} chain f64 on {card}: {s64} in {f64_s!r} s; solve_chain_lm "
+          f"{r64}; poses max|diff| {diff64!r} (atol {SPIKE_F64_ATOL})")
+    if not (diff64 <= SPIKE_F64_ATOL and int(s64.termination_code) == int(r64.termination_code)):
+        fail(f"SPIKE f64 chain against solve_chain_lm: {s64} vs {r64}, max|diff| {diff64!r}")
+    return {"poses": SPIKE_CHAIN, "rmse": err, "oracle_rmse": err_or, "max_abs_diff": diff,
+            "warm_s": warm_s, "cold_s": cold_s, "solve_chain_lm_s": oracle_s,
+            "iterations": iterations, "summary": {k: float(v) for k, v in summary._asdict().items()},
+            "collectives_per_solve": collectives, "collectives_per_iteration": per_iteration,
+            "one_step": one_step,
+            "f64_1000": {"seconds": f64_s, "max_abs_diff": diff64,
+                         "summary": {k: float(v) for k, v in s64._asdict().items()},
+                         "oracle": {k: float(v) for k, v in r64._asdict().items()}}}, values
+
+
+def spike_grid_part(card, device, mesh):
+    """(b) program 7: the dryrun's 9x8 grid in f64, the 100x100 grid in f32."""
+    out = {}
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_grid(*SPIKE_GRID_SMALL)
+    fixed = np.zeros(len(truth), bool)
+    fixed[0] = True
+    init64 = torch.tensor(initial, dtype=torch.float64, device=device)
+    small_s, (got, summary, plan) = timed(lambda: solve_general_graph_sharded(
+        init64, ef, et, meas, info, fixed, mesh, "data", **SE2, **SPIKE_GRID_SMALL_KW))
+    want, want_summary, _ = banded.solve_general_graph(init64, ef, et, meas, info, fixed, **SE2,
+                                                       **SPIKE_GRID_SMALL_KW)
+    diff = float((got - want).abs().max())
+    same = all(int(a) == int(b) for a, b in ((summary.iterations, want_summary.iterations),
+                                             (summary.termination_code,
+                                              want_summary.termination_code)))
+    print(f"SPIKE grid {SPIKE_GRID_SMALL} f64 on {card}: {summary} in {small_s!r} s; "
+          f"solve_general_graph {want_summary}; max|diff| {diff!r} (atol "
+          f"{SPIKE_GRID_SMALL_ATOL}); supernode {plan.supernode}, {plan.num_super} supernodes")
+    if not (diff <= SPIKE_GRID_SMALL_ATOL and same):
+        fail(f"SPIKE 9x8 grid: max|diff| {diff!r}, {summary} vs {want_summary}")
+    out["grid_9x8_f64"] = {"seconds": small_s, "max_abs_diff": diff,
+                           "iterations": int(summary.iterations)}
+
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_grid(*PG_GRID)
+    fixed = np.zeros(len(truth), bool)
+    fixed[0] = True
+    init32 = torch.tensor(initial, dtype=torch.float32, device=device)
+    kw = dict(**SE2, max_iterations=SPIKE_GRID_ITERATIONS, tolerance=PG_TOLERANCE)
+    _collectives_reset()
+    sharded_s, (got, summary, plan) = timed(lambda: solve_general_graph_sharded(
+        init32, ef, et, meas, info, fixed, mesh, "data", **kw))
+    collectives = dict(pmesh.COLLECTIVES)
+    plain_s, (want, want_summary, _) = timed(lambda: banded.solve_general_graph(
+        init32, ef, et, meas, info, fixed, **kw))
+    diff = float((got - want).abs().max())
+    # two unsharded runs differ by the order of the fat-block scatter's
+    # atomic adds: the floor any comparison of this solve sits on
+    again = banded.solve_general_graph(init32, ef, et, meas, info, fixed, **kw)[0]
+    noise = float((again - want).abs().max())
+    its, want_its = int(summary.iterations), int(want_summary.iterations)
+    width = 2 * pmesh.axis_size(mesh, "data") * plan.supernode * 3
+    print(f"SPIKE grid {PG_GRID} f32 on {card}, cut to {SPIKE_GRID_ITERATIONS} LM iterations: "
+          f"sharded {sharded_s!r} s ({sharded_s / its!r} s an iteration), solve_general_graph "
+          f"{plain_s!r} s ({plain_s / want_its!r} s an iteration); max|diff| {diff!r} (atol "
+          f"{SPIKE_GRID_ATOL}; two unsharded runs {noise!r} apart); interface 2·D·s·t = {width} "
+          f"({'dense' if width <= _DENSE_INTERFACE_MAX else 'block-Thomas'}); {summary}; "
+          f"collectives {collectives}; RMSE {pose_graph_bench.rmse(got.cpu().numpy(), truth)!r}")
+    if not diff <= SPIKE_GRID_ATOL:
+        fail(f"SPIKE 100x100 grid: max|diff| {diff!r}")
+    out["grid_100x100_f32"] = {
+        "iterations": its, "sharded_s": sharded_s, "solve_general_graph_s": plain_s,
+        "sharded_s_per_iteration": sharded_s / its,
+        "solve_general_graph_s_per_iteration": plain_s / want_its, "max_abs_diff": diff,
+        "unsharded_run_to_run": noise,
+        "interface_width": width, "collectives": collectives,
+        "plan": {"supernode": plan.supernode, "num_super": plan.num_super}}
+    return out
+
+
+def spike_ift_part(card, device, mesh, values32):
+    """(c) program 8 on (a)'s solution: f64 against chain_implicit_vjp, f32
+    timed."""
+    truth, _, args64 = chain_problem_on(device, torch.float64, SPIKE_CHAIN)
+    resolve_s, (values64, s64) = timed(lambda: make_sharded_chain_solver(
+        mesh, "data", **SE2, **SPIKE_LM)(values32.double(), *args64))
+    target = torch.tensor(truth + 0.05, dtype=torch.float64, device=device)
+
+    def loss_fn(v):
+        return torch.sum((v[:, :2] - target[:, :2].to(v.dtype)) ** 2)
+
+    ift = make_sharded_chain_ift(mesh, "data", **SE2, loss_fn=loss_fn)
+    _collectives_reset()
+    cold_s, _ = timed(lambda: ift(values64, *args64))
+    collectives = dict(pmesh.COLLECTIVES)
+    warm_s, got = timed(lambda: ift(values64, *args64))
+    plain_s, want = timed(lambda: chain_implicit_vjp(values64, *args64[:-1], args64[-1],
+                                                     loss_fn, **SE2))
+    loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    scale = max(float(want[1].abs().max()), float(want[2].abs().max()))
+    diff = max(float((got[1] - want[1]).abs().max()), float((got[2] - want[2]).abs().max()))
+    last = SPIKE_CHAIN - 2
+    g_last = got[1][last].tolist()
+    _, _, args32 = chain_problem_on(device, torch.float32, SPIKE_CHAIN)
+    f32_s, g32 = timed(lambda: ift(values32, *args32))
+    finite32 = all(bool(torch.isfinite(g).all()) for g in g32)
+    print(f"SPIKE IFT {SPIKE_CHAIN} chain f64 on {card}: re-solve {resolve_s!r} s ({s64}); "
+          f"sharded IFT cold {cold_s!r} s, warm {warm_s!r} s; chain_implicit_vjp {plain_s!r} s; "
+          f"loss rel {loss_rel!r} (limit {SPIKE_IFT_LOSS_REL}); gradients max|diff| {diff!r} "
+          f"(limit {IFT_CUDA_CPU_REL} x max|g| {scale!r}); d_chain_meas[{last}] {g_last}; "
+          f"collectives {collectives}; f32 {f32_s!r} s, finite {finite32}")
+    if not (loss_rel <= SPIKE_IFT_LOSS_REL and diff <= IFT_CUDA_CPU_REL * scale
+            and max(abs(g) for g in g_last[:2]) > IFT_MIN_GRAD and finite32):
+        fail(f"SPIKE IFT: loss rel {loss_rel!r}, max|diff| {diff!r} of {scale!r}, "
+             f"g[{last}] {g_last}, f32 finite {finite32}")
+    return {"resolve_s": resolve_s, "cold_s": cold_s, "warm_s": warm_s,
+            "chain_implicit_vjp_s": plain_s, "loss_rel_err": loss_rel,
+            "max_abs_diff": diff, "max_abs_grad": scale, "d_chain_meas_last": g_last,
+            "collectives": collectives, "f32_s": f32_s, "f32_finite": finite32}
+
+
+def spike_phase(card, device, rank=0, world=1, store=None):
+    """The SPIKE programs on one NCCL rank (phase 20), or as rank `rank` of
+    `world` (`spike_ranks`)."""
+    pmesh.init_process_group(rank, world, store, device_type=device.type)
+    out = {"card": card, "backend": torch.distributed.get_backend(), "world": world}
+    try:
+        mesh = pmesh.make_mesh(axis_names=("data",), device_type=device.type)
+        start = time.perf_counter()
+        out["chain"], values32 = spike_chain_part(card, device, mesh)
+        out["grid"] = spike_grid_part(card, device, mesh)
+        out["ift"] = spike_ift_part(card, device, mesh, values32)
+        out["phase_s"] = time.perf_counter() - start
+        print(f"SPIKE programs: {out['phase_s']!r} s")
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
+def _spike_rank(rank, world, cards, store_path, out_path):
+    """Rank `rank` of `spike_ranks`, on card `rank`; only rank 0 prints."""
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = spike_phase(cards[rank], torch.device("cuda", rank), rank, world,
+                      torch.distributed.FileStore(store_path, world))
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+
+
+def spike_ranks(world=4):
+    """Phase 20's SPIKE programs with their rows split over `world` NCCL
+    ranks, one card each, every part held to the same unsharded functions
+    on each rank's card: `python3 -c 'import chip_smoke as cs;
+    cs.spike_ranks(4)'` on a host with `world` cards. Prints rank 0's lines
+    and one JSON line `{"parallel_spike_ranks": {...}}`."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        fail(f"spike_ranks({world}) needs {world} CUDA cards")
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    print(f"cards: {cards}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "rank0.json")
+        torch.multiprocessing.spawn(_spike_rank, args=(world, cards, os.path.join(tmp, "store"),
+                                                       out_path), nprocs=world, join=True)
+        with open(out_path) as f:
+            print(json.dumps({"parallel_spike_ranks": json.load(f)}))
+
+
 _VIEW_OPS = {"empty", "empty_strided", "as_strided", "view", "_reshape_alias", "resize_",
              "detach", "lift_fresh", "alias", "_unsafe_view", "expand", "slice", "select", "t",
              "transpose", "permute", "unsqueeze", "squeeze", "item", "_local_scalar_dense",
@@ -3886,7 +4145,15 @@ def main() -> int:
     # 19. the distributed programs on one NCCL rank (no kernel on their path)
     print(json.dumps({"parallel": parallel_phase(card, device)}))
 
-    # 20. the kernels line
+    # 20. the SPIKE programs on one NCCL rank (no kernel on their path)
+    for fn in counted:
+        fn.launches = 0
+    spike_out = spike_phase(card, device)
+    spike_out["kernel_launches"] = {fn.__name__: fn.launches for fn in counted}
+    print(f"kernel launches in the SPIKE programs: {spike_out['kernel_launches']}")
+    print(json.dumps({"parallel_spike": spike_out}))
+
+    # 21. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -4006,7 +4273,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 21. the result
+    # 22. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

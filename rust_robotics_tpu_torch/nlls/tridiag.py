@@ -652,18 +652,29 @@ def lm_state(values, cost, initial_damping):
 
 
 def lm_step(linearize, lin_solve, apply_step, cost_only, gradient_tolerance, step_tolerance,
-            cost_tolerance):
+            cost_tolerance, reduce=None):
     """One LM iteration per graph (solver.rs:81-188): linearise, gradient
     check, solve, step check, trial, accept (damping ×0.3, cost-change
     check) or reject (damping ×10). A graph that is done freezes. Reads
-    nothing back from the device."""
+    nothing back from the device.
+
+    reduce(x, op) -> x, op "max", "min" or "sum": for a step whose ranks
+    each hold a shard of the rows (parallel/sharded_tridiag.py), the
+    gradient's largest entry, the increment's finiteness and its squared
+    norm reduced over the ranks, so that every rank decides alike; None
+    (one process) reduces nothing."""
     def step(s: LMState) -> LMState:
         with full_fp32_matmul():
             grad, b, c, jac_loop, diag_loop, _ = linearize(s.values)
-            grad_conv = grad.abs().amax(dim=(-2, -1)) <= gradient_tolerance
+            gmax = grad.abs().amax(dim=(-2, -1))
             delta = lin_solve(grad, b, c, jac_loop, diag_loop, s.damping)
-            bad = ~torch.isfinite(delta).all(dim=-1).all(dim=-1)
-            step_conv = torch.sqrt(_tree_sum(delta * delta)) <= step_tolerance
+            finite = torch.isfinite(delta).all(dim=-1).all(dim=-1)
+            sq = _tree_sum(delta * delta)
+            if reduce is not None:
+                gmax, finite, sq = reduce(gmax, "max"), reduce(finite, "min"), reduce(sq, "sum")
+            grad_conv = gmax <= gradient_tolerance
+            bad = ~finite
+            step_conv = torch.sqrt(sq) <= step_tolerance
             trial = apply_step(s.values, delta)
             trial_cost = cost_only(trial)
         # ~done: a graph that has finished freezes, so each graph of a

@@ -3,8 +3,11 @@ the GPipe schedule of heterogeneous stages (`pipeline.py`), and the SPMD
 programs on `torch.distributed`: the mesh and its collectives (`mesh.py`),
 the sharded particle filters (`sharded_filters.py`), the factor-sharded
 matrix-free PCG (`sharded_nlls.py`), ring-halo scan odometry
-(`sharded_scan.py`), the systolic pipeline (`pipeline_shard_map`), and the
-SPIKE solvers' accounting (`accounting.py`)."""
+(`sharded_scan.py`), the systolic pipeline (`pipeline_shard_map`), the
+SPIKE-partitioned chain LM and its IFT (`sharded_tridiag.py`), the SPIKE
+fat-block ladder for general graphs (`sharded_banded.py`) and their
+accounting (`accounting.py`); `fake_cluster.py` runs them as one process
+per rank."""
 
 from rust_robotics_tpu_torch.parallel.mesh import (  # noqa: F401
     gather_shards,

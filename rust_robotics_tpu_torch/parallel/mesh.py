@@ -11,7 +11,7 @@ process group:
 | JAX | here |
 |---|---|
 | `Mesh` | `torch.distributed.device_mesh.DeviceMesh` (`make_mesh`) |
-| `psum` | `all_reduce` on the axis group (`psum`) |
+| `psum`, `pmax`, `pmin` | `all_reduce` (SUM, MAX, MIN) on the axis group |
 | `all_gather` | `all_gather_into_tensor`, stacked [S, ...] in rank order |
 | `axis_index` | `mesh.get_local_rank(axis)` |
 | `ppermute` | paired sends and receives (`batch_isend_irecv`) |
@@ -122,11 +122,27 @@ def axis_index(mesh: DeviceMesh, axis: str) -> int:
 def psum(x: torch.Tensor, mesh: DeviceMesh, axes) -> torch.Tensor:
     """The sum of x over the ranks of one axis or of several (JAX
     `lax.psum`), on every rank. A new tensor; x is left as it was."""
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.SUM)
+
+
+def _all_reduce(x, mesh, axes, op):
     out = x.clone()
     for a in _axes(axes):
-        dist.all_reduce(out, group=mesh.get_group(a))
+        dist.all_reduce(out, op=op, group=mesh.get_group(a))
         COLLECTIVES["all_reduce"] += 1
     return out
+
+
+def pmax(x: torch.Tensor, mesh: DeviceMesh, axes) -> torch.Tensor:
+    """The elementwise maximum of x over the ranks of one axis or of several
+    (JAX `lax.pmax`), on every rank."""
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.MAX)
+
+
+def pmin(x: torch.Tensor, mesh: DeviceMesh, axes) -> torch.Tensor:
+    """The elementwise minimum of x over the ranks of one axis or of several
+    (JAX `lax.pmin`), on every rank."""
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.MIN)
 
 
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor

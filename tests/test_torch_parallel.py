@@ -85,6 +85,10 @@ def test_mesh_shape_and_collectives(runs, world):
         col = [dd * model + m for dd in range(data)]
         assert torch.equal(out["psum_data"], sum(x(r) for r in col))
         assert torch.equal(out["psum_both"], sum(x(r) for r in range(world)))
+        y = lambda r: torch.tensor([-1.0, 1.0, 0.5], dtype=torch.float64) * (r + 1)  # noqa: E731
+        assert torch.equal(out["pmax_data"], torch.stack([y(r) for r in col]).amax(0))
+        assert torch.equal(out["pmin_both"], torch.stack([y(r) for r in range(world)]).amin(0))
+        assert out["pmin_int"].tolist() == [min(col), min(1 - r for r in col)]
         assert torch.equal(out["gather_data"], torch.stack([x(r) for r in col]))
         assert torch.equal(out["ring_left"], x(col[(d + 1) % data]))
         want = x(col[0]) if d == data - 1 else torch.zeros(3, dtype=torch.float64)

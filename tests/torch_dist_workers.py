@@ -85,6 +85,10 @@ def parallel_program(xs_np, scans_np, iterations):
     x = torch.arange(3, dtype=torch.float64) + 10.0 * rank
     out["psum_data"] = pmesh.psum(x, mesh, "data")
     out["psum_both"] = pmesh.psum(x, mesh, ("data", "model"))
+    y = torch.tensor([-1.0, 1.0, 0.5], dtype=torch.float64) * (rank + 1)
+    out["pmax_data"] = pmesh.pmax(y, mesh, "data")
+    out["pmin_both"] = pmesh.pmin(y, mesh, ("data", "model"))
+    out["pmin_int"] = pmesh.pmin(torch.tensor([rank, 1 - rank], dtype=torch.int32), mesh, "data")
     out["gather_data"] = pmesh.all_gather(x, mesh, "data")
     s = pmesh.axis_size(mesh, "data")
     out["ring_left"] = pmesh.ppermute(x, mesh, "data", [(i, (i - 1) % s) for i in range(s)])
@@ -249,4 +253,97 @@ def nlls_program(graphs):
         if name == "circle":
             solved, summary = solve_sharded(prob, SolverConfig(**cfg), both, ("data", "model"))
             out["circle_both_axes"] = (solved.groups[0].values, vars(summary))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the SPIKE-partitioned chain LM and its IFT
+# ---------------------------------------------------------------------------
+
+def se2_kw():
+    from rust_robotics_tpu_torch.slam.pose_graph import se2_edge_residual, se2_retract
+
+    return dict(residual_fn=se2_edge_residual, retract_fn=se2_retract, tdim=3)
+
+
+def chain_args(problem, dtype=torch.float64):
+    """(values0, the other arguments of `solve_chain_lm`) of a problem
+    (initial, chain_meas, chain_info, loop_from, loop_to, loop_meas,
+    loop_info, fixed) of numpy arrays; None infos stay None."""
+    initial, cm, ci, lf, lt, lm, li, fixed = problem
+    f = lambda a: None if a is None else _t(a, dtype)  # noqa: E731
+    return f(initial), (f(cm), f(ci), torch.as_tensor(lf, dtype=torch.int64),
+                        torch.as_tensor(lt, dtype=torch.int64), f(lm), f(li),
+                        torch.as_tensor(fixed))
+
+
+def ift_loss(target):
+    """The IFT's loss: the squared distance of the positions to a target."""
+    target = torch.as_tensor(target)
+
+    def loss_fn(values):
+        return torch.sum((values[:, :2] - target[:, :2]) ** 2)
+    return loss_fn
+
+
+def spike_system_solve(diag, upper, rhs, mesh):
+    """`spike_solve_local` on this rank's rows of the global system,
+    gathered on every rank."""
+    from rust_robotics_tpu_torch.parallel.sharded_tridiag import spike_solve_local
+
+    s, d = pmesh.axis_size(mesh, "data"), pmesh.axis_index(mesh, "data")
+    m = diag.shape[0] // s
+    rows = slice(d * m, (d + 1) * m)
+    a_left = upper[d * m - 1].mT if d > 0 else None
+    c_right = upper[(d + 1) * m - 1] if d < s - 1 else None
+    x = spike_solve_local(diag[rows], upper[d * m:(d + 1) * m - 1], a_left, c_right, rhs[rows],
+                          mesh, "data")
+    return pmesh.gather_shards(x, mesh, "data")
+
+
+def sharded_chain_program(system, problems, lm_kw, ift_cases):
+    """system: (diag, upper, rhs) of numpy arrays for the SPIKE solve
+    alone; problems: {name: chain problem}; each solved by the sharded LM
+    with lm_kw; ift_cases: {name: (problem name, solved values, target)}
+    through the sharded IFT."""
+    from rust_robotics_tpu_torch.parallel.sharded_tridiag import (
+        make_sharded_chain_ift,
+        make_sharded_chain_solver,
+    )
+
+    mesh = pmesh.make_mesh(axis_names=("data",), device_type="cpu")
+    out = {"spike": spike_system_solve(*(_t(a, torch.float64) for a in system), mesh)}
+    solve = make_sharded_chain_solver(mesh, "data", **se2_kw(), **lm_kw)
+    for name, problem in problems.items():
+        values0, args = chain_args(problem)
+        values, summary = solve(values0, *args)
+        out[name] = (values, summary._asdict())
+    for name, (pname, values, target) in ift_cases.items():
+        ift = make_sharded_chain_ift(mesh, "data", **se2_kw(), loss_fn=ift_loss(target))
+        out[name] = ift(_t(values, torch.float64), *chain_args(problems[pname])[1])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the SPIKE fat-block ladder and the sharded general-graph solve
+# ---------------------------------------------------------------------------
+
+def sharded_banded_program(systems, grid, banded_kw):
+    """systems: {name: (diag, upper, rhs)} solved by
+    `make_sharded_fat_tridiag_solver`; grid: (initial, ef, et, meas, info,
+    fixed) through `solve_general_graph_sharded` with banded_kw."""
+    from rust_robotics_tpu_torch.parallel.sharded_banded import (
+        make_sharded_fat_tridiag_solver,
+        solve_general_graph_sharded,
+    )
+
+    mesh = pmesh.make_mesh(axis_names=("data",), device_type="cpu")
+    solve = make_sharded_fat_tridiag_solver(mesh, "data")
+    out = {name: solve(*(_t(a, torch.float64) for a in system))
+           for name, system in systems.items()}
+    initial, ef, et, meas, info, fixed = grid
+    values, summary, _ = solve_general_graph_sharded(_t(initial, torch.float64), ef, et, meas,
+                                                     info, fixed, mesh, "data", **se2_kw(),
+                                                     **banded_kw)
+    out["grid"] = (values, summary._asdict())
     return out
