@@ -172,8 +172,29 @@ any failure exits non-zero before the final line.
     (a)'s solution re-solved in f64 against `chain_implicit_vjp` (loss rel
     1e-12, gradients 1e-7 of max|g|), the f32 call timed; then one JSON
     line `{"parallel_spike": {...}}`;
-21. one JSON line `{"kernels": [...]}`;
-22. the last line, `{"ok": true, "device": {...}}`.
+21. the navigation stack (no kernel on its path), each part run under sync
+    debug mode "warn" (its device reads), on the host clock and under the
+    profiler (launches, idle share), with the six kernel entries' counts
+    reset before it and required to stay 0: (a) a DWA fleet of 1024 robots
+    x 451 samples x 32 states x 64 obstacles in f32 for 10 steps
+    (robot-steps/s, one step's device time, no read in a step), 8 lanes
+    bitwise their solo runs, a 16-robot f64 fleet within 1e-9 of the CPU,
+    the two headless demos (navigation loop, mission recovery) in f64
+    equal to the CPU's and in f32 (s and reads a step); (b) mapping:
+    `lidar_to_grid` of a 1081-beam 270° scan at 256 samples into
+    1000 x 1000 cells (two calls bitwise; f64 cuda = CPU), `compute_sdf`
+    at 1024² f32 (bitwise the CPU's at 256²; the f64 UDF = scipy's EDT),
+    NDT of 10^6 points into 500² cells scored on 10^5, k-means 262,144 x 32,
+    DBSCAN 8192, normals 8192, FPS 10^5 -> 1024, a GP of 2048 x 65,536
+    and split-and-merge on 1081 points, each held to the CPU in f64 at a
+    reduced size; (c) grid search in f64: JPS on 512² (= `wavefront_costs`
+    within 1e-9), `repair_costs` after a 5 x 5 edit on 64 maps of 256²,
+    ARA*, IDA* and the beam on 128², the 26-connected 3-D wavefront and
+    path on 64³, `shortcut_path` on a 128-vertex path, each held to the
+    CPU within 1e-12 with equal counts at a reduced size; then one JSON
+    line `{"navigation": {...}}`;
+22. one JSON line `{"kernels": [...]}`;
+23. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -191,6 +212,7 @@ import warnings
 
 import numpy as np
 import torch
+from scipy import ndimage
 from torch.profiler import ProfilerActivity, profile
 
 from rust_robotics_tpu_torch.core.types import GaussianBelief
@@ -261,6 +283,7 @@ from rust_robotics_tpu_torch.planning.wavefront import (
     SQRT2,
     _incoming_masks,
     _motions,
+    extract_path,
     plan_grid,
     wavefront_costs,
 )
@@ -282,6 +305,34 @@ from rust_robotics_tpu_torch.slam.scan_matching import (
     robust_icp,
 )
 from rust_robotics_tpu_torch.slam.slam_node import REASONS, run_slam_node_loop
+from rust_robotics_tpu_torch.core.types import GridSpec2D
+from rust_robotics_tpu_torch.demos.headless import (
+    headless_mission_recovery,
+    headless_navigation_loop,
+)
+from rust_robotics_tpu_torch.mapping.cluster import (
+    dbscan,
+    estimate_normals,
+    farthest_point_sample,
+    kmeans,
+)
+from rust_robotics_tpu_torch.mapping.distance import compute_sdf, compute_udf
+from rust_robotics_tpu_torch.mapping.gp import gp_regression
+from rust_robotics_tpu_torch.mapping.lines import split_and_merge
+from rust_robotics_tpu_torch.mapping.ndt import ndt_grid, ndt_score
+from rust_robotics_tpu_torch.mapping.occupancy import lidar_to_grid
+from rust_robotics_tpu_torch.planning.dwa import DWAConfig, dwa_step
+from rust_robotics_tpu_torch.planning.grid3d import plan_grid_3d
+from rust_robotics_tpu_torch.planning.incremental import (
+    ara_star_plan,
+    beam_search_costs,
+    ida_star_costs,
+    octile_heuristic,
+    relax_with_stats,
+    repair_costs,
+)
+from rust_robotics_tpu_torch.planning.jps import jps_plan
+from rust_robotics_tpu_torch.planning.smoothing import shortcut_path
 from rust_robotics_tpu_torch.parallel import mesh as pmesh
 from rust_robotics_tpu_torch.parallel.pipeline import (
     pipeline_schedule,
@@ -764,6 +815,40 @@ def run_pf_fleet(b, p, steps, device, seed=SEED):
     return belief, estimate, err, (u, z, lm, gen)
 
 
+# Idle host time kept inside each trace's window on both sides of the traced
+# call, and the traces taken at most while one holds no device event: the
+# profiler keeps only device events that fall inside its window on the host's
+# clock, and it has returned traces of a short call with none of them.
+TRACE_MARGIN_S = 0.02
+TRACE_ATTEMPTS = 3
+
+
+def device_trace(label, fn, cpu=True, enough=bool):
+    """fn() once under torch.profiler (host and device activities, or the
+    device's alone with cpu=False), TRACE_MARGIN_S of idle time on each side
+    of it inside the window. Traces again, up to TRACE_ATTEMPTS in all,
+    while enough(device events) is false, and fails if it stays false.
+    Returns (profile, device events)."""
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            time.sleep(TRACE_MARGIN_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if enough(events):
+            if attempt > 1:
+                print(f"{label}: the trace of attempt {attempt} is whole")
+            return prof, events
+        print(f"{label}: trace {attempt} of {TRACE_ATTEMPTS} holds {len(events)} device events",
+              file=sys.stderr)
+    fail(f"{label}: the profiler saw no device events" if not events else
+         f"{label}: the profiler saw {len(events)} device events, too few, in "
+         f"{TRACE_ATTEMPTS} traces")
+
+
 def device_breakdown(label, fn, top=6):
     """Where one call's time goes: its host-clock time, then under
     torch.profiler the device's busy time, the span from its first to its
@@ -776,12 +861,7 @@ def device_breakdown(label, fn, top=6):
     fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - start) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        fail(f"{label}: the profiler saw no device events")
+    prof, events = device_trace(label, fn)
     names = [e.name for e in events]
     busy_ms = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
     span_ms = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
@@ -1053,12 +1133,14 @@ def kernel_device_ms(fn, name_part, reps=20):
     launches}. Fails unless each call launched it once."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    durs = [e.time_range.end - e.time_range.start for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and name_part in e.name]
+
+    _, events = device_trace(name_part, calls,
+                             enough=lambda ev: sum(name_part in e.name for e in ev) >= reps)
+    durs = [e.time_range.end - e.time_range.start for e in events if name_part in e.name]
     if len(durs) != reps:
         fail(f"the profiler saw {len(durs)} launches of {name_part} in {reps} calls")
     return {"min_ms": min(durs) / 1e3, "mean_ms": sum(durs) / len(durs) / 1e3,
@@ -1822,12 +1904,7 @@ def device_launches(label, fn):
     fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - start) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        fail(f"{label}: the profiler saw no device events")
+    _, events = device_trace(label, fn, cpu=False)
     busy_ms = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
     span_ms = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
     print(f"{label}: host clock {host_ms!r} ms; under the profiler device busy {busy_ms!r} ms of "
@@ -3411,6 +3488,495 @@ def spike_ranks(world=4):
             print(json.dumps({"parallel_spike_ranks": json.load(f)}))
 
 
+# The navigation stack (phase 21): DWA and the mission FSM with their two
+# headless demos, mapping/, and the grid-search family (no kernel on its
+# path). Each part runs once under sync debug mode "warn" (its device
+# reads), once on the host clock and once under the profiler (launches,
+# idle share), with the six kernel entries' counts reset before it, and is
+# held to the CPU (f64) at the sizes below.
+# (a) the DWA fleet: NAV_FLEET robots in lock-step, DWAConfig's 11 x 41
+# samples and 32 states, NAV_OBSTACLES obstacles each, f32, NAV_STEPS steps;
+# NAV_LANES lanes bitwise their solo runs; a 16-robot f64 fleet within
+# NAV_CUDA_CPU_ATOL of the CPU for NAV_STEPS steps (a control within it is
+# the same sample: two samples differ by at least a window's width over 40,
+# ~3e-3); the two demos in f64 (bools and ints exact, floats within
+# NAV_CUDA_CPU_ATOL) and in f32 (s and reads a step).
+NAV_FLEET, NAV_OBSTACLES, NAV_STEPS, NAV_SMALL = 1024, 64, 10, 16
+NAV_LANES = (0, 1, 2, 511, 512, 777, 1022, 1023)
+NAV_CUDA_CPU_ATOL = 1e-9
+# (b) mapping at the widths its users run: a 270° scan of 1081 beams at
+# 256 samples into 1000 x 1000 cells of 0.05 m; the SDF of 1024 x 1024; NDT
+# of 10^6 points into 500 x 500 cells scored on 10^5; k-means 262,144 x 32
+# for 20 iterations; DBSCAN 8192; normals 8192 (k = 8); FPS 10^5 -> 1024;
+# GP 2048 x 65,536; split-and-merge on 1081 points. Each is held to the CPU
+# in f64 at the reduced size in brackets, at the tests' tolerance
+# (MAP_ATOL, tests/test_torch_mapping.py); labels, masks and indices exactly.
+MAP_ATOL = 1e-10
+MAP_BEAMS, MAP_SAMPLES, MAP_CELLS, MAP_RES = 1081, 256, 1000, 0.05
+MAP_SDF, MAP_SDF_CPU = 1024, 256
+MAP_NDT_POINTS, MAP_NDT_CELLS, MAP_NDT_QUERIES = 1_000_000, 500, 100_000
+MAP_NDT_CPU = (100_000, 100, 10_000)
+MAP_KMEANS, MAP_KMEANS_K, MAP_KMEANS_CPU = 262_144, 32, 16_384
+MAP_DBSCAN, MAP_DBSCAN_CPU = 8192, 2048
+MAP_NORMALS, MAP_NORMALS_CPU = 8192, 1024
+MAP_FPS, MAP_FPS_SAMPLES, MAP_FPS_CPU = 100_000, 1024, (10_000, 256)
+MAP_GP, MAP_GP_QUERIES, MAP_GP_CPU = 2048, 65_536, (512, 4096)
+# (c) grid search in f64 (the RAISE test's tolerance of 1e-6 is below
+# float32's rounding of costs of ~10^2): JPS on 512 x 512 at 20 % blocked,
+# its cost within GRID_JPS_ATOL of `wavefront_costs` (B2, run after the
+# part's counts are read); `repair_costs` after a 5 x 5 edit on 64 maps of
+# 256 x 256; ARA*, IDA* and the beam on 128 x 128 at 10 % blocked, IDA*
+# cut to GRID_IDA_DEEPENINGS deepenings (JAX's default of 64 ran 265k
+# launches in 3.7 s on an NVIDIA H100 80GB HBM3 at 700 W, and the
+# profiler's trace of them took a minute; the CPU comparison keeps the 64); the 26-connected 3-D wavefront on 64^3 at 20 %
+# and its path; `shortcut_path` on a 128-vertex grid path. Held to the CPU
+# within GRID_ATOL with equal counts at the reduced sizes in brackets.
+GRID_ATOL, GRID_JPS_ATOL = 1e-12, 1e-9
+GRID_JPS, GRID_JPS_CPU = 512, 128
+GRID_REPAIR, GRID_REPAIR_CPU = (64, 256), (4, 64)
+GRID_SEARCH, GRID_SEARCH_CPU, GRID_IDA_DEEPENINGS = 128, 32, 8
+GRID_3D, GRID_3D_CPU = 64, 16
+GRID_PATH = 128
+# the six kernel entries' launches summed over the phase's parts
+NAV_KERNEL_LAUNCHES = {}
+
+
+def profile_once(label, fn):
+    """One call under the profiler (device only): launches, busy, span and
+    the idle share of the span."""
+    _, events = device_trace(label, fn, cpu=False)
+    busy_ms = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
+    span_ms = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
+    return {"launches": len(events), "busy_ms": busy_ms, "span_ms": span_ms,
+            "idle": 1 - busy_ms / span_ms}
+
+
+def nav_part(label, fn, counted, profiled=True):
+    """fn() under sync debug mode "warn" (its reads), on the host clock, and
+    under the profiler, with the kernel entries counted over all three;
+    unprofiled, one run under "warn" on the host clock. Returns (fn's last
+    result, the numbers)."""
+    for k in counted:
+        k.launches = 0
+    if profiled:
+        _, reads = reads_in(fn)
+        host_s, out = timed(fn)
+    else:
+        host_s, (out, reads) = timed(lambda: reads_in(fn))
+    stats = {"host_s": host_s, "reads": reads}
+    if profiled:
+        stats.update(profile_once(label, fn))
+    stats["kernel_launches"] = {k.__name__: k.launches for k in counted}
+    for name, n in stats["kernel_launches"].items():
+        NAV_KERNEL_LAUNCHES[name] = NAV_KERNEL_LAUNCHES.get(name, 0) + n
+    print(f"{label}: {host_s!r} s host; {reads} device reads; "
+          + (f"device busy {stats['busy_ms']!r} ms, {stats['launches']} launches, "
+             f"{stats['idle']:.3f} idle; " if profiled else "")
+          + f"kernel entries {stats['kernel_launches']}")
+    if any(stats["kernel_launches"].values()):
+        fail(f"{label}: launched a kernel: {stats['kernel_launches']}")
+    return out, stats
+
+
+def _gate(label, ok, detail):
+    print(f"{label}: {detail}")
+    if not ok:
+        fail(f"{label}: {detail}")
+
+
+def _diff(a, b):
+    """max |a − b| over floats moved to the host in f64 (0 for empty)."""
+    a, b = (torch.as_tensor(x).detach().cpu().double() for x in (a, b))
+    both = torch.isfinite(a) & torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        return math.inf
+    return float((a - b)[both].abs().max()) if both.any() else 0.0
+
+
+def nav_fleet_inputs(rng, b, m):
+    """Robots near the origin bound for goals 6-10 m away through a field
+    of obstacles, numpy f64."""
+    state = np.zeros((b, 5))
+    state[:, :2] = rng.uniform(-1.0, 1.0, (b, 2))
+    state[:, 2] = rng.uniform(-np.pi, np.pi, b)
+    state[:, 3] = rng.uniform(0.0, 0.6, b)
+    goal = rng.uniform(6.0, 10.0, (b, 2))
+    obstacles = rng.uniform(-3.0, 12.0, (b, m, 2))
+    mask = rng.random((b, m)) > 0.1
+    return state, goal, obstacles, mask
+
+
+def nav_dwa_part(card, device, counted):
+    """(a) the DWA fleet, lanes, cuda = CPU, and the two demos."""
+    out = {}
+    cfg = DWAConfig()
+    state, goal, obstacles, mask = nav_fleet_inputs(np.random.default_rng(SEED + 210),
+                                                    NAV_FLEET, NAV_OBSTACLES)
+    args = [torch.tensor(a, dtype=torch.float32, device=device) for a in (state, goal, obstacles)]
+    m = torch.tensor(mask, device=device)
+
+    def fleet_run():
+        s = args[0]
+        for _ in range(NAV_STEPS):
+            control, s, traj, cost = dwa_step(s, args[1], args[2], cfg, m)
+        return s
+
+    final, stats = nav_part(f"DWA fleet {NAV_FLEET} x {NAV_STEPS} steps f32 on {card}",
+                            fleet_run, counted)
+    step_ms = time_ms(lambda: dwa_step(args[0], args[1], args[2], cfg, m), reps=3, bursts=3)
+    no_read_in("DWA fleet, one step", lambda: dwa_step(args[0], args[1], args[2], cfg, m))
+    k = cfg.v_samples * cfg.w_samples
+    d_bytes = NAV_FLEET * k * (cfg.horizon + 1) * NAV_OBSTACLES * 4
+    out["fleet"] = {**stats, "robots": NAV_FLEET, "samples": k, "states": cfg.horizon + 1,
+                    "obstacles": NAV_OBSTACLES, "steps": NAV_STEPS,
+                    "robot_steps_per_s": NAV_FLEET * NAV_STEPS / stats["host_s"],
+                    "step_device_ms": step_ms, "distance_tensor_bytes": d_bytes,
+                    "finite": bool(torch.isfinite(final).all())}
+    print(f"DWA fleet on {card}: {out['fleet']['robot_steps_per_s']!r} robot-steps/s; one step "
+          f"{step_ms!r} ms by CUDA events; distances {d_bytes / 1e9:.2f} GB a step")
+    _gate("DWA fleet finite", out["fleet"]["finite"], "final states finite")
+
+    fleet = dwa_step(args[0], args[1], args[2], cfg, m)
+    same = []
+    for lane in NAV_LANES:
+        solo = dwa_step(args[0][lane], args[1][lane], args[2][lane], cfg, m[lane])
+        same.append(all(bitwise_equal(s, f[lane]) for s, f in zip(solo, fleet)))
+    _gate(f"DWA {len(NAV_LANES)} lanes = solo runs", all(same), f"bitwise {same}")
+
+    small = [torch.tensor(a[:NAV_SMALL], dtype=torch.float64) for a in (state, goal, obstacles)]
+    small_m = torch.tensor(mask[:NAV_SMALL])
+    diffs = []
+    s_cpu, s_gpu = small[0], small[0].to(device)
+    for _ in range(NAV_STEPS):
+        c_cpu, s_cpu, t_cpu, k_cpu = dwa_step(s_cpu, small[1], small[2], cfg, small_m)
+        c_gpu, s_gpu, t_gpu, k_gpu = dwa_step(s_gpu, small[1].to(device), small[2].to(device),
+                                              cfg, small_m.to(device))
+        diffs.append(max(_diff(c_gpu, c_cpu), _diff(s_gpu, s_cpu), _diff(t_gpu, t_cpu),
+                         _diff(k_gpu, k_cpu)))
+    _gate(f"DWA {NAV_SMALL}-robot fleet f64 cuda = CPU over {NAV_STEPS} steps",
+          max(diffs) <= NAV_CUDA_CPU_ATOL,
+          f"max|diff| {max(diffs)!r} (atol {NAV_CUDA_CPU_ATOL}; the chosen controls agree, so "
+          f"the same samples)")
+    out["f64_cuda_cpu_max_abs_diff"] = max(diffs)
+
+    for name, demo in (("navigation", headless_navigation_loop),
+                       ("mission", headless_mission_recovery)):
+        want = demo(device="cpu", dtype=torch.float64)
+        got = demo(device=device, dtype=torch.float64)
+        bad = [key for key, w in want.items()
+               if (got[key] != w if isinstance(w, (bool, int)) else
+                   not abs(got[key] - w) <= NAV_CUDA_CPU_ATOL)]
+        _gate(f"headless {name} f64 cuda = CPU", not bad, f"{got} vs {want}; differ: {bad}")
+        res32, stats32 = nav_part(f"headless {name} f32 on {card}",
+                                  lambda: demo(device=device, dtype=torch.float32), counted,
+                                  profiled=False)
+        # the loop's steps: the demo's own count, or the reads of the whole
+        # run less those of a run of 0 steps, over those a step adds
+        limit = "steps" if name == "navigation" else "max_steps"
+        r0, r1 = (reads_in(lambda n=n: demo(**{limit: n}, device=device,
+                                              dtype=torch.float32))[1] for n in (0, 1))
+        if r1 <= r0:
+            fail(f"headless {name}: a step read nothing back ({r0} and {r1} reads)")
+        steps = res32.get("steps_used") or round((stats32["reads"] - r0) / (r1 - r0))
+        out[name] = {"f64": got, "f32": res32, **stats32, "steps": steps,
+                     "s_per_step": stats32["host_s"] / steps,
+                     "reads_per_step": stats32["reads"] / steps, "setup_reads": r0}
+        print(f"headless {name} f32: {steps} steps, {out[name]['s_per_step']!r} s a step, "
+              f"{out[name]['reads_per_step']!r} reads a step ({r0} reads with 0 steps)")
+    return out
+
+
+def scan_1081(rng):
+    """A 270° scan of MAP_BEAMS beams from inside a 40 m room with posts."""
+    angles = np.linspace(-0.75 * np.pi, 0.75 * np.pi, MAP_BEAMS)
+    ranges = rng.uniform(2.0, 24.0, MAP_BEAMS)
+    ranges[rng.random(MAP_BEAMS) < 0.1] = 25.0
+    return np.array([0.7, -0.4]), angles, ranges
+
+
+def map_mapping_part(card, device, counted):
+    """(b) mapping: each function at width, held to the CPU in f64."""
+    out = {}
+    rng = np.random.default_rng(SEED + 211)
+    spec = GridSpec2D(-25.0, -25.0, MAP_RES, MAP_CELLS, MAP_CELLS)
+    origin, angles, ranges = scan_1081(rng)
+
+    def lidar(dtype, dev):
+        return lidar_to_grid(origin, angles, ranges, spec, max_range=25.0, samples=MAP_SAMPLES,
+                             device=dev, dtype=dtype)
+
+    grid, stats = nav_part(f"lidar_to_grid {MAP_BEAMS} x {MAP_SAMPLES} -> {MAP_CELLS}^2 f32 "
+                           f"on {card}", lambda: lidar(torch.float32, device), counted)
+    again = lidar(torch.float32, device)
+    want = lidar(torch.float64, "cpu")
+    got = lidar(torch.float64, device).cpu()
+    cells = torch.equal(got != 0, want != 0)
+    _gate("lidar_to_grid two calls", bitwise_equal(grid, again), "bitwise equal")
+    _gate("lidar_to_grid f64 cuda = CPU", cells and _diff(got, want) <= 1e-12,
+          f"touched cells equal {cells}, values max|diff| {_diff(got, want)!r} (atol 1e-12)")
+    out["lidar_to_grid"] = {**stats, "cells_touched": int((want != 0).sum())}
+
+    obs = torch.tensor(rng.random((MAP_SDF, MAP_SDF)) < 0.02, device=device)
+    sdf, stats = nav_part(f"compute_sdf {MAP_SDF}^2 f32 on {card}", lambda: compute_sdf(obs),
+                          counted)
+    small = obs[:MAP_SDF_CPU, :MAP_SDF_CPU]
+    same = bitwise_equal(compute_sdf(small).cpu(), compute_sdf(small.cpu()))
+    _gate(f"compute_sdf {MAP_SDF_CPU}^2 f32 cuda = CPU", same, "bitwise equal")
+    udf = compute_udf(obs, torch.float64).cpu().numpy()
+    edt = ndimage.distance_transform_edt(~obs.cpu().numpy())
+    _gate(f"compute_udf {MAP_SDF}^2 f64 = scipy's EDT", np.array_equal(udf, edt),
+          f"max|diff| {np.abs(udf - edt).max()!r}")
+    out["compute_sdf"] = stats
+
+    def ndt_inputs(n, cells, q):
+        centers = rng.uniform(0.0, cells * 0.2, (256, 2))
+        pts = centers[rng.integers(0, 256, n)] + 0.15 * rng.standard_normal((n, 2))
+        return pts, pts[:q] + 0.02 * rng.standard_normal((q, 2))
+
+    pts, qs = ndt_inputs(MAP_NDT_POINTS, MAP_NDT_CELLS, MAP_NDT_QUERIES)
+    pts_d, qs_d = (torch.tensor(a, dtype=torch.float32, device=device) for a in (pts, qs))
+
+    def ndt_call(p, q, cells):
+        mean, cov, count, valid = ndt_grid(p, (0.0, 0.0), 0.2, cells, cells)
+        return ndt_score(q, mean, cov, valid, (0.0, 0.0), 0.2)
+
+    _, stats = nav_part(f"ndt_grid {MAP_NDT_POINTS} -> {MAP_NDT_CELLS}^2 + ndt_score "
+                        f"{MAP_NDT_QUERIES} f32 on {card}",
+                        lambda: ndt_call(pts_d, qs_d, MAP_NDT_CELLS), counted)
+    n, cells, q = MAP_NDT_CPU
+    pts, qs = ndt_inputs(n, cells, q)
+    want = [tuple(ndt_grid(torch.tensor(pts, device=dv), (0.0, 0.0), 0.2, cells, cells))
+            + (ndt_call(torch.tensor(pts, device=dv), torch.tensor(qs, device=dv), cells),)
+            for dv in ("cpu", device)]
+    err = max(_diff(g, w) for g, w in zip(want[1], want[0]))
+    _gate(f"NDT {MAP_NDT_CPU} f64 cuda = CPU", err <= MAP_ATOL, f"max|diff| {err!r}")
+    out["ndt"] = stats
+
+    def blobs(nn, k, dim=2, spread=0.5):
+        centers = rng.uniform(-20.0, 20.0, (k, dim))
+        return centers[rng.integers(0, k, nn)] + spread * rng.standard_normal((nn, dim)), centers
+
+    km_pts, km_c = blobs(MAP_KMEANS, MAP_KMEANS_K)
+    km = [torch.tensor(a, dtype=torch.float32, device=device) for a in (km_pts, km_c + 0.7)]
+    _, stats = nav_part(f"kmeans {MAP_KMEANS} x {MAP_KMEANS_K}, 20 iterations f32 on {card}",
+                        lambda: kmeans(*km, 20), counted)
+    sub = [torch.tensor(a) for a in (km_pts[:MAP_KMEANS_CPU], km_c + 0.7)]
+    want, got = kmeans(*sub, 20), kmeans(*(a.to(device) for a in sub), 20)
+    _gate(f"kmeans {MAP_KMEANS_CPU} f64 cuda = CPU",
+          _diff(got[0], want[0]) <= MAP_ATOL and torch.equal(got[1].cpu(), want[1]),
+          f"centers max|diff| {_diff(got[0], want[0])!r}, labels equal")
+    out["kmeans"] = stats
+
+    db_pts, _ = blobs(MAP_DBSCAN, 24, spread=0.8)
+    db = torch.tensor(db_pts, dtype=torch.float32, device=device)
+    labels, stats = nav_part(f"dbscan {MAP_DBSCAN} f32 on {card}", lambda: dbscan(db, 0.6, 5),
+                             counted)
+    sub = torch.tensor(db_pts[:MAP_DBSCAN_CPU])
+    same = torch.equal(dbscan(sub.to(device), 0.6, 5).cpu(), dbscan(sub, 0.6, 5))
+    _gate(f"dbscan {MAP_DBSCAN_CPU} f64 cuda = CPU", same, "labels equal")
+    out["dbscan"] = {**stats, "clusters": int(torch.unique(labels[labels >= 0]).numel())}
+
+    xy = rng.uniform(0.0, 30.0, (MAP_NORMALS, 2))
+    surf = np.concatenate([xy, np.sin(0.3 * xy[:, :1]) + 0.1 * xy[:, 1:]], -1)
+    nm = torch.tensor(surf, dtype=torch.float32, device=device)
+    _, stats = nav_part(f"estimate_normals {MAP_NORMALS} (k = 8) f32 on {card}",
+                        lambda: estimate_normals(nm, 8), counted)
+    sub = torch.tensor(surf[:MAP_NORMALS_CPU])
+    got, want = estimate_normals(sub.to(device), 8).cpu(), estimate_normals(sub, 8)
+    err = float((torch.sum(got * want, -1).abs() - 1.0).abs().max())
+    _gate(f"estimate_normals {MAP_NORMALS_CPU} f64 cuda = CPU up to sign", err <= MAP_ATOL,
+          f"max ||n·n_cpu| − 1| {err!r}")
+    out["estimate_normals"] = stats
+
+    fps_pts = rng.uniform(-50.0, 50.0, (MAP_FPS, 3))
+    fp = torch.tensor(fps_pts, dtype=torch.float32, device=device)
+    _, stats = nav_part(f"farthest_point_sample {MAP_FPS} -> {MAP_FPS_SAMPLES} f32 on {card}",
+                        lambda: farthest_point_sample(fp, MAP_FPS_SAMPLES), counted)
+    n, k = MAP_FPS_CPU
+    sub = torch.tensor(fps_pts[:n])
+    same = torch.equal(farthest_point_sample(sub.to(device), k).cpu(),
+                       farthest_point_sample(sub, k))
+    _gate(f"farthest_point_sample {MAP_FPS_CPU} f64 cuda = CPU", same, "indices equal")
+    out["farthest_point_sample"] = stats
+
+    gx = rng.uniform(-10.0, 10.0, (MAP_GP, 2))
+    gy = np.sin(0.4 * gx[:, 0]) * np.cos(0.3 * gx[:, 1]) + 0.05 * rng.standard_normal(MAP_GP)
+    gq = rng.uniform(-10.0, 10.0, (MAP_GP_QUERIES, 2))
+    gpa = [torch.tensor(a, dtype=torch.float32, device=device) for a in (gx, gy, gq)]
+    _, stats = nav_part(f"gp_regression {MAP_GP} x {MAP_GP_QUERIES} f32 on {card}",
+                        lambda: gp_regression(*gpa, length_scale=1.5), counted)
+    n, q = MAP_GP_CPU
+    sub = [torch.tensor(a) for a in (gx[:n], gy[:n], gq[:q])]
+    want = gp_regression(*sub, length_scale=1.5)
+    got = gp_regression(*(a.to(device) for a in sub), length_scale=1.5)
+    err = max(_diff(g, w) for g, w in zip(got, want))
+    _gate(f"gp_regression {MAP_GP_CPU} f64 cuda = CPU", err <= MAP_ATOL, f"max|diff| {err!r}")
+    out["gp_regression"] = stats
+
+    th = np.linspace(-0.75 * np.pi, 0.75 * np.pi, MAP_BEAMS)
+    r = np.minimum(8.0 / np.maximum(np.abs(np.cos(th)), 1e-3),
+                   6.0 / np.maximum(np.abs(np.sin(th)), 1e-3))
+    wall = np.stack([r * np.cos(th), r * np.sin(th)], -1)
+    wall += 0.01 * rng.standard_normal((MAP_BEAMS, 2))
+    wp = torch.tensor(wall, dtype=torch.float32, device=device)
+    brk, stats = nav_part(f"split_and_merge {MAP_BEAMS} f32 on {card}",
+                          lambda: split_and_merge(wp), counted)
+    same = torch.equal(split_and_merge(torch.tensor(wall, device=device)).cpu(),
+                       split_and_merge(torch.tensor(wall)))
+    _gate(f"split_and_merge {MAP_BEAMS} f64 cuda = CPU", same, "breakpoints equal")
+    out["split_and_merge"] = {**stats, "segments": int(brk.sum()) - 1}
+    return out
+
+
+def _rand_free(rng, shape, p):
+    free = rng.random(shape) > p
+    free[(1,) * len(shape)] = free[tuple(n - 2 for n in shape)] = True
+    return free
+
+
+def grid_search_part(card, device, counted):
+    """(c) the grid-search family in f64, held to the CPU."""
+    out = {}
+    f64 = torch.float64
+    rng = np.random.default_rng(SEED + 212)
+
+    free = _rand_free(rng, (GRID_JPS, GRID_JPS), 0.2)
+    s, g = (1, 1), (GRID_JPS - 2, GRID_JPS - 2)
+    plan, stats = nav_part(f"jps_plan {GRID_JPS}^2 f64 on {card}",
+                           lambda: jps_plan(free, s, g, device=device, dtype=f64), counted)
+    field = wavefront_costs(torch.tensor(free, device=device),
+                            torch.tensor(goal_raster_np(free.shape, g), device=device), dtype=f64)
+    ref = float(field[s])
+    _gate(f"jps_plan {GRID_JPS}^2 = wavefront_costs", abs(plan["cost"] - ref) <= GRID_JPS_ATOL,
+          f"{plan} against {ref!r} (atol {GRID_JPS_ATOL})")
+    small = _rand_free(rng, (GRID_JPS_CPU, GRID_JPS_CPU), 0.2)
+    g = (GRID_JPS_CPU - 2, GRID_JPS_CPU - 2)
+    got, want = (jps_plan(small, s, g, device=d, dtype=f64) for d in (device, "cpu"))
+    _gate(f"jps_plan {GRID_JPS_CPU}^2 f64 cuda = CPU",
+          abs(got["cost"] - want["cost"]) <= GRID_ATOL
+          and all(got[k] == want[k] for k in ("found", "jump_edges", "sweeps")),
+          f"{got} vs {want}")
+    out["jps"] = {**stats, **plan}
+
+    def repair_inputs(b, n, dev):
+        free_b = np.stack([_rand_free(rng, (n, n), 0.2) for _ in range(b)])
+        goals = np.zeros_like(free_b)
+        goals[:, n - 2, n - 2] = True
+        edited = free_b.copy()
+        edited[:, n // 2 - 2:n // 2 + 3, n // 2 - 2:n // 2 + 3] = False
+        t = [torch.tensor(a, device=dev) for a in (free_b, goals, edited)]
+        d0, _ = relax_with_stats(torch.full(free_b.shape, torch.inf, dtype=f64, device=dev),
+                                 t[0], t[1])
+        return d0, t[2], t[1]
+
+    b, n = GRID_REPAIR
+    rep_args = repair_inputs(b, n, device)
+    (_, raise_s, lower_s), stats = nav_part(f"repair_costs {b} x {n}^2 f64 on {card}",
+                                            lambda: repair_costs(*rep_args), counted)
+    b, n = GRID_REPAIR_CPU
+    cpu_args = repair_inputs(b, n, "cpu")
+    want = repair_costs(*cpu_args)
+    got = repair_costs(*(a.to(device) for a in cpu_args))
+    _gate(f"repair_costs {GRID_REPAIR_CPU} f64 cuda = CPU",
+          _diff(got[0], want[0]) <= GRID_ATOL and got[1:] == want[1:],
+          f"max|diff| {_diff(got[0], want[0])!r}, sweeps {got[1:]} vs {want[1:]}")
+    out["repair_costs"] = {**stats, "raise_sweeps": raise_s, "lower_sweeps": lower_s}
+
+    def search_inputs(nn, dev):
+        fr = torch.tensor(_rand_free(rng, (nn, nn), 0.1), device=dev)
+        goal = (nn - 2, nn - 2)
+        goals = torch.tensor(goal_raster_np((nn, nn), goal), device=dev)
+        return fr, goal, goals, octile_heuristic((nn, nn), (1, 1), device=dev, dtype=f64)
+
+    def to_device(inputs):
+        return [a.to(device) if isinstance(a, torch.Tensor) else a for a in inputs]
+
+    def searches(fr, goal, goals, h):
+        ara = ara_star_plan(fr, (1, 1), goal, dtype=f64)
+        ida = ida_star_costs(fr, (1, 1), goal, dtype=f64)
+        beam = beam_search_costs(fr, goals, h, beam_width=64)
+        return ara, ida, beam
+
+    big = search_inputs(GRID_SEARCH, device)
+    for name, call in (("ara_star_plan", lambda: ara_star_plan(big[0], (1, 1), big[1], dtype=f64)),
+                       ("ida_star_costs", lambda: ida_star_costs(
+                           big[0], (1, 1), big[1], max_deepenings=GRID_IDA_DEEPENINGS,
+                           dtype=f64)),
+                       ("beam_search_costs", lambda: beam_search_costs(big[0], big[2], big[3],
+                                                                      beam_width=64))):
+        res, stats = nav_part(f"{name} {GRID_SEARCH}^2 f64 on {card}", call, counted)
+        if name == "ida_star_costs":
+            stats.update(deepenings=res[2]["deepenings"], cost=float(res[1]))
+        elif name == "beam_search_costs":
+            stats.update(sweeps=res[1], cost=float(res[0][1, 1]))
+        else:
+            stats.update(stage_costs=res[1].tolist())
+        out[name] = stats
+    small = search_inputs(GRID_SEARCH_CPU, "cpu")
+    cpu, gpu = searches(*small), searches(*to_device(small))
+    err = max(max(_diff(x, y) for x, y in zip(gpu[0], cpu[0])),
+              _diff(gpu[1][0], cpu[1][0]), _diff(gpu[2][0], cpu[2][0]))
+    counts = (gpu[1][2]["deepenings"], int(gpu[1][2]["expanded_cells"]), gpu[2][1])
+    counts_cpu = (cpu[1][2]["deepenings"], int(cpu[1][2]["expanded_cells"]), cpu[2][1])
+    _gate(f"ARA*, IDA*, beam {GRID_SEARCH_CPU}^2 f64 cuda = CPU",
+          err <= GRID_ATOL and counts == counts_cpu,
+          f"max|diff| {err!r}; deepenings, expanded, beam sweeps {counts} vs {counts_cpu}")
+
+    vox = _rand_free(rng, (GRID_3D,) * 3, 0.2)
+    path, stats = nav_part(f"plan_grid_3d {GRID_3D}^3 26-connected f64 on {card}",
+                           lambda: plan_grid_3d(vox, (1, 1, 1), (GRID_3D - 2,) * 3, device=device,
+                                                dtype=f64), counted)
+    small = _rand_free(rng, (GRID_3D_CPU,) * 3, 0.2)
+    got, want = (plan_grid_3d(small, (1, 1, 1), (GRID_3D_CPU - 2,) * 3, device=d, dtype=f64)
+                 for d in (device, "cpu"))
+    _gate(f"plan_grid_3d {GRID_3D_CPU}^3 f64 cuda = CPU",
+          torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+          and _diff(got[2], want[2]) <= GRID_ATOL, f"cost {float(got[2])!r} vs {float(want[2])!r}")
+    out["plan_grid_3d"] = {**stats, "cost": float(path[2]), "path_len": int(path[1].sum())}
+
+    fr = _rand_free(rng, (GRID_PATH, GRID_PATH), 0.15)
+    fr[120, 120] = True
+    costs = wavefront_costs(torch.tensor(fr), torch.tensor(goal_raster_np(fr.shape, (120, 120))),
+                            dtype=f64)
+    idx, mask, _ = extract_path(costs, torch.tensor(fr), (1, 1), max_len=GRID_PATH)
+    pts = (idx.double() + 0.5) * 0.5  # cell centres at 0.5 m
+    args = (pts, mask.double(), torch.tensor(~fr), 0.0, 0.0, 0.5)
+    args_d = to_device(args)
+    (keep, total), stats = nav_part(f"shortcut_path {GRID_PATH} vertices f64 on {card}",
+                                    lambda: shortcut_path(*args_d), counted)
+    want = shortcut_path(*args)
+    _gate(f"shortcut_path {GRID_PATH} f64 cuda = CPU",
+          torch.equal(keep.cpu(), want[0]) and _diff(total, want[1]) <= GRID_ATOL,
+          f"kept {int(keep.sum())} of {int(mask.sum())}, length {float(total)!r} vs "
+          f"{float(want[1])!r}")
+    out["shortcut_path"] = {**stats, "kept": int(keep.sum()), "vertices": int(mask.sum())}
+    return out
+
+
+def goal_raster_np(shape, idx):
+    g = np.zeros(shape, bool)
+    g[idx] = True
+    return g
+
+
+def navigation_phase(card, device, counted):
+    """The navigation stack (phase 21): (a) DWA and the demos, (b) mapping,
+    (c) grid search."""
+    out = {"card": card}
+    start = time.perf_counter()
+    for name, part in (("dwa", nav_dwa_part), ("mapping", map_mapping_part),
+                       ("grid_search", grid_search_part)):
+        t0 = time.perf_counter()
+        out[name] = part(card, device, counted)
+        out[name]["part_s"] = time.perf_counter() - t0
+        print(f"navigation stack, part {name}: {out[name]['part_s']!r} s")
+    out["phase_s"] = time.perf_counter() - start
+    out["kernel_launches"] = dict(NAV_KERNEL_LAUNCHES)
+    print(f"navigation stack: {out['phase_s']!r} s; kernel entries over its parts "
+          f"{out['kernel_launches']}")
+    return out
+
+
 _VIEW_OPS = {"empty", "empty_strided", "as_strided", "view", "_reshape_alias", "resize_",
              "detach", "lift_fresh", "alias", "_unsafe_view", "expand", "slice", "select", "t",
              "transpose", "permute", "unsqueeze", "squeeze", "item", "_local_scalar_dense",
@@ -3492,6 +4058,49 @@ def vio_cpu_reference(seconds=VIO_SECONDS):
         out["triangulation"] = {"median_m": float(np.median(errs)),
                                 "p95_m": float(np.percentile(errs, 95))}
         print(f"CPU f64 triangulation: {out['triangulation']}", flush=True)
+    return out
+
+
+def trace_loss_probe(traces=150):
+    """ROADMAP C10 on the card: `traces` torch.profiler traces of one call,
+    host and device activities or the device's alone, with no idle time
+    around the call and with TRACE_MARGIN_S of it on each side, for one
+    histogram update+predict of 1024 rasters (f64) and for one add; per
+    case, the traces with no device event and those with fewer than the
+    most seen."""
+    device, f64 = "cuda", torch.float64
+    cfg = HistogramConfig()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    lms = torch.tensor([[5.0, 5.0], [-5.0, 5.0], [0.0, -5.0]], dtype=f64, device=device)
+    truth = 8.0 * torch.rand((HIST_FLEET, 2), dtype=f64, device=device, generator=gen) - 4.0
+    z = torch.linalg.norm(lms - truth[:, None], dim=-1)
+    still = torch.zeros((HIST_FLEET, 2), dtype=f64, device=device)
+    bel = histogram_init(cfg, f64, device=device, batch_shape=(HIST_FLEET,))
+    calls = {"histogram update+predict": lambda: histogram_predict(
+                 histogram_update_ranges(bel, z, lms, cfg), still, cfg),
+             "one add": lambda: z + 1.0}
+    for fn in calls.values():
+        fn()
+
+    def count(fn, margin, activities):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            time.sleep(margin)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(margin)
+        return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+
+    out = {}
+    for name, fn in calls.items():
+        for margin in (0.0, TRACE_MARGIN_S):
+            for acts in ([ProfilerActivity.CPU, ProfilerActivity.CUDA], [ProfilerActivity.CUDA]):
+                counts = [count(fn, margin, acts) for _ in range(traces)]
+                key = f"{name}, margin {margin} s, {'host+device' if len(acts) == 2 else 'device'}"
+                out[key] = {"traces": traces, "empty": sum(c == 0 for c in counts),
+                            "short": sum(0 < c < max(counts) for c in counts),
+                            "events": max(counts)}
+                print(f"{key}: {out[key]}", flush=True)
     return out
 
 
@@ -4153,7 +4762,11 @@ def main() -> int:
     print(f"kernel launches in the SPIKE programs: {spike_out['kernel_launches']}")
     print(json.dumps({"parallel_spike": spike_out}))
 
-    # 21. the kernels line
+    # 21. the navigation stack: DWA and the demos, mapping, grid search
+    # (no kernel on its path)
+    print(json.dumps({"navigation": navigation_phase(card, device, counted)}))
+
+    # 22. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -4273,7 +4886,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 22. the result
+    # 23. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from rust_robotics_tpu_torch._numeric import true_div
 from rust_robotics_tpu_torch.core.angles import normalize_angle
 
 
@@ -109,14 +110,20 @@ class GridSpec2D:
         return self.min_y + self.height * self.resolution
 
     def world_to_index(self, xy):
-        """World coords [..., 2] -> integer cell indices [..., 2] (ix, iy)."""
-        base = torch.tensor([self.min_x, self.min_y], dtype=xy.dtype, device=xy.device)
-        return torch.floor((xy - base) / self.resolution).to(torch.int32)
+        """World coords [..., 2] -> integer cell indices [..., 2] (ix, iy).
+
+        A true division on every device (`_numeric.true_div`; CUDA's
+        division by a number multiplies by its reciprocal, which moves a
+        point on a cell boundary, such as x = 0.3 at resolution 0.1, into
+        the next cell)."""
+        rel = torch.stack([true_div(xy[..., 0] - self.min_x, self.resolution),
+                           true_div(xy[..., 1] - self.min_y, self.resolution)], dim=-1)
+        return torch.floor(rel).to(torch.int32)
 
     def index_to_world(self, idx, dtype=torch.float32):
         """Cell indices [..., 2] -> world coords of cell centers [..., 2]."""
-        base = torch.tensor([self.min_x, self.min_y], dtype=dtype, device=idx.device)
-        return base + (idx.to(dtype) + 0.5) * self.resolution
+        off = (idx.to(dtype) + 0.5) * self.resolution
+        return torch.stack([self.min_x + off[..., 0], self.min_y + off[..., 1]], dim=-1)
 
     def in_bounds(self, idx):
         ix, iy = idx[..., 0], idx[..., 1]

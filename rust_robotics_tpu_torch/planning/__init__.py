@@ -11,3 +11,31 @@ from rust_robotics_tpu_torch.planning.wavefront import (  # noqa: F401
     plan_grid,
     wavefront_costs,
 )
+from rust_robotics_tpu_torch.planning.dwa import DWAConfig, dwa_step  # noqa: F401
+from rust_robotics_tpu_torch.planning.grid3d import (  # noqa: F401
+    extract_path_3d,
+    plan_grid_3d,
+    wavefront_costs_3d,
+)
+from rust_robotics_tpu_torch.planning.incremental import (  # noqa: F401
+    ara_star_plan,
+    beam_search_costs,
+    dstar_lite_replan,
+    dstar_replan,
+    fringe_search_costs,
+    ida_star_costs,
+    lpa_star_replan,
+    octile_heuristic,
+    relax_with_stats,
+    repair_costs,
+)
+from rust_robotics_tpu_torch.planning.smoothing import (  # noqa: F401
+    relax_path,
+    shortcut_path,
+)
+from rust_robotics_tpu_torch.planning.jps import (  # noqa: F401
+    jps_costs,
+    jps_plan,
+    jump_distances,
+    jump_point_mask,
+)

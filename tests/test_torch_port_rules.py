@@ -80,6 +80,13 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     from rust_robotics_tpu_torch.slam.vio import run_vio_pipeline
     from rust_robotics_tpu_torch.slam.vio_pp import make_stages, run_vio_pipeline_windowed
     from rust_robotics_tpu_torch.train import init_params, synthesize_batch
+    from rust_robotics_tpu_torch.core.types import GridSpec2D
+    from rust_robotics_tpu_torch.demos.headless import (
+        headless_mission_recovery,
+        headless_navigation_loop,
+    )
+    from rust_robotics_tpu_torch.mapping import gaussian_grid_map, lidar_to_grid
+    from rust_robotics_tpu_torch.planning import jps_plan, octile_heuristic, plan_grid_3d
 
     blocked = np.eye(4, 3, dtype=bool)
     ox, oy = np.array([0.0, 4.0, 4.0]), np.array([0.0, 0.0, 3.0])
@@ -169,6 +176,19 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
         "init_params": lambda **kw: init_params(**kw).log_q,
         "synthesize_batch": lambda **kw: synthesize_batch(0, batch=2, steps=2, num_landmarks=2,
                                                           **kw)[2],
+        "headless_navigation_loop": lambda **kw: torch.tensor(headless_navigation_loop(
+            steps=2, **kw)["path_length"]),
+        "headless_mission_recovery": lambda **kw: torch.tensor(headless_mission_recovery(
+            max_steps=2, **kw)["final_distance"]),
+        "gaussian_grid_map": lambda **kw: gaussian_grid_map(ox, oy, 1.0, 0.5, extend=1.0,
+                                                            **kw)[0],
+        "lidar_to_grid": lambda **kw: lidar_to_grid(
+            np.zeros(2), np.array([0.0, 1.0]), np.array([1.0, 2.0]),
+            GridSpec2D(-3.0, -3.0, 0.5, 12, 12), samples=8, **kw),
+        "jps_plan": lambda **kw: torch.tensor(jps_plan(~blocked, (0, 1), (3, 2), **kw)["cost"]),
+        "plan_grid_3d": lambda **kw: plan_grid_3d(np.ones((3, 3, 3), bool), (0, 0, 0), (2, 2, 2),
+                                                  max_len=4, **kw)[0],
+        "octile_heuristic": lambda **kw: octile_heuristic((4, 3), (1, 1), **kw),
     }
     for name, call in host_data_calls.items():
         if torch.cuda.is_available():
