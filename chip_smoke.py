@@ -193,8 +193,29 @@ any failure exits non-zero before the final line.
     path on 64³, `shortcut_path` on a 128-vertex path, each held to the
     CPU within 1e-12 with equal counts at a reduced size; then one JSON
     line `{"navigation": {...}}`;
-22. one JSON line `{"kernels": [...]}`;
-23. the last line, `{"ok": true, "device": {...}}`.
+22. planning II (B2 on the fields, coverage and frontier parts), each part
+    run under sync debug mode "warn", on the host clock and (where its
+    launches are few) under the profiler, a launch-heavy loop profiled on
+    one short call, the kernel entries counted: B2's `wavefront_relax`
+    exactly once per counted `wavefront_costs` call in (c), (d) and (f),
+    every other entry 0 times, and B2 0 times elsewhere: (a) the A*
+    variants on the reference's 50x50 maze in every mode and the MovingAI
+    parser on a generated 512² octile map and 1000 scenarios (host); (b)
+    `VisibilityPlanner` on a 256² room map with 64 queries and the Theta*
+    wavefront on 128², f32; (c) `flow_field` on bench.py's 64 maps of
+    128² (bitwise the CPU's in f32, and on 8 maps in f64) and
+    `potential_field` on 1024²; (d) `frontier_navigate` on a 128² world
+    with walls and gaps (it must reach the goal); (e) terrain risk from a
+    1024² elevation and `sweep_risk_weights` over 16 weights on 256²; (f)
+    `wavefront_cpp` on 128², Spiral-STC and the spiral on 64²; (g) PRM with
+    1000 samples among 64 obstacles and the Voronoi road map on 512²; (h)
+    `time_expanded_costs` on T=256 x 256², and prioritized MAPF, CP-SIPP
+    and STL-CBS with 8 agents on 64², T=128; each held to the CPU in f64 at
+    a reduced size (fields within 1e-12, paths and counts exactly, B2's
+    fields bitwise in f32 and f64); then one JSON line
+    `{"planning_ii": {...}}`;
+23. one JSON line `{"kernels": [...]}`;
+24. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -332,6 +353,17 @@ from rust_robotics_tpu_torch.planning.incremental import (
     repair_costs,
 )
 from rust_robotics_tpu_torch.planning.jps import jps_plan
+from rust_robotics_tpu_torch.data import moving_ai as pmai
+from rust_robotics_tpu_torch.planning import a_star_variants as pav
+from rust_robotics_tpu_torch.planning import any_angle as pany
+from rust_robotics_tpu_torch.planning import conformal as pconformal
+from rust_robotics_tpu_torch.planning import coverage as pcoverage
+from rust_robotics_tpu_torch.planning import fields as pfields
+from rust_robotics_tpu_torch.planning import frontier as pfrontier
+from rust_robotics_tpu_torch.planning import risk_graph as prisk
+from rust_robotics_tpu_torch.planning import roadmap as proad
+from rust_robotics_tpu_torch.planning import stl as pstl
+from rust_robotics_tpu_torch.planning import temporal as ptemporal
 from rust_robotics_tpu_torch.planning.smoothing import shortcut_path
 from rust_robotics_tpu_torch.parallel import mesh as pmesh
 from rust_robotics_tpu_torch.parallel.pipeline import (
@@ -3551,30 +3583,67 @@ def profile_once(label, fn):
             "idle": 1 - busy_ms / span_ms}
 
 
-def nav_part(label, fn, counted, profiled=True):
+# the modules that call `wavefront_costs` by name (planning II's B2 users)
+WAVEFRONT_CALLERS = (pfields, pcoverage, pfrontier)
+
+
+@contextlib.contextmanager
+def count_wavefront_calls():
+    """Counts the calls the fields, coverage and frontier modules make to
+    `wavefront_costs` while the block runs."""
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return wavefront_costs(*args, **kwargs)
+
+    for module in WAVEFRONT_CALLERS:
+        module.wavefront_costs = counted
+    try:
+        yield calls
+    finally:
+        for module in WAVEFRONT_CALLERS:
+            module.wavefront_costs = wavefront_costs
+
+
+def nav_part(label, fn, counted, profiled=True, b2=False, totals=None):
     """fn() under sync debug mode "warn" (its reads), on the host clock, and
-    under the profiler, with the kernel entries counted over all three;
-    unprofiled, one run under "warn" on the host clock. Returns (fn's last
-    result, the numbers)."""
+    under the profiler, with the kernel entries and the fields', coverage's
+    and frontier's `wavefront_costs` calls counted over all three;
+    unprofiled, one run under "warn" on the host clock. With b2, B2's
+    `wavefront_relax` must launch once per such call, and at least once;
+    every other entry (and B2 without b2) never. The launches add into
+    `totals` (default phase 21's). Returns (fn's last result, the
+    numbers)."""
+    totals = NAV_KERNEL_LAUNCHES if totals is None else totals
     for k in counted:
         k.launches = 0
-    if profiled:
-        _, reads = reads_in(fn)
-        host_s, out = timed(fn)
-    else:
-        host_s, (out, reads) = timed(lambda: reads_in(fn))
-    stats = {"host_s": host_s, "reads": reads}
-    if profiled:
-        stats.update(profile_once(label, fn))
+    with count_wavefront_calls() as calls:
+        if profiled:
+            _, reads = reads_in(fn)
+            host_s, out = timed(fn)
+        else:
+            host_s, (out, reads) = timed(lambda: reads_in(fn))
+        stats = {"host_s": host_s, "reads": reads}
+        if profiled:
+            stats.update(profile_once(label, fn))
+    runs = 3 if profiled else 1
     stats["kernel_launches"] = {k.__name__: k.launches for k in counted}
+    stats["wavefront_costs_calls"] = calls[0]
     for name, n in stats["kernel_launches"].items():
-        NAV_KERNEL_LAUNCHES[name] = NAV_KERNEL_LAUNCHES.get(name, 0) + n
+        totals[name] = totals.get(name, 0) + n
     print(f"{label}: {host_s!r} s host; {reads} device reads; "
           + (f"device busy {stats['busy_ms']!r} ms, {stats['launches']} launches, "
              f"{stats['idle']:.3f} idle; " if profiled else "")
-          + f"kernel entries {stats['kernel_launches']}")
-    if any(stats["kernel_launches"].values()):
+          + f"{calls[0]} wavefront_costs calls over {runs} runs; kernel entries "
+          f"{stats['kernel_launches']}")
+    b2_launches = stats["kernel_launches"]["wavefront_relax"]
+    others = {n: v for n, v in stats["kernel_launches"].items() if n != "wavefront_relax" and v}
+    if others or (b2_launches and not b2):
         fail(f"{label}: launched a kernel: {stats['kernel_launches']}")
+    if b2 and not b2_launches == calls[0] >= runs:
+        fail(f"{label}: {b2_launches} wavefront_relax launches for {calls[0]} wavefront_costs "
+             f"calls")
     return out, stats
 
 
@@ -3973,6 +4042,598 @@ def navigation_phase(card, device, counted):
     out["phase_s"] = time.perf_counter() - start
     out["kernel_launches"] = dict(NAV_KERNEL_LAUNCHES)
     print(f"navigation stack: {out['phase_s']!r} s; kernel entries over its parts "
+          f"{out['kernel_launches']}")
+    return out
+
+
+# Planning II (phase 22): the A* variants and the MovingAI loader (host),
+# the any-angle planners, fields, frontier exploration, the risk graph,
+# coverage, road maps, and the temporal, conformal and STL planners. B2 lies
+# on the fields, coverage and frontier parts: every `wavefront_costs` call
+# there is counted (`count_wavefront_calls`) and must be one
+# `wavefront_relax` launch; every other kernel entry launches 0 times in
+# every part. Each part runs under sync debug mode "warn" (its device reads)
+# and on the host clock; a part whose run holds few launches also runs under
+# the profiler (launches, idle share), and a launch-heavy loop is profiled on
+# one short call of it. Sizes are those their users run; each part is held
+# to the CPU in f64 at the reduced size in brackets, within P2_ATOL for
+# fields and exactly for masks, paths, cells and counts (the fields and
+# paths of the B2 parts bitwise, in f32 and f64).
+P2_ATOL = 1e-12
+P2_MAZE_QUERY = (5.0, 5.0, 35.0, 45.0)  # tests/test_a_star_variants_golden.py:91
+P2_MOVING_AI, P2_SCENARIOS = 512, 1000  # an octile map of 512² and its scenarios
+P2_VIS, P2_VIS_ROOMS, P2_VIS_B, P2_VIS_CPU = 256, 4, 64, (48, 8)  # room map, 64 queries
+P2_THETA, P2_THETA_CPU = 128, 24
+P2_FLOW, P2_FLOW_F64_MAPS = (GRID_B, GRID_W, GRID_H), 8  # bench.py's grid shape
+P2_POTENTIAL, P2_POTENTIAL_CPU = 1024, 128
+P2_FRONTIER, P2_FRONTIER_CPU = 128, 32
+P2_TERRAIN, P2_TERRAIN_CPU = 1024, 128
+P2_SWEEP, P2_SWEEP_CPU = (16, 256), (4, 32)  # risk weights x map side
+P2_CPP, P2_CPP_CPU, P2_STC = 128, 24, 64
+P2_PRM, P2_PRM_CPU = (1000, 64), (150, 16)  # samples, obstacles
+P2_VORONOI, P2_VORONOI_CPU = 512, 64
+P2_TEMPORAL, P2_TEMPORAL_CPU = (256, 256), (32, 24)  # T, map side
+P2_MAPF, P2_MAPF_CPU = (8, 64, 128), (4, 16, 32)  # agents, map side, T
+P2_KERNEL_LAUNCHES = {}
+
+
+def p2_part(label, fn, counted, profiled=True, b2=False):
+    """`nav_part` with phase 22's launch totals."""
+    return nav_part(label, fn, counted, profiled, b2, P2_KERNEL_LAUNCHES)
+
+
+def one_profile(label, fn):
+    """A launch-heavy loop profiled on one short call of it."""
+    stats = profile_once(label, fn)
+    print(f"{label}: device busy {stats['busy_ms']!r} ms, {stats['launches']} launches, "
+          f"{stats['idle']:.3f} idle")
+    return stats
+
+
+def maze_points():
+    """The 50x50 wall maze of a_star_variants.rs tests (:835-:860), as
+    tests/test_a_star_variants_golden.py builds it."""
+    ox, oy = [], []
+
+    def wall(x0, y0, wx, wy):
+        for x in range(x0, x0 + wx):
+            for y in range(y0, y0 + wy):
+                ox.append(float(x))
+                oy.append(float(y))
+
+    for x, y, n in ((0, 0, 50), (48, 0, 50)):
+        wall(x, y, 2, n)
+    for x, y, n in ((0, 0, 50), (0, 48, 50)):
+        wall(x, y, n, 2)
+    for x, y, n in zip([10, 10, 10, 15, 20, 20, 30, 30, 35, 30, 40, 45],
+                       [10, 30, 45, 20, 5, 40, 10, 40, 5, 40, 10, 25],
+                       [10, 10, 5, 10, 10, 5, 20, 10, 25, 10, 35, 15]):
+        wall(x, y, 2, n)
+    for x, y, n in zip([35, 40, 15, 10, 45, 20, 10, 15, 25, 45, 10, 30, 10, 40],
+                       [5, 10, 15, 20, 20, 25, 30, 35, 35, 35, 40, 40, 45, 45],
+                       [10, 5, 10, 10, 5, 5, 10, 5, 10, 5, 10, 5, 5, 5]):
+        wall(x, y, n, 2)
+    return ox, oy
+
+
+def room_map(n, rooms, rng):
+    """n x n free raster split into rooms x rooms by one-cell walls, each
+    wall with a door of 2-5 cells at a random place."""
+    free = np.ones((n, n), bool)
+    step = n // rooms
+    for k in range(1, rooms):
+        free[k * step, :] = False
+        free[:, k * step] = False
+    for k in range(1, rooms):
+        for r in range(rooms):
+            lo = r * step + 1
+            for axis in (0, 1):
+                d = int(rng.integers(lo, lo + step - 6))
+                w = int(rng.integers(2, 6))
+                if axis == 0:
+                    free[k * step, d:d + w] = True
+                else:
+                    free[d:d + w, k * step] = True
+    return free
+
+
+def rect_world(n, rects, rng, max_side=None):
+    """n x n free raster with `rects` random blocked rectangles (the worlds
+    of tests/test_any_angle.py, scaled); the corners stay free."""
+    max_side = max_side or max(3, n // 8)
+    free = np.ones((n, n), bool)
+    for _ in range(rects):
+        x0, y0 = rng.integers(1, n - 2, 2)
+        dw, dh = rng.integers(1, max_side, 2)
+        free[x0:x0 + dw, y0:y0 + dh] = False
+    free[:2, :2] = free[-2:, -2:] = True
+    return free
+
+
+def free_cells(free, count, rng):
+    cells = np.argwhere(free)
+    return cells[rng.choice(len(cells), count, replace=False)]
+
+
+def p2_host_part(card, device, counted):
+    """(a) the A* variants on the maze, every mode, and the MovingAI parser
+    on a generated 512² map and its scenarios: host only."""
+    out = {}
+    ox, oy = maze_points()
+    lengths = {}
+    for mode in pav.MODES:
+        path, stats = p2_part(f"A* {mode} on the 50x50 maze (host)", lambda mode=mode:
+                              pav.AStarVariantPlanner(ox, oy, pav.AStarVariantConfig(mode=mode))
+                              .plan(*P2_MAZE_QUERY), counted, profiled=False)
+        lengths[mode] = pav.path_length(path)
+        out[mode] = {**stats, "waypoints": len(path), "length": lengths[mode]}
+        _gate(f"A* {mode} endpoints", np.array_equal(path[[0, -1]], [[5.0, 5.0], [35.0, 45.0]]),
+              f"{len(path)} waypoints, length {lengths[mode]!r}")
+    _gate("A* standard no longer than beam and dynamic weighting",
+          lengths["standard"] <= min(lengths["beam"], lengths["dynamic_weighting"]) + 1e-9,
+          f"{lengths}")
+
+    rng = np.random.default_rng(SEED + 220)
+    n = P2_MOVING_AI
+    tiles = np.where(rng.random((n, n)) < 0.25, "@", ".")
+    tiles[rng.random((n, n)) < 0.02] = "T"
+    text = "type octile\nheight %d\nwidth %d\nmap\n" % (n, n) + "\n".join(
+        "".join(row) for row in tiles) + "\n"
+    cells = np.argwhere(tiles.T != "@")[rng.choice(int((tiles != "@").sum()), 2 * P2_SCENARIOS)]
+    scen = "version 1\n" + "".join(
+        f"{i % 10}\tgen.map\t{n}\t{n}\t{a[0]}\t{a[1]}\t{b[0]}\t{b[1]}\t{rng.uniform(1, 700):.8f}\n"
+        for i, (a, b) in enumerate(zip(cells[::2], cells[1::2])))
+    parsed, stats = p2_part(f"MovingAI parse {n}² + {P2_SCENARIOS} scenarios (host)",
+                            lambda: (pmai.parse_map(text), pmai.parse_scenarios(scen)), counted,
+                            profiled=False)
+    grid = parsed[0].to_grid(device=device)
+    want = np.ones((n + 1, n + 1), bool)
+    want[1:, 1:] = (tiles != ".").T  # "@" and "T" are not passable
+    _gate(f"MovingAI {n}² raster on {card}", np.array_equal(grid.blocked.cpu().numpy(), want)
+          and len(parsed[1]) == P2_SCENARIOS and parsed[1][5].start_x == cells[10][0],
+          f"{int(want.sum())} blocked cells, {len(parsed[1])} scenarios")
+    out["moving_ai"] = {**stats, "cells": n * n, "scenarios": len(parsed[1])}
+    return out
+
+
+def p2_any_angle_part(card, device, counted):
+    """(b) `VisibilityPlanner` on a 256² room map with 64 queries, and the
+    Theta* wavefront on 128², f32; each held to the CPU in f64."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(SEED + 221)
+    free = room_map(P2_VIS, P2_VIS_ROOMS, rng)
+    ends = free_cells(free, 2 * P2_VIS_B, rng)
+    starts, goals = ends[::2], ends[1::2]
+
+    def visibility():
+        planner = pany.VisibilityPlanner(free, device=device, dtype=f32)
+        return planner, planner.lengths(starts, goals)
+
+    (planner, lengths), stats = p2_part(
+        f"VisibilityPlanner {P2_VIS}² rooms, {P2_VIS_B} queries f32 on {card}", visibility,
+        counted)
+    straight = np.linalg.norm((goals - starts).astype(float), axis=1)
+    lengths = lengths.cpu().numpy()
+    _gate(f"visibility lengths {P2_VIS}²", np.isfinite(lengths).all()
+          and (lengths >= straight * (1 - 1e-5)).all(),
+          f"{planner.corners.shape[0]} corners; lengths {lengths.min()!r}..{lengths.max()!r}")
+    out["visibility"] = {**stats, "corners": int(planner.corners.shape[0]),
+                         "queries": P2_VIS_B, "mean_length": float(lengths.mean())}
+
+    n, b = P2_VIS_CPU
+    small = room_map(n, 3, rng)
+    ends = free_cells(small, 2 * b, rng)
+    got, want = (pany.VisibilityPlanner(small, device=d, dtype=f64) for d in (device, "cpu"))
+    lg, lw = got.lengths(ends[::2], ends[1::2]), want.lengths(ends[::2], ends[1::2])
+    pg, pw = got.path(ends[0], ends[1]), want.path(ends[0], ends[1])
+    _gate(f"VisibilityPlanner {n}² f64 cuda = CPU",
+          torch.equal(got.corners.cpu(), want.corners) and torch.equal(got.vis.cpu(), want.vis)
+          and _diff(lg, lw) <= P2_ATOL and (pg is None) == (pw is None)
+          and (pg is None or np.array_equal(pg, pw)),
+          f"max|diff| {_diff(lg, lw)!r}")
+
+    free = room_map(P2_THETA, 2, rng)
+    goal = tuple(free_cells(free, 1, rng)[0])
+    (g, parent), stats = p2_part(f"theta_wavefront_costs {P2_THETA}² f32 on {card}",
+                                 lambda: pany.theta_wavefront_costs(free, goal, device=device,
+                                                                    dtype=f32),
+                                 counted, profiled=False)
+    stats["one_block"] = one_profile(
+        f"theta_wavefront_costs {P2_THETA}², one block of 4 sweeps",
+        lambda: pany.theta_wavefront_costs(free, goal, iters=4, device=device, dtype=f32))
+    octile = wavefront_costs(torch.tensor(free, device=device),
+                             torch.tensor(goal_raster_np(free.shape, goal), device=device))
+    reach = torch.isfinite(octile)
+    _gate(f"theta {P2_THETA}² <= octile wavefront", torch.equal(torch.isfinite(g), reach)
+          and bool((g[reach] <= octile[reach] + 1e-3).all()),
+          f"{int(reach.sum())} reachable cells")
+    out["theta"] = {**stats, "reachable": int(reach.sum()), "mean_cost": float(g[reach].mean())}
+    small = room_map(P2_THETA_CPU, 2, rng)
+    sg = tuple(free_cells(small, 1, rng)[0])
+    (gg, pg), (gw, pw) = (pany.theta_wavefront_costs(small, sg, device=d, dtype=f64)
+                          for d in (device, "cpu"))
+    _gate(f"theta {P2_THETA_CPU}² f64 cuda = CPU",
+          _diff(gg, gw) <= P2_ATOL and torch.equal(pg.cpu(), pw), f"max|diff| {_diff(gg, gw)!r}")
+    return out
+
+
+def p2_fields_part(card, device, counted):
+    """(c) `flow_field` on bench.py's 64 maps of 128² (B2, bitwise the CPU's
+    in f32 and f64) and `potential_field` on 1024²."""
+    out = {}
+    rng = np.random.default_rng(SEED + 222)
+    b, w, h = P2_FLOW
+    free_np = rng.random((b, w, h)) > 0.2
+    free_np[:, 0, 0] = free_np[:, -1, -1] = True
+    goals_np = np.zeros_like(free_np)
+    goals_np[:, -1, -1] = True
+    free_d, goals_d = torch.tensor(free_np, device=device), torch.tensor(goals_np, device=device)
+    field, stats = p2_part(f"flow_field {b} x {w}x{h} f32 on {card}",
+                           lambda: pfields.flow_field(free_d, goals_d), counted, b2=True)
+    want = pfields.flow_field(free_np, goals_np, device="cpu")
+    k = P2_FLOW_F64_MAPS
+    got64 = pfields.flow_field(free_d[:k], goals_d[:k], dtype=torch.float64)
+    want64 = pfields.flow_field(free_np[:k], goals_np[:k], device="cpu", dtype=torch.float64)
+    _gate(f"flow_field {b} x {w}x{h} f32 and {k} maps f64 bitwise the CPU's",
+          bitwise_equal(field.cpu(), want) and bitwise_equal(got64.cpu(), want64),
+          f"{int(torch.isfinite(field).sum())} reachable cells")
+    out["flow_field"] = stats
+
+    n = P2_POTENTIAL
+    blocked = ~rect_world(n, 60, rng, max_side=64)
+    goal = tuple(free_cells(~blocked, 1, rng)[0])
+    pot, stats = p2_part(f"potential_field {n}² f32 on {card}",
+                         lambda: pfields.potential_field(~blocked, goal, device=device), counted)
+    cells, valid = pfields.boustrophedon_sweep(~blocked, device=device)
+    ratio = float(pfields.coverage_ratio(torch.zeros(n, n, dtype=torch.bool, device=device)
+                                         .index_put_((cells[valid][:, 0], cells[valid][:, 1]),
+                                                     torch.ones((), dtype=torch.bool,
+                                                                device=device)), ~blocked))
+    _gate(f"potential_field {n}² finite, boustrophedon covers",
+          bool(torch.isfinite(pot).all()) and ratio == 1.0, f"coverage ratio {ratio!r}")
+    out["potential_field"] = stats
+    m = P2_POTENTIAL_CPU
+    small = ~rect_world(m, 30, rng)
+    got, want = (pfields.potential_field(~small, (m - 2, 3), device=d, dtype=torch.float64)
+                 for d in (device, "cpu"))
+    _gate(f"potential_field {m}² f64 cuda = CPU", _diff(got, want) <= P2_ATOL,
+          f"max|diff| {_diff(got, want)!r}")
+    return out
+
+
+def gap_world(n, rng):
+    """n x n truth raster: small random blocks, then walls across the map
+    every n/4 rows, each with two gaps of four cells cleared three rows
+    deep; start (1, 1) and goal (n - 2, n - 2) free."""
+    blocked = np.zeros((n, n), bool)
+    for _ in range(n // 4):
+        x, y = rng.integers(1, n - 4, 2)
+        w, h = rng.integers(1, 4, 2)
+        blocked[x:x + w, y:y + h] = True
+    for k in range(n // 4, n, n // 4):
+        blocked[k, :] = True
+        for gap in rng.choice(n - 6, 2, replace=False) + 1:
+            blocked[k - 3:k + 4, gap:gap + 4] = False
+    blocked[:3, :3] = blocked[-3:, -3:] = False
+    return blocked
+
+
+def p2_frontier_part(card, device, counted):
+    """(d) `frontier_navigate` on a 128² occluded world (B2, up to two calls
+    an episode), f32; the 32² world's trajectory on cuda = CPU in f32 and
+    f64."""
+    rng = np.random.default_rng(SEED + 223)
+    n = P2_FRONTIER
+    truth = gap_world(n, rng)
+    start, goal = (1, 1), (n - 2, n - 2)
+    cfg = pfrontier.FrontierNavConfig(max_episodes=400)
+    res, stats = p2_part(f"frontier_navigate {n}² f32 on {card}",
+                         lambda: pfrontier.frontier_navigate(truth, start, goal, cfg,
+                                                             device=device),
+                         counted, profiled=False, b2=True)
+    stats["one_episode"] = one_profile(
+        f"frontier_navigate {n}², one episode",
+        lambda: pfrontier.frontier_navigate(truth, start, goal,
+                                            pfrontier.FrontierNavConfig(max_episodes=1),
+                                            device=device))
+    _gate(f"frontier_navigate {n}² reaches the goal", res["reached"]
+          and not truth[res["trajectory"][:, 0], res["trajectory"][:, 1]].any(),
+          f"{res['episodes']} episodes, {len(res['trajectory'])} cells, revealed "
+          f"{res['revealed_fraction']!r}")
+    m = P2_FRONTIER_CPU
+    small = gap_world(m, rng)
+    for dtype in (torch.float32, torch.float64):
+        got, want = (pfrontier.frontier_navigate(small, (1, 1), (m - 2, m - 2), device=d,
+                                                 dtype=dtype) for d in (device, "cpu"))
+        _gate(f"frontier_navigate {m}² {dtype} cuda = CPU",
+              np.array_equal(got["trajectory"], want["trajectory"])
+              and got["episodes"] == want["episodes"]
+              and np.array_equal(got["frontiers_chosen"], want["frontiers_chosen"]),
+              f"{got['episodes']} episodes, reached {got['reached']}")
+    return {**stats, "episodes": res["episodes"], "trajectory_cells": len(res["trajectory"]),
+            "revealed_fraction": res["revealed_fraction"],
+            "frontiers_chosen": len(res["frontiers_chosen"])}
+
+
+def elevation(n, rng):
+    """A smooth random terrain with a cliff, n x n."""
+    z = ndimage.gaussian_filter(rng.normal(size=(n, n)), n / 32) * n / 16
+    z[n // 3:, n // 2] += 3.0
+    return z
+
+
+def p2_risk_part(card, device, counted):
+    """(e) terrain risk from a 1024² elevation (slope, roughness, smoothing,
+    exposure) and `sweep_risk_weights` over 16 weights on 256², f32."""
+    out = {}
+    rng = np.random.default_rng(SEED + 224)
+
+    def terrain(z, dev, dtype):
+        risk = prisk.terrain_risk_from_elevation(z, blocking_step_height=1.0, device=dev,
+                                                 dtype=dtype)
+        return prisk.add_clearance_exposure_risk(prisk.smooth_terrain_risk(risk))
+
+    z = elevation(P2_TERRAIN, rng)
+    risk, stats = p2_part(f"terrain risk {P2_TERRAIN}² f32 on {card}",
+                          lambda: terrain(z, device, torch.float32), counted)
+    out["terrain"] = {**stats, "blocked": int(risk.blocked.sum())}
+    zs = elevation(P2_TERRAIN_CPU, rng)
+    got, want = (terrain(zs, d, torch.float64) for d in (device, "cpu"))
+    err = max(_diff(getattr(got, k), getattr(want, k))
+              for k in ("traversability", "stability", "exposure"))
+    _gate(f"terrain risk {P2_TERRAIN_CPU}² f64 cuda = CPU",
+          err <= P2_ATOL and torch.equal(got.blocked.cpu(), want.blocked), f"max|diff| {err!r}")
+
+    def sweep(k, n, dev, dtype):
+        r = terrain(elevation(n, np.random.default_rng(SEED + 225)), dev, dtype)
+        blocked = r.blocked.clone()
+        blocked[:2, :2] = blocked[-2:, -2:] = False
+        r = prisk.RiskChannels(blocked, r.traversability, r.stability, r.exposure)
+        weights = [0.25 * i for i in range(k)]
+        return prisk.sweep_risk_weights(r, (0, 0), (n - 1, n - 1), weights)
+
+    k, n = P2_SWEEP
+    res, stats = p2_part(f"sweep_risk_weights {k} weights x {n}² f32 on {card}",
+                         lambda: sweep(k, n, device, torch.float32), counted, profiled=False)
+    costs = [float(r["cost"]) for r in res]
+    reached = [bool(r["path_mask"].any()) and tuple(r["path_idx"][r["path_mask"]][-1].tolist())
+               == (n - 1, n - 1) for r in res]
+    _gate(f"sweep_risk_weights {k} x {n}²: costs rise with the weight, paths reach the goal",
+          all(a <= b * (1 + 1e-6) for a, b in zip(costs, costs[1:])) and all(reached),
+          f"costs {costs[0]!r}..{costs[-1]!r}")
+    out["sweep"] = {**stats, "weights": k, "costs": costs}
+    k, n = P2_SWEEP_CPU
+    got, want = (sweep(k, n, d, torch.float64) for d in (device, "cpu"))
+    ok = all(_diff(g["cost"], w["cost"]) <= P2_ATOL and torch.equal(g["path_idx"].cpu(),
+                                                                    w["path_idx"])
+             for g, w in zip(got, want))
+    _gate(f"sweep_risk_weights {k} x {n}² f64 cuda = CPU", ok, "costs and paths")
+    return out
+
+
+def p2_coverage_part(card, device, counted):
+    """(f) `wavefront_cpp` on 128² (B2 for the transform, the walk on the
+    host), Spiral-STC and the spiral on 64²."""
+    out = {}
+    rng = np.random.default_rng(SEED + 226)
+    n = P2_CPP
+    blocked = ~rect_world(n, 40, rng)
+    (path, covered), stats = p2_part(
+        f"wavefront_cpp {n}² f32 on {card}",
+        lambda: pcoverage.wavefront_cpp(blocked, (0, 0), (n - 1, n - 1), device=device),
+        counted, profiled=False, b2=True)
+    t = pcoverage.coverage_transform(blocked, (n - 1, n - 1), pcoverage.WavefrontCppConfig(),
+                                     device=device)
+    reach = int(torch.isfinite(t).sum())
+    metrics = pcoverage.coverage_metrics(path, blocked)
+    # the walk ends at the goal, which it may reach with cells left over
+    _gate(f"wavefront_cpp {n}² walks free cells from start to goal",
+          tuple(path[0]) == (0, 0) and tuple(path[-1]) == (n - 1, n - 1)
+          and not blocked[path[:, 0], path[:, 1]].any() and covered <= reach,
+          f"{covered} of {reach} reachable cells, {metrics}")
+    out["wavefront_cpp"] = {**stats, **metrics, "covered": covered, "reachable": reach}
+    m = P2_CPP_CPU
+    small = ~rect_world(m, 6, rng)
+    for cfg in (dict(), dict(distance_type="euclidean"), dict(transform_type="path", alpha=0.5)):
+        c = pcoverage.WavefrontCppConfig(**cfg)
+        for dtype in (torch.float32, torch.float64):
+            (pg, _), (pw, _) = (pcoverage.wavefront_cpp(small, (0, 0), (m - 1, m - 1), c,
+                                                        device=d, dtype=dtype)
+                                for d in (device, "cpu"))
+            tg, tw = (pcoverage.coverage_transform(small, (m - 1, m - 1), c, device=d,
+                                                   dtype=dtype) for d in (device, "cpu"))
+            _gate(f"wavefront_cpp {m}² {cfg or 'chessboard'} {dtype} cuda = CPU",
+                  np.array_equal(pg, pw) and bitwise_equal(tg.cpu(), tw), f"{len(pg)} cells")
+    free = rect_world(P2_STC, 12, rng, max_side=4)
+    stc, stats = p2_part(f"spiral_stc_plan {P2_STC}² (host)",
+                         lambda: pcoverage.spiral_stc_plan(free, (0, 0)), counted, profiled=False)
+    out["spiral_stc"] = {**stats, "route": len(stc["route"]), "segments": len(stc["path_segments"])}
+    spiral = pcoverage.spiral_coverage(~free, (0, 0))
+    out["spiral_cells"] = len(spiral)
+    return out
+
+
+def prm_world(m, rng, size=50.0):
+    obstacles = rng.uniform(3.0, size - 3.0, (m, 2))
+    radii = rng.uniform(0.8, 2.0, m)
+    return obstacles, radii
+
+
+def p2_roadmap_part(card, device, counted):
+    """(g) PRM with 1000 samples among 64 obstacles, the Voronoi road map on
+    512², f32; each = the CPU in f64 at a reduced size."""
+    out = {}
+    rng = np.random.default_rng(SEED + 227)
+    s, m = P2_PRM
+    obstacles, radii = prm_world(m, rng)
+    kw = dict(num_samples=s, connect_radius=4.0, area_min=(0.0, 0.0), area_max=(50.0, 50.0))
+    gen = torch.Generator(device=device)
+
+    def prm():
+        gen.manual_seed(SEED)
+        return proad.prm_plan(gen, [1.0, 1.0], [49.0, 49.0], obstacles, radii, device=device,
+                              **kw)
+
+    (pts, mask, cost), stats = p2_part(f"prm_plan {s} samples, {m} obstacles f32 on {card}", prm,
+                                       counted)
+    path = pts[mask].double().cpu().numpy()
+    t = np.linspace(0.0, 1.0, 64)[:, None, None]
+    seg = path[:-1] + t * (path[1:] - path[:-1])
+    clear = (np.linalg.norm(seg[..., None, :] - obstacles, axis=-1) > radii - 1e-4).all()
+    _gate(f"prm_plan {s} samples", float(cost) < 1e17 and clear and len(path) >= 2,
+          f"cost {float(cost)!r}, {len(path)} waypoints")
+    out["prm"] = {**stats, "cost": float(cost), "waypoints": len(path)}
+    s, m = P2_PRM_CPU
+    obstacles, radii = prm_world(m, rng, 20.0)
+    draws = rng.random((s, 2))
+    small = dict(num_samples=s, connect_radius=3.0, area_min=(0.0, 0.0), area_max=(20.0, 20.0),
+                 draws=draws, dtype=torch.float64)
+    got, want = (proad.prm_plan(None, [1.0, 1.0], [19.0, 19.0], obstacles, radii, device=d,
+                                **small) for d in (device, "cpu"))
+    _gate(f"prm_plan {s} samples f64 cuda = CPU", torch.equal(got[1].cpu(), want[1])
+          and _diff(got[0], want[0]) <= P2_ATOL and _diff(got[2], want[2]) <= P2_ATOL,
+          f"cost {float(got[2])!r} vs {float(want[2])!r}")
+
+    def corridors(n):
+        blocked = np.zeros((n, n), bool)
+        blocked[:, :3] = blocked[:, -3:] = True
+        blocked[n // 4:n // 2, n // 3:n // 2] = True
+        blocked[2 * n // 3:, n // 2:2 * n // 3] = True
+        return blocked
+
+    n = P2_VORONOI
+    res = 0.05
+    (verts, weights), stats = p2_part(
+        f"voronoi_roadmap {n}² f32 on {card}",
+        lambda: proad.voronoi_roadmap([0.2, 0.5 * n * res], [(n - 4) * res, 0.5 * n * res],
+                                      corridors(n), 0.0, 0.0, res, device=device), counted)
+    edges = int(((weights < 1e17) & (weights > 0)).sum()) // 2
+    _gate(f"voronoi_roadmap {n}² symmetric", torch.equal(weights, weights.T) and edges > 0,
+          f"{verts.shape[0]} vertices, {edges} edges")
+    out["voronoi"] = {**stats, "vertices": int(verts.shape[0]), "edges": edges}
+    n = P2_VORONOI_CPU
+    got, want = (proad.voronoi_roadmap([0.3, 3.2], [6.0, 3.2], corridors(n), -0.1, 0.0, 0.1,
+                                       device=d, dtype=torch.float64) for d in (device, "cpu"))
+    _gate(f"voronoi_roadmap {n}² at 0.1 m f64 cuda = CPU",
+          bitwise_equal(got[0].cpu(), want[0]) and bitwise_equal(got[1].cpu(), want[1]),
+          f"max|diff| {_diff(got[0], want[0])!r}")
+    return out
+
+
+def mapf_world(n, agents, rng):
+    """n x n raster with small random blocks; agent i starts on the left
+    edge and crosses to the right edge, to the next agent's lane (the last
+    to the first), so that one path crosses all the others."""
+    free = rect_world(n, n // 6, rng, max_side=3)
+    gap = (n - 4) // agents
+    starts = [(1, 2 + gap * i) for i in range(agents)]
+    goals = [(n - 2, 2 + gap * ((i + 1) % agents) + gap // 2) for i in range(agents)]
+    for x, y in starts + goals:
+        free[x, y] = True
+    return free, starts, goals
+
+
+def p2_temporal_part(card, device, counted):
+    """(h) `time_expanded_costs` on T=256 x 256² with 8 moving obstacles,
+    and `prioritized_multi_agent`, `conformal_sipp_plan` (8 predicted
+    obstacles) and `stl_cbs_plan` with 8 agents on 64², T=128, f32."""
+    out = {}
+    rng = np.random.default_rng(SEED + 228)
+
+    def moving(t_max, n, dev, dtype):
+        free = rect_world(n, n // 8, rng)
+        trajs = np.cumsum(rng.integers(-1, 2, (8, t_max, 2)), axis=1) + rng.integers(0, n, (8, 1, 2))
+        mask = ptemporal.moving_obstacle_mask(free, np.clip(trajs, 0, n - 1), t_max, radius=1,
+                                              device=dev)
+        goal = (3 * n // 4, n // 4)
+        mask[0, 0, 0] = True
+        mask[:, goal[0], goal[1]] = True
+        costs = ptemporal.time_expanded_costs(mask, (0, 0), dtype=dtype)
+        return costs, ptemporal.earliest_arrival(costs, goal)
+
+    t_max, n = P2_TEMPORAL
+    (costs, (t_arr, cost)), stats = p2_part(
+        f"time_expanded_costs T={t_max} x {n}² f32 on {card}",
+        lambda: moving(t_max, n, device, torch.float32), counted, profiled=False)
+    stats["one_step"] = one_profile(f"time_expanded_costs T=2 x {n}²",
+                                    lambda: moving(2, n, device, torch.float32))
+    out["time_expanded"] = {**stats, "arrival": int(t_arr), "cost": float(cost)}
+    t_max, n = P2_TEMPORAL_CPU
+    state = rng.bit_generator.state
+    got = moving(t_max, n, device, torch.float64)
+    rng.bit_generator.state = state
+    want = moving(t_max, n, "cpu", torch.float64)
+    _gate(f"time_expanded_costs T={t_max} x {n}² f64 cuda = CPU",
+          _diff(got[0], want[0]) <= P2_ATOL and int(got[1][0]) == int(want[1][0]),
+          f"arrival {int(got[1][0])}")
+
+    def plans(agents, n, t_max, dev, dtype):
+        w = np.random.default_rng(SEED + 229)
+        free, starts, goals = mapf_world(n, agents, w)
+        pma = ptemporal.prioritized_multi_agent(free, starts, goals, t_max, device=dev,
+                                                dtype=dtype)
+        # predicted obstacles sweep across the middle columns
+        t = np.arange(t_max)
+        pred = np.stack([np.stack([np.full(t_max, n * (0.3 + 0.05 * j)),
+                                   (0.6 * t + n * j / agents) % n], -1) for j in range(agents)])
+        errs = np.abs(w.normal(0.0, 0.4, (t_max, 32)))
+        cp = pconformal.conformal_sipp_plan(~free, pred, errs, starts[0], goals[0],
+                                            required_confidence=0.8, obstacle_radius=0.5,
+                                            device=dev, dtype=dtype)
+        region = pstl.StlRectangle(n * 0.4, n * 0.55, n * 0.4, n * 0.55)
+        cbs = pstl.stl_cbs_plan(free, starts, goals, t_max, avoid_regions=((region, (0, t_max - 1)),),
+                                reach_specs=((0, [goals[0][0] - 1.0, goals[0][0] + 1.0,
+                                                  goals[0][1] - 1.0, goals[0][1] + 1.0],
+                                              (0, t_max - 1)),), device=dev, dtype=dtype)
+        return pma, cp, cbs
+
+    agents, n, t_max = P2_MAPF
+    (pma, cp, cbs), stats = p2_part(
+        f"prioritized MAPF, CP-SIPP and STL-CBS, {agents} agents on {n}², T={t_max} f32 on {card}",
+        lambda: plans(agents, n, t_max, device, torch.float32), counted, profiled=False)
+    _gate(f"MAPF {agents} agents {n}²: every agent arrives, no conflict",
+          (pma[1] >= 0).all() and (cbs["arrivals"] >= 0).all()
+          and pstl.first_conflict(cbs["paths"]) is None and cp is not None
+          and cp["min_confidence"] >= 0.8 - 1e-6,
+          f"prioritized arrivals {pma[1].tolist()}, CBS {cbs['arrivals'].tolist()}, "
+          f"{cbs['conflicts_resolved']} conflicts resolved, CP-SIPP arrival "
+          f"{None if cp is None else cp['arrival']}")
+    out["mapf"] = {**stats, "prioritized_arrivals": pma[1].tolist(),
+                   "cbs_arrivals": cbs["arrivals"].tolist(),
+                   "conflicts_resolved": cbs["conflicts_resolved"],
+                   "cp_sipp_arrival": cp["arrival"]}
+    agents, n, t_max = P2_MAPF_CPU
+    got, want = (plans(agents, n, t_max, d, torch.float64) for d in (device, "cpu"))
+    same = (np.array_equal(got[0][0], want[0][0]) and np.array_equal(got[0][1], want[0][1])
+            and (got[1] is None) == (want[1] is None)
+            and (got[1] is None or (np.array_equal(got[1]["path"], want[1]["path"])
+                                    and _diff(got[1]["confidence_field"],
+                                              want[1]["confidence_field"]) <= P2_ATOL))
+            and np.array_equal(got[2]["paths"], want[2]["paths"])
+            and got[2]["conflicts_resolved"] == want[2]["conflicts_resolved"]
+            and abs(got[2]["min_pairwise_separation_robustness"]
+                    - want[2]["min_pairwise_separation_robustness"]) <= P2_ATOL)
+    _gate(f"MAPF {agents} agents {n}², T={t_max} f64 cuda = CPU", same, "paths and counts")
+    return out
+
+
+def planning_ii_phase(card, device, counted):
+    """Planning II (phase 22): (a) host planners, (b) any-angle, (c) fields,
+    (d) frontier, (e) risk, (f) coverage, (g) road maps, (h) temporal."""
+    out = {"card": card}
+    start = time.perf_counter()
+    for name, part in (("host", p2_host_part), ("any_angle", p2_any_angle_part), ("fields", p2_fields_part),
+                       ("frontier", p2_frontier_part), ("risk", p2_risk_part),
+                       ("coverage", p2_coverage_part), ("roadmap", p2_roadmap_part),
+                       ("temporal", p2_temporal_part)):
+        t0 = time.perf_counter()
+        out[name] = part(card, device, counted)
+        out[name]["part_s"] = time.perf_counter() - t0
+        print(f"planning II, part {name}: {out[name]['part_s']!r} s")
+    out["phase_s"] = time.perf_counter() - start
+    out["kernel_launches"] = dict(P2_KERNEL_LAUNCHES)
+    print(f"planning II: {out['phase_s']!r} s; kernel entries over its parts "
           f"{out['kernel_launches']}")
     return out
 
@@ -4766,7 +5427,13 @@ def main() -> int:
     # (no kernel on its path)
     print(json.dumps({"navigation": navigation_phase(card, device, counted)}))
 
-    # 22. the kernels line
+    # 22. planning II: any-angle, A* variants, fields, frontier, risk,
+    # coverage, road maps, temporal, conformal, STL (B2 on fields, coverage
+    # and frontier)
+    planning_ii = planning_ii_phase(card, device, counted)
+    print(json.dumps({"planning_ii": planning_ii}))
+
+    # 23. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -4861,6 +5528,10 @@ def main() -> int:
         "launches": sum(c["wavefront_relax"] for c in grid_launches.values()),
         "launches_per_call": {e: c["wavefront_relax"] for e, c in grid_launches.items()},
         "launches_per_call_profiler": {e: p["b2_launches"] for e, p in grid_profile.items()},
+        "launches_planning_ii": planning_ii["kernel_launches"]["wavefront_relax"],
+        "path_planning_ii": "phase 22's fields, coverage and frontier parts: one launch per "
+                            "wavefront_costs call (flow_field, coverage_transform's and "
+                            "obstacle_distance_transform's, frontier_navigate's two an episode)",
         "max_abs_err": b2_err,
         "ms": relax_ms,
         "plain_ms": relax_plain_ms,
@@ -4886,7 +5557,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 23. the result
+    # 24. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

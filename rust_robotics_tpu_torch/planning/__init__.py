@@ -39,3 +39,23 @@ from rust_robotics_tpu_torch.planning.jps import (  # noqa: F401
     jump_distances,
     jump_point_mask,
 )
+from rust_robotics_tpu_torch.planning.fields import (  # noqa: F401
+    boustrophedon_sweep,
+    flow_field,
+    potential_field,
+)
+from rust_robotics_tpu_torch.planning.conformal import (  # noqa: F401
+    calibration_errors_from_trajectories,
+    confidence_field,
+    conformal_sipp_plan,
+    empirical_quantile,
+)
+from rust_robotics_tpu_torch.planning.any_angle import (  # noqa: F401
+    VisibilityPlanner,
+    corner_vertices,
+    theta_wavefront_costs,
+)
+from rust_robotics_tpu_torch.planning.a_star_variants import (  # noqa: F401
+    AStarVariantConfig,
+    AStarVariantPlanner,
+)

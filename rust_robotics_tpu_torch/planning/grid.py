@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from rust_robotics_tpu_torch._device import resolve_device
@@ -67,6 +68,37 @@ def _placement(x, device):
     if isinstance(x, torch.Tensor) and device is None:
         return x.device
     return resolve_device(device)
+
+
+def _bool_on(x, device=None):
+    """x as a bool tensor placed by `_placement`."""
+    if isinstance(x, np.ndarray) and not x.flags.writeable:
+        x = x.copy()  # torch warns on a read-only array
+    return torch.as_tensor(x, device=_placement(x, device)).to(torch.bool)
+
+
+def _float_on(x, device=None, dtype=torch.float32):
+    """x as a `dtype` tensor placed by `_placement`; host numbers pass
+    through float64 (a Python list would otherwise round to float32)."""
+    device = _placement(x, device)
+    if not isinstance(x, torch.Tensor):
+        x = np.array(x, dtype=np.float64)
+    return torch.as_tensor(x, device=device).to(dtype)
+
+
+def _host_bool(x):
+    """x as a host NumPy bool array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().astype(bool)
+    return np.asarray(x, bool)
+
+
+def _one_hot(shape, idx, device):
+    """[W, H] bool raster, True at the host cell `idx` only."""
+    w, h = shape
+    gx = torch.arange(w, device=device)[:, None]
+    gy = torch.arange(h, device=device)[None, :]
+    return (gx == int(idx[0])) & (gy == int(idx[1]))
 
 
 def _scalars(device, dtype, *values):

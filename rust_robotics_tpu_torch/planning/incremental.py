@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from rust_robotics_tpu_torch._device import resolve_device
+from rust_robotics_tpu_torch.planning.grid import _one_hot
 from rust_robotics_tpu_torch.planning.wavefront import (
     MOTIONS_4,
     MOTIONS_8,
@@ -192,13 +193,6 @@ def dstar_replan(d_prev, free_new, goals, **kw):
     """Original D* (d_star.rs): RAISE/LOWER wave repair — the two phases of
     `repair_costs` are precisely D*'s RAISE and LOWER states."""
     return repair_costs(d_prev, free_new, goals, **kw)
-
-
-def _one_hot(shape, idx, device):
-    w, h = shape
-    gx = torch.arange(w, device=device)[:, None]
-    gy = torch.arange(h, device=device)[None, :]
-    return (gx == int(idx[0])) & (gy == int(idx[1]))
 
 
 def ara_star_plan(free, start_idx, goal_idx, connectivity: int = 8, corner_cutting: bool = False,

@@ -45,11 +45,12 @@ def _motions(connectivity, diag_cost):
 
 
 def _shift(a, dx, dy, fill):
-    """shifted[x, y] = a[x+dx, y+dy], out-of-bounds -> fill. |dx|, |dy| <= 1."""
+    """shifted[x, y] = a[x+dx, y+dy], out-of-bounds -> fill."""
     w, h = a.shape[-2], a.shape[-1]
     out = torch.full_like(a, fill)
-    out[..., max(0, -dx):w - max(0, dx), max(0, -dy):h - max(0, dy)] = \
-        a[..., max(0, dx):w + min(0, dx), max(0, dy):h + min(0, dy)]
+    if abs(dx) < w and abs(dy) < h:
+        out[..., max(0, -dx):w - max(0, dx), max(0, -dy):h - max(0, dy)] = \
+            a[..., max(0, dx):w + min(0, dx), max(0, dy):h + min(0, dy)]
     return out
 
 

@@ -34,6 +34,7 @@ from typing import Any
 
 import torch
 
+from rust_robotics_tpu_torch._numeric import filled
 from rust_robotics_tpu_torch.core.lie import _safe_theta, skew, so3_exp, so3_log
 from rust_robotics_tpu_torch.nlls import (
     FactorBlock,
@@ -69,8 +70,7 @@ def gravity_vector(gravity, like):
     device and dtype; host numbers are written by fills, not copied."""
     if isinstance(gravity, torch.Tensor):
         return gravity.to(device=like.device, dtype=like.dtype)
-    return torch.stack([torch.full((), float(v), dtype=like.dtype, device=like.device)
-                        for v in gravity])
+    return filled([float(v) for v in gravity], like.dtype, like.device)
 
 
 def _mm(a, b):

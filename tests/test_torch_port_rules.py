@@ -47,6 +47,11 @@ def test_rule_scan_sees_what_it_must():
     flagged = [m for m, top in _imports(tree) if _forbidden(m, top)]
     assert flagged == ["jax.numpy", "rust_robotics_tpu.core", "triton"]
     assert len(PORT_FILES) > 10
+    scanned = {str(p.relative_to(ROOT / "rust_robotics_tpu_torch")) for p in PORT_FILES[:-1]}
+    assert scanned >= {"data/moving_ai.py"} | {
+        f"planning/{m}.py" for m in ("a_star_variants", "any_angle", "fields", "frontier",
+                                     "risk_graph", "coverage", "roadmap", "temporal",
+                                     "conformal", "stl")}
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
@@ -87,6 +92,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     )
     from rust_robotics_tpu_torch.mapping import gaussian_grid_map, lidar_to_grid
     from rust_robotics_tpu_torch.planning import jps_plan, octile_heuristic, plan_grid_3d
+    from rust_robotics_tpu_torch.planning import (
+        VisibilityPlanner,
+        flow_field,
+        potential_field,
+        theta_wavefront_costs,
+    )
+    from rust_robotics_tpu_torch.planning.risk_graph import risk_wavefront_costs
+    from rust_robotics_tpu_torch.planning.roadmap import build_prm, voronoi_roadmap
+    from rust_robotics_tpu_torch.planning.stl import stl_cbs_plan
+    from rust_robotics_tpu_torch.planning.temporal import time_expanded_costs
 
     blocked = np.eye(4, 3, dtype=bool)
     ox, oy = np.array([0.0, 4.0, 4.0]), np.array([0.0, 0.0, 3.0])
@@ -189,6 +204,21 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
         "plan_grid_3d": lambda **kw: plan_grid_3d(np.ones((3, 3, 3), bool), (0, 0, 0), (2, 2, 2),
                                                   max_len=4, **kw)[0],
         "octile_heuristic": lambda **kw: octile_heuristic((4, 3), (1, 1), **kw),
+        "flow_field": lambda **kw: flow_field(~blocked, blocked, **kw),
+        "potential_field": lambda **kw: potential_field(~blocked, (1, 1), **kw),
+        "theta_wavefront_costs": lambda **kw: theta_wavefront_costs(~blocked, (3, 2), iters=4,
+                                                                    samples=8, **kw)[0],
+        "VisibilityPlanner": lambda **kw: VisibilityPlanner(~blocked, **kw).vis,
+        "risk_wavefront_costs": lambda **kw: risk_wavefront_costs(~blocked, np.ones((4, 3)),
+                                                                  blocked, **kw),
+        "time_expanded_costs": lambda **kw: time_expanded_costs(np.ones((3, 4, 3), bool), (0, 0),
+                                                                **kw),
+        "build_prm": lambda **kw: build_prm(None, [0.5, 0.5], [9.0, 9.0], np.stack([ox, oy], -1),
+                                            np.ones(3), num_samples=4, **kw)[1],
+        "voronoi_roadmap": lambda **kw: voronoi_roadmap([0.5, 0.5], [3.5, 2.5], blocked, 0.0, 0.0,
+                                                        1.0, max_vertices=4, **kw)[1],
+        "stl_cbs_plan": lambda **kw: torch.tensor(stl_cbs_plan(~blocked, [(0, 1)], [(3, 2)], 6,
+                                                               **kw)["total_cost"]),
     }
     for name, call in host_data_calls.items():
         if torch.cuda.is_available():
