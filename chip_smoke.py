@@ -214,8 +214,28 @@ any failure exits non-zero before the final line.
     a reduced size (fields within 1e-12, paths and counts exactly, B2's
     fields bitwise in f32 and f64); then one JSON line
     `{"planning_ii": {...}}`;
-23. one JSON line `{"kernels": [...]}`;
-24. the last line, `{"ok": true, "device": {...}}`.
+23. the control layer, f32 at users' widths, each part run once under sync
+    debug mode "warn" on the host clock and a short call of it under the
+    profiler, the kernel entries counted: B2's `wavefront_relax` once per
+    counted `wavefront_costs` call (the value-guided MPPI's grid), every
+    other entry never: (a) pure pursuit, Stanley, rear-wheel feedback (1024
+    vehicles x 200 steps) and LQR steer (x 100 steps, a DARE per vehicle) on
+    bench_meta_control's 401-point path, the three nonlinear laws over 1024
+    lanes, the CBF filter (1024 robots x 150 steps), ADMM formation,
+    consensus and horizon consensus; (b) `mpc_control` for 1024 vehicles,
+    iLQR and DDP on 256 pendulums, `lqr_regulator`, C/GMRES (10 of its
+    test's 1200 steps, f64), `plan_landing` (f64); (c) `rrt_star_arm_plan`
+    (7 joints, 192 and 512 nodes), 3-D IK on 1024 targets; (d) bench_mppi's
+    loop, one plan of 1024 robots x 1024 samples x H 30 among 16 obstacles,
+    bench_mppi_value (B2) value-guided against vanilla, person following
+    and racing, `simulate_gate_race` at its defaults, `simulate_push` as
+    bench_pusher_slider and the two-contact couple; each part's gate (the
+    JAX test's of the same function), lanes bitwise their solo runs in f32,
+    f64 cuda = CPU at a reduced size (1e-9, discrete outputs exactly);
+    (e) the solver paths bitwise with TF32 allowed; then one JSON line
+    `{"control": {...}}`;
+24. one JSON line `{"kernels": [...]}`;
+25. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -305,6 +325,7 @@ from rust_robotics_tpu_torch.planning.wavefront import (
     _incoming_masks,
     _motions,
     extract_path,
+    goal_raster,
     plan_grid,
     wavefront_costs,
 )
@@ -365,6 +386,20 @@ from rust_robotics_tpu_torch.planning import roadmap as proad
 from rust_robotics_tpu_torch.planning import stl as pstl
 from rust_robotics_tpu_torch.planning import temporal as ptemporal
 from rust_robotics_tpu_torch.planning.smoothing import shortcut_path
+from rust_robotics_tpu_torch.control import admm as cadmm
+from rust_robotics_tpu_torch.control import arm as carm
+from rust_robotics_tpu_torch.control import cbf
+from rust_robotics_tpu_torch.control import cgmres as ccg
+from rust_robotics_tpu_torch.control import mpc as cmpc
+from rust_robotics_tpu_torch.control import mppi as cmppi
+from rust_robotics_tpu_torch.control import mppi_value as cvalue
+from rust_robotics_tpu_torch.control import mppi_variants as cvar
+from rust_robotics_tpu_torch.control import nonlinear as cnl
+from rust_robotics_tpu_torch.control import pusher_slider as cpush
+from rust_robotics_tpu_torch.control import racing as crace
+from rust_robotics_tpu_torch.control import rocket as crocket
+from rust_robotics_tpu_torch.control import trackers as ctrack
+from rust_robotics_tpu_torch.control import trajopt as ctraj
 from rust_robotics_tpu_torch.parallel import mesh as pmesh
 from rust_robotics_tpu_torch.parallel.pipeline import (
     pipeline_schedule,
@@ -4638,6 +4673,893 @@ def planning_ii_phase(card, device, counted):
     return out
 
 
+# phase 23: the control layer (control/: trackers, laws, CBF, ADMM, MPC,
+# trajectory optimisation, C/GMRES, the rocket, the arm, MPPI and its
+# variants, value grids, gate racing, the pusher-slider)
+CTL_FLEET = 1024
+CTL_LANES = (0, 511, 1023)
+CTL_LANE_STEPS = 10  # steps (iterations) of a lane's solo run held to the fleet's
+CTL_SMALL, CTL_SMALL_STEPS = 16, 10  # the f64 cuda = CPU runs
+CTL_ATOL = 1e-9
+CTL_TRACK_STEPS = 200  # bench_meta_control's loop on its 401-point path
+CTL_LQR_STEPS = 100  # the LQR steer fleet: a DARE a vehicle a step
+CTL_XTRACK_RMSE = 0.5  # tests/test_trackers.py's limit (0.4-0.5)
+CTL_CBF_STEPS = 150  # bench_cbf_safety_filter
+CTL_ILQR_BATCH, CTL_ILQR_ITERATIONS = 256, 15
+CTL_CGMRES_STEPS, CTL_CGMRES_CPU_STEPS = 10, 2
+CTL_RRT = ((192, dict(step_size=0.5, rewire_radius=1.2, edge_checks=6, path_len=32)),
+           (512, dict()))  # bench_arm_rrt_star's, then the defaults
+CTL_IK_ITERATIONS = 100
+CTL_MPPI_FLEET = (1024, 1024, 30, 16)  # robots, samples, horizon, obstacles
+CTL_RACE = dict(steps=120, horizon=18, num_samples=192)  # simulate_gate_race's defaults
+CTL_PUSH_STEPS = 40  # bench_pusher_slider
+# the kernel entries' launches summed over phase 23's parts
+CTL_KERNEL_LAUNCHES = {}
+CTL_WAVEFRONT_CALLS = [0]
+
+
+def ctl_wavefront(free, goals, **kw):
+    """`wavefront_costs`, counted: phase 23's one B2 call site (the
+    value-guided MPPI's terminal-value grid)."""
+    CTL_WAVEFRONT_CALLS[0] += 1
+    return wavefront_costs(free, goals, **kw)
+
+
+def ctl_part(label, fn, counted, short=None):
+    """fn() once under sync debug mode "warn" on the host clock (its reads)
+    and `short` (default fn) once under the profiler (launches, busy time,
+    idle share), the kernel entries counted over both: B2 once per
+    `ctl_wavefront` call, every other entry never. Returns (fn's result,
+    the numbers)."""
+    for k in counted:
+        k.launches = 0
+    CTL_WAVEFRONT_CALLS[0] = 0
+    host_s, (out, reads) = timed(lambda: reads_in(fn))
+    stats = {"host_s": host_s, "reads": reads, **profile_once(label, short or fn)}
+    stats["kernel_launches"] = {k.__name__: k.launches for k in counted}
+    stats["wavefront_costs_calls"] = CTL_WAVEFRONT_CALLS[0]
+    for name, n in stats["kernel_launches"].items():
+        CTL_KERNEL_LAUNCHES[name] = CTL_KERNEL_LAUNCHES.get(name, 0) + n
+    print(f"{label}: {host_s!r} s host; {reads} device reads; profiled call: device busy "
+          f"{stats['busy_ms']!r} ms, {stats['launches']} launches, {stats['idle']:.3f} idle; "
+          f"kernel entries {stats['kernel_launches']}")
+    others = {n: v for n, v in stats["kernel_launches"].items() if n != "wavefront_relax" and v}
+    if others or stats["kernel_launches"]["wavefront_relax"] != CTL_WAVEFRONT_CALLS[0]:
+        fail(f"{label}: kernel entries {stats['kernel_launches']} for {CTL_WAVEFRONT_CALLS[0]} "
+             f"wavefront_costs calls")
+    return out, stats
+
+
+def ctl_same(label, got, want, atol=CTL_ATOL):
+    """Floats within atol, anything else exactly; gated."""
+    if not torch.as_tensor(want).is_floating_point():
+        ok = torch.equal(torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu())
+        _gate(label, ok, "equal" if ok else f"{got} != {want}")
+        return 0.0
+    d = _diff(got, want)
+    _gate(label, d <= atol, f"max|diff| {d!r} (<= {atol})")
+    return d
+
+
+def ctl_lanes(label, fleet, solo):
+    """Lane i of `fleet` bitwise `solo(i)`, for each of CTL_LANES."""
+    ok = all(bitwise_equal(fleet[i], solo(i)) for i in CTL_LANES)
+    _gate(f"{label}: lanes {CTL_LANES} bitwise their solo runs", ok, "bitwise" if ok else "differ")
+    return ok
+
+
+def ctl_course(device, dtype):
+    """bench_meta_control's path: 401 points of y = 2 sin(x/8), 0 <= x <= 40."""
+    xs = np.linspace(0.0, 40.0, 401)
+    pts = np.stack([xs, 2.0 * np.sin(xs / 8.0)], -1)
+    return (torch.tensor(pts, dtype=dtype, device=device),
+            torch.ones(401, dtype=dtype, device=device))
+
+
+CTL_TRACKERS = {
+    "pure_pursuit": ctrack.pure_pursuit_control,
+    "stanley": ctrack.stanley_control,
+    "rear_wheel_feedback": ctrack.rear_wheel_feedback_control,
+    "lqr_steer": None,
+}
+
+
+def ctl_track(law, state, pts, mask, steps):
+    """`steps` closed-loop steps of `law` at 3 m/s (dt 0.1, wheelbase 2.9)
+    from state [..., 4]: (states [steps+1, ..., 4], the last step's target
+    index, or the LQR's lateral error)."""
+    e = th = torch.zeros_like(state[..., 0])
+    traj, last = [state], None
+    for _ in range(steps):
+        if law == "lqr_steer":
+            accel, steer, (e, th) = ctrack.lqr_steer_control(
+                state, pts, mask, 3.0, e, th, ctrack.LQRSteerConfig(wheelbase=2.9))
+            last = e
+        else:
+            accel, steer, last = CTL_TRACKERS[law](state, pts, mask, 3.0)
+        state = ctrack.bicycle_kinematics(state, accel, steer, 0.1, 2.9)
+        traj.append(state)
+    return torch.stack(traj), last
+
+
+def ctl_xtrack_rmse(traj):
+    """Each vehicle's cross-track RMSE to y = 2 sin(x/8) over 5 < x < 38."""
+    t = traj.double().cpu().numpy()
+    err = t[..., 1] - 2.0 * np.sin(t[..., 0] / 8.0)
+    sel = (t[..., 0] > 5.0) & (t[..., 0] < 38.0)
+    return np.sqrt((err ** 2 * sel).sum(0) / np.maximum(sel.sum(0), 1))
+
+
+def ctl_nonlinear(state, steps):
+    """tests/test_control_families.py's three loops over lanes: sliding
+    mode on a double integrator (dt 0.01), feedback linearization on a
+    unit circle and backstepping along the x axis (dt 0.02). state: (x,
+    xd, pose_fl, pose_bs). Returns the end states and the feedback
+    linearization's summed error over k > 700 (per lane)."""
+    x, xd, pose_fl, pose_bs = state
+    s_steps, f_steps, b_steps = steps
+    for _ in range(s_steps):
+        u, _ = cnl.sliding_mode_control(x, xd)
+        xd = xd + u * 0.01
+        x = x + xd * 0.01
+
+    def unicycle(pose, v, w, dt=0.02):
+        return torch.stack([pose[..., 0] + v * torch.cos(pose[..., 2]) * dt,
+                            pose[..., 1] + v * torch.sin(pose[..., 2]) * dt,
+                            pose[..., 2] + w * dt], -1)
+
+    err = torch.zeros_like(x)
+    for k in range(f_steps):
+        t = torch.full_like(x, k * 0.02)
+        target = torch.stack([torch.cos(t), torch.sin(t)], -1)
+        tvel = torch.stack([-torch.sin(t), torch.cos(t)], -1)
+        pose_fl = unicycle(pose_fl, *cnl.feedback_linearization_control(pose_fl, target, tvel))
+        if k > 700:
+            err = err + torch.sqrt(torch.sum((pose_fl[..., :2] - target) ** 2, -1))
+    for k in range(b_steps):
+        ref = torch.stack([torch.full_like(x, k * 0.02), torch.zeros_like(x),
+                           torch.zeros_like(x)], -1)
+        pose_bs = unicycle(pose_bs, *cnl.backstepping_control(pose_bs, ref, 1.0, 0.0))
+    return x, xd, pose_fl, pose_bs, err
+
+
+def ctl_cbf(pos, steps):
+    """bench_cbf_safety_filter's loop over robots pos [..., 2]: (the end
+    positions, each robot's least barrier value)."""
+    cfg = cbf.CBFConfig(alpha=2.0)
+    obstacles = torch.tensor([[2.0, 0.0]], dtype=pos.dtype, device=pos.device)
+    radii = torch.ones(1, dtype=pos.dtype, device=pos.device)
+    u_des = torch.tensor([1.5, 0.0], dtype=pos.dtype, device=pos.device)
+    min_h = torch.full_like(pos[..., 0], math.inf)
+    for _ in range(steps):
+        pos = pos + 0.05 * cbf.cbf_filter_single_integrator(pos, u_des, obstacles, radii, cfg)
+        min_h = torch.minimum(min_h, torch.sum((pos - obstacles[0]) ** 2, -1) - 1.0)
+    return pos, min_h
+
+
+def ctl_admm(device, dtype):
+    """bench_admm_formation, bench_admm_graph_consensus and
+    bench_admm_horizon_consensus on `device`."""
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    offsets = t([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]])
+    positions = t([[5.8, 2.1], [4.1, 2.0], [5.1, 2.9], [4.9, 1.2]])
+    out = {"formation": cadmm.solve_formation_consensus(positions, offsets,
+                                                        cfg=cadmm.ADMMConfig(iterations=200))}
+    for n in (3, 8):
+        xs = np.linspace(0.0, 4.0, n)
+        targets = t(np.stack([xs, np.sin(np.linspace(0.0, 3.0, n))], -1))
+        out[f"consensus_{n}"] = (targets, cadmm.solve_consensus(
+            targets, cfg=cadmm.ADMMConfig(iterations=300)))
+    cycles, horizon, dx, corner, amp = 34, 10, 0.18, 18, 0.25
+
+    def goal(step):
+        return np.array([min(step, corner) * dx, max(step - corner, 0) * dx])
+
+    for weight in (0.0, 40.0):
+        center = t(goal(0))
+        path = [center]
+        for c in range(cycles):
+            goals = np.stack([goal(c + k) for k in range(horizon)])
+            trajs = np.stack([goals + np.stack([[amp * np.sin(2.1 * a + 0.7 * (c + k)),
+                                                 amp * np.cos(1.3 * a + 0.9 * (c + k))]
+                                                for k in range(horizon)]) for a in range(4)])
+            z, _ = cadmm.solve_horizon_consensus(t(trajs), center, smooth_weight=weight,
+                                                 cfg=cadmm.ADMMConfig(iterations=120))
+            center = z[1]
+            path.append(center)
+        path = torch.stack(path)
+        accel = path[2:] - 2 * path[1:-1] + path[:-2]
+        out[f"horizon_{weight:g}"] = (path, torch.sqrt(torch.mean(torch.sum(accel ** 2, -1))))
+    return out
+
+
+def ctl_trackers_part(card, device, counted):
+    """(a) the trackers over a fleet on bench_meta_control's path, the
+    nonlinear laws, the CBF filter, ADMM."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(SEED + 231)
+    # around tests/test_trackers.py's starts: up to 1 m off the path, 0-0.3 rad, 0.5-1 m/s
+    starts = np.stack([rng.uniform(0.0, 1.0, CTL_FLEET), rng.uniform(-1.0, 0.0, CTL_FLEET),
+                       rng.uniform(0.0, 0.3, CTL_FLEET), rng.uniform(0.5, 1.0, CTL_FLEET)], -1)
+    pts, mask = ctl_course(device, f32)
+    pts64, mask64 = ctl_course(device, f64)
+    cpts64, cmask64 = ctl_course("cpu", f64)
+    s32 = torch.tensor(starts, dtype=f32, device=device)
+    for law in CTL_TRACKERS:
+        steps = CTL_LQR_STEPS if law == "lqr_steer" else CTL_TRACK_STEPS
+        (traj, _), stats = ctl_part(
+            f"{law}: {CTL_FLEET} vehicles x {steps} steps f32 on {card}",
+            lambda: ctl_track(law, s32, pts, mask, steps), counted,
+            short=lambda: ctl_track(law, s32, pts, mask, 1))
+        rmse = ctl_xtrack_rmse(traj)
+        _gate(f"{law}: every vehicle's cross-track RMSE < {CTL_XTRACK_RMSE}",
+              bool(np.isfinite(traj.cpu().numpy()).all()) and rmse.max() < CTL_XTRACK_RMSE,
+              f"max {rmse.max()!r}, median {np.median(rmse)!r}")
+        fleet = ctl_track(law, s32, pts, mask, CTL_LANE_STEPS)[0][-1]
+        ctl_lanes(f"{law} f32, {CTL_LANE_STEPS} steps", fleet,
+                  lambda i: ctl_track(law, s32[i], pts, mask, CTL_LANE_STEPS)[0][-1])
+        small = starts[:CTL_SMALL]
+        got = ctl_track(law, torch.tensor(small, dtype=f64, device=device), pts64, mask64,
+                        CTL_SMALL_STEPS)
+        want = ctl_track(law, torch.tensor(small, dtype=f64), cpts64, cmask64, CTL_SMALL_STEPS)
+        d = ctl_same(f"{law}: {CTL_SMALL} vehicles x {CTL_SMALL_STEPS} steps f64 cuda = CPU",
+                     got[0], want[0])
+        ctl_same(f"{law}: last targets (LQR: lateral errors) f64 cuda = CPU", got[1], want[1])
+        out[law] = {**stats, "steps": steps, "xtrack_rmse_max": float(rmse.max()),
+                    "f64_max_diff": d}
+
+    steps = (2000, 1500, 1500)
+
+    def nl_state(b, dtype, dev):
+        r = np.random.default_rng(SEED + 232)
+        x = r.uniform(-2.0, 2.0, b)
+        fl = np.stack([1.2 + r.normal(0, 0.2, b), r.normal(0, 0.2, b),
+                       np.pi / 2 + r.normal(0, 0.2, b)], -1)
+        bs = np.stack([np.zeros(b), r.uniform(0.5, 1.5, b), r.normal(0, 0.2, b)], -1)
+        t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+        return t(x), torch.zeros(b, dtype=dtype, device=dev), t(fl), t(bs)
+
+    st = nl_state(CTL_FLEET, f32, device)
+    res, stats = ctl_part(f"nonlinear laws: {CTL_FLEET} lanes x {steps} steps f32 on {card}",
+                          lambda: ctl_nonlinear(st, steps), counted,
+                          short=lambda: ctl_nonlinear(st, (1, 1, 1)))
+    x, xd, _, pose_bs, err = (r.double().cpu() for r in res)
+    mean_err = err / (steps[1] - 701)
+    ok = (bool((x.abs() < 0.05).all() and (xd.abs() < 0.2).all())
+          and float(mean_err.max()) < 0.25 and bool((pose_bs[:, 1].abs() < 0.05).all())
+          and bool(((pose_bs[:, 0] - steps[2] * 0.02).abs() < 0.5).all()))
+    _gate("nonlinear laws: tests/test_control_families.py's gates in every lane", ok,
+          f"sliding max|x| {float(x.abs().max())!r}, feedback linearization max mean error "
+          f"{float(mean_err.max())!r}, backstepping max|y| {float(pose_bs[:, 1].abs().max())!r}")
+    fleet = torch.stack(ctl_nonlinear(st, (CTL_LANE_STEPS,) * 3)[2:4], 0)
+    ctl_lanes("nonlinear laws f32", fleet.transpose(0, 1),
+              lambda i: torch.stack(ctl_nonlinear(tuple(a[i] for a in st),
+                                                  (CTL_LANE_STEPS,) * 3)[2:4], 0))
+    small = (CTL_SMALL_STEPS,) * 3
+    d = ctl_same("nonlinear laws f64 cuda = CPU",
+                 torch.cat([a.reshape(CTL_SMALL, -1) for a in ctl_nonlinear(
+                     nl_state(CTL_SMALL, f64, device), small)], -1),
+                 torch.cat([a.reshape(CTL_SMALL, -1) for a in ctl_nonlinear(
+                     nl_state(CTL_SMALL, f64, "cpu"), small)], -1))
+    out["nonlinear"] = {**stats, "f64_max_diff": d}
+
+    start = np.stack([np.zeros(CTL_FLEET), np.random.default_rng(SEED + 233).uniform(
+        -0.3, 0.3, CTL_FLEET)], -1)
+    p32 = torch.tensor(start, dtype=f32, device=device)
+    (_, min_h), stats = ctl_part(f"CBF filter: {CTL_FLEET} robots x {CTL_CBF_STEPS} steps f32 "
+                                 f"on {card}", lambda: ctl_cbf(p32, CTL_CBF_STEPS), counted,
+                                 short=lambda: ctl_cbf(p32, 1))
+    far = cbf.cbf_filter_single_integrator(
+        torch.tensor([-50.0, 0.0], device=device), torch.tensor([1.5, 0.0], device=device),
+        torch.tensor([[2.0, 0.0]], device=device), torch.ones(1, device=device),
+        cbf.CBFConfig(alpha=2.0))
+    far_err = float(torch.linalg.vector_norm(far.cpu() - torch.tensor([1.5, 0.0])))
+    _gate("CBF filter: barrier > -0.05 throughout, inactive far away (test_control_misc.py)",
+          float(min_h.min()) > -0.05 and far_err < 1e-6,
+          f"least barrier {float(min_h.min())!r}, far error {far_err!r}")
+    ctl_lanes("CBF f32", ctl_cbf(p32, CTL_LANE_STEPS)[0],
+              lambda i: ctl_cbf(p32[i], CTL_LANE_STEPS)[0])
+    d = ctl_same("CBF f64 cuda = CPU", ctl_cbf(torch.tensor(start[:CTL_SMALL], device=device),
+                                               CTL_SMALL_STEPS)[0],
+                 ctl_cbf(torch.tensor(start[:CTL_SMALL]), CTL_SMALL_STEPS)[0])
+    out["cbf"] = {**stats, "least_barrier": float(min_h.min()), "f64_max_diff": d}
+
+    res, stats = ctl_part(f"ADMM formation, consensus and horizon consensus f32 on {card}",
+                          lambda: ctl_admm(device, f32), counted,
+                          short=lambda: cadmm.solve_consensus(
+                              torch.ones(3, 2, device=device), cfg=cadmm.ADMMConfig(10)))
+    center, targets, fres = res["formation"]
+    offsets = torch.tensor([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0], [0.0, -1.0]], device=device)
+    want_center = torch.tensor([[5.8, 2.1], [4.1, 2.0], [5.1, 2.9], [4.9, 1.2]],
+                               device=device).sub(offsets).mean(0)
+    cons_err = max(float((c[1].z - c[0].mean(0)).abs().max()) for k, c in res.items()
+                   if k.startswith("consensus"))
+    ok = (float((center - want_center).abs().max()) < 1e-4
+          and float((targets - center - offsets).abs().max()) < 1e-4 and cons_err < 1e-4
+          and float(res["horizon_40"][1]) < float(res["horizon_0"][1]))
+    _gate("ADMM: the center and consensus within 1e-4 of the means, smoothing lowers the RMS "
+          "acceleration", ok, f"consensus error {cons_err!r}, RMS acceleration stiff "
+          f"{float(res['horizon_0'][1])!r} smooth {float(res['horizon_40'][1])!r}")
+    def admm_small(dev):
+        t = lambda a: torch.tensor(a, dtype=f64, device=dev)  # noqa: E731
+        rng_ = np.random.default_rng(SEED + 250)
+        targets, offsets = t(rng_.normal(0, 2, (6, 2))), t(rng_.normal(0, 1, (6, 2)))
+        goals = t(rng_.normal(0, 1, (4, 10, 2)))
+        return (cadmm.solve_formation_consensus(targets, offsets)[1],
+                cadmm.solve_horizon_consensus(goals, goals[0, 0], 40.0,
+                                              cadmm.ADMMConfig(iterations=120))[0])
+
+    got, want = admm_small(device), admm_small("cpu")
+    d = max(ctl_same("ADMM formation consensus f64 cuda = CPU", got[0], want[0]),
+            ctl_same("ADMM horizon consensus f64 cuda = CPU", got[1], want[1], 1e-8))
+    out["admm"] = {**stats, "f64_max_diff": d}
+    return out
+
+
+def ctl_pendulum(x, u, dt):
+    """tests/test_control_misc.py's pendulum."""
+    return torch.stack([x[0] + x[1] * dt, x[1] + (9.81 * torch.sin(x[0]) + u[0]) * dt])
+
+
+def ctl_pendulum_stage(x, u):
+    return 0.5 * (x[0] ** 2 + 0.1 * x[1] ** 2 + 0.01 * u[0] ** 2)
+
+
+def ctl_pendulum_terminal(x):
+    return 50.0 * (x[0] ** 2 + x[1] ** 2)
+
+
+def ctl_vdp(x, u):
+    """tests/test_cgmres_rocket.py's controlled Van der Pol."""
+    return torch.stack([x[1], -x[0] + (1.0 - x[0] ** 2) * x[1] + u[0]])
+
+
+def ctl_vdp_stage(x, u):
+    return 0.5 * (2.0 * x[0] ** 2 + x[1] ** 2 + 0.1 * u[0] ** 2)
+
+
+def ctl_vdp_terminal(x):
+    return 0.5 * (2.0 * x[0] ** 2 + x[1] ** 2)
+
+
+def ctl_mpc_inputs(b, dtype, device):
+    """test_mpc_respects_control_limits's reference (x from 0 to 20 m at
+    5 m/s) from starts scattered around the origin."""
+    r = np.random.default_rng(SEED + 234)
+    x0 = np.stack([r.uniform(-1, 1, b), r.uniform(-1, 1, b), r.uniform(0, 2, b),
+                   r.uniform(-0.2, 0.2, b)], -1)
+    ref = np.zeros((b, 6, 4))
+    ref[:, :, 0] = np.linspace(0.0, 20.0, 6) + x0[:, :1]
+    ref[:, :, 1] = x0[:, 1:2]
+    ref[:, :, 2] = 5.0
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return t(x0), t(ref), torch.zeros((b, 5, 2), dtype=dtype, device=device)
+
+
+def ctl_ilqr_starts(b):
+    r = np.random.default_rng(SEED + 235)
+    x0 = np.stack([r.uniform(-0.8, 0.8, b), r.uniform(-0.5, 0.5, b)], -1)
+    x0[0], x0[1] = (0.5, 0.0), (0.8, 0.0)  # tests/test_control_misc.py's starts
+    return x0
+
+
+def ctl_trajopt_part(card, device, counted):
+    """(b) the MPC over a fleet, iLQR and DDP, the LQR regulator, C/GMRES
+    and the rocket landing."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    cfg = cmpc.MPCConfig()
+    x0, ref, u0 = ctl_mpc_inputs(CTL_FLEET, f32, device)
+    (u, xs, _), stats = ctl_part(f"mpc_control: {CTL_FLEET} vehicles f32 on {card}",
+                                 lambda: cmpc.mpc_control(x0, ref, u0, cfg), counted,
+                                 short=lambda: cmpc.mpc_control(
+                                     x0, ref, u0, cmpc.MPCConfig(outer_iterations=1,
+                                                                 qp_iterations=1)))
+    ok = (float(u[..., 0].abs().max()) <= cfg.max_accel + 1e-6
+          and float(u[..., 1].abs().max()) <= cfg.max_steer + 1e-6
+          and float(u[:, 0, 0].min()) > 0.5 and bool(torch.isfinite(xs).all()))
+    _gate("mpc_control: within the limits, accelerating toward the fast reference "
+          "(test_mpc_respects_control_limits) in every lane", ok,
+          f"least first acceleration {float(u[:, 0, 0].min())!r}")
+    small = cmpc.MPCConfig(qp_iterations=40)
+    ctl_lanes("mpc_control f32, 3 x 40 steps", cmpc.mpc_control(x0, ref, u0, small)[0],
+              lambda i: cmpc.mpc_control(x0[i], ref[i], u0[i], small)[0])
+    got = cmpc.mpc_control(*ctl_mpc_inputs(CTL_SMALL, f64, device), small)[0]
+    want = cmpc.mpc_control(*ctl_mpc_inputs(CTL_SMALL, f64, "cpu"), small)[0]
+    out["mpc"] = {**stats, "f64_max_diff": ctl_same(
+        f"mpc_control {CTL_SMALL} vehicles (3 x 40 steps) f64 cuda = CPU", got, want, 1e-8)}
+
+    x0s = ctl_ilqr_starts(CTL_ILQR_BATCH)
+    icfg = ctraj.ILQRConfig(iterations=CTL_ILQR_ITERATIONS)
+    xb = torch.tensor(x0s, dtype=f32, device=device)
+    ub = torch.zeros((CTL_ILQR_BATCH, 60, 1), dtype=f32, device=device)
+    costs, ends = {}, {}
+    for name, solve in (("ilqr", ctraj.ilqr_solve), ("ddp", ctraj.ddp_solve)):
+        run = lambda solve=solve, xb=xb, ub=ub, it=icfg: solve(  # noqa: E731
+            ctl_pendulum, ctl_pendulum_stage, ctl_pendulum_terminal, xb, ub, 0.02, it)
+        (xs, us, cost), stats = ctl_part(
+            f"{name}: {CTL_ILQR_BATCH} pendulums x 60 knots, {CTL_ILQR_ITERATIONS} iterations "
+            f"f32 on {card}", run, counted,
+            short=lambda solve=solve: solve(ctl_pendulum, ctl_pendulum_stage,
+                                            ctl_pendulum_terminal, xb, ub, 0.02,
+                                            ctraj.ILQRConfig(iterations=1)))
+        costs[name], ends[name] = cost, xs
+        lane = 0 if name == "ilqr" else 1
+        small = ctraj.ILQRConfig(iterations=5)
+        args = (ctl_pendulum, ctl_pendulum_stage, ctl_pendulum_terminal)
+        fleet = solve(*args, xb, ub, 0.02, small)
+        solo = solve(*args, xb[lane], ub[lane], 0.02, small)
+        ok = bitwise_equal(solo[1], fleet[1][lane]) and bitwise_equal(solo[2], fleet[2][lane])
+        _gate(f"{name}: lane {lane} of the batch bitwise its solo solve (5 iterations)", ok,
+              "bitwise" if ok else "differ")
+        got = solve(*args, torch.tensor(x0s[:4], dtype=f64, device=device),
+                    torch.zeros((4, 60, 1), dtype=f64, device=device), 0.02, small)
+        want = solve(*args, torch.tensor(x0s[:4], dtype=f64), torch.zeros((4, 60, 1), dtype=f64),
+                     0.02, small)
+        # the controls are O(10): 1e-9 of their largest
+        out[name] = {**stats, "f64_max_diff": ctl_same(
+            f"{name}: 4 pendulums, 5 iterations, f64 cuda = CPU", got[1], want[1],
+            CTL_ATOL * float(want[1].abs().max()))}
+    theta_end = float(ends["ilqr"][0, -1, 0])
+    ok = (abs(theta_end) < 0.05 and float(costs["ilqr"][0]) < 10.0
+          and float(costs["ddp"][1]) <= 1.2 * float(costs["ilqr"][1]))
+    _gate("iLQR swings the pendulum up (|θ_H| < 0.05, cost < 10) and DDP <= 1.2 iLQR "
+          "(test_control_misc.py)", ok,
+          f"θ_H {theta_end!r}, cost {float(costs['ilqr'][0])!r}, DDP "
+          f"{float(costs['ddp'][1])!r} vs iLQR {float(costs['ilqr'][1])!r}")
+
+    dt = 0.02
+
+    def regulate(dev, dtype):
+        a = torch.tensor([[1.0, dt], [9.81 * dt, 1.0]], dtype=dtype, device=dev)
+        b = torch.tensor([[0.0], [dt]], dtype=dtype, device=dev)
+        k = ctraj.lqr_regulator(a, b, torch.eye(2, dtype=dtype, device=dev),
+                                torch.eye(1, dtype=dtype, device=dev))
+        x = torch.tensor([0.3, 0.0], dtype=dtype, device=dev)
+        for _ in range(400):
+            x = a @ x + b @ -(k @ x)
+        return k, x
+
+    (k, x), stats = ctl_part(f"lqr_regulator and 400 closed-loop steps f32 on {card}",
+                             lambda: regulate(device, f32), counted)
+    _gate("lqr_regulator: |x_400| < 1e-3 (test_control_misc.py)",
+          float(torch.linalg.vector_norm(x)) < 1e-3, f"|x| {float(torch.linalg.vector_norm(x))!r}")
+    out["lqr_regulator"] = {**stats, "f64_max_diff": ctl_same(
+        "lqr_regulator f64 cuda = CPU", regulate(device, f64)[0], regulate("cpu", f64)[0])}
+
+    ccfg = ccg.CGMRESConfig(sampling_dt=0.01)
+    residual = ccg.make_optimality_residual(
+        ctl_vdp, torch.func.grad(ctl_vdp_stage, argnums=1),
+        torch.func.grad(ctl_vdp_stage, argnums=0), torch.func.grad(ctl_vdp_terminal), ccfg)
+
+    def continuation(steps, dev=device):
+        """`run_cgmres`'s loop, step for step, keeping the horizon's
+        controls U: (states, |F(U, x)| at the start and the end)."""
+        x = torch.tensor([1.5, 0.0], dtype=f64, device=dev)
+        u_flat = torch.zeros(ccfg.horizon, dtype=f64, device=dev)
+        f0 = torch.linalg.vector_norm(residual(u_flat, x))
+        xs = [x]
+        for _ in range(steps):
+            u0 = u_flat[:1]
+            u_flat = ccg.cgmres_step(residual, u_flat, x, ctl_vdp(x, u0), ccfg)
+            x = x + ctl_vdp(x, u0) * ccfg.sampling_dt
+            xs.append(x)
+        return torch.stack(xs), f0, torch.linalg.vector_norm(residual(u_flat, x))
+
+    (xs, f0, f_end), stats = ctl_part(
+        f"C/GMRES: {CTL_CGMRES_STEPS} of test_cgmres_rocket.py's 1200 steps f64 on {card}",
+        lambda: continuation(CTL_CGMRES_STEPS), counted, short=lambda: continuation(1))
+    _gate(f"C/GMRES: finite, the optimality residual |F| down 100x in {CTL_CGMRES_STEPS} steps "
+          f"(the continuation's ζ = {ccfg.zeta:g}; the test's |x_1200| < 0.15 needs all 1200)",
+          bool(torch.isfinite(xs).all()) and float(f_end) < 0.01 * float(f0),
+          f"|F| {float(f0)!r} -> {float(f_end)!r}, x {xs[-1].tolist()}")
+    n = CTL_CGMRES_CPU_STEPS
+    got = ccg.run_cgmres(ctl_vdp, ctl_vdp_stage, ctl_vdp_terminal, [1.5, 0.0], n, ccfg,
+                         dtype=f64, device=device)[0]
+    want = ccg.run_cgmres(ctl_vdp, ctl_vdp_stage, ctl_vdp_terminal, [1.5, 0.0], n, ccfg,
+                          dtype=f64, device="cpu")[0]
+    _gate(f"run_cgmres {n} steps bitwise the continuation loop's", bitwise_equal(got, xs[:n + 1]),
+          "bitwise")
+    out["cgmres"] = {**stats, "steps": CTL_CGMRES_STEPS, "residual": [float(f0), float(f_end)],
+                     "f64_max_diff": ctl_same(f"run_cgmres {n} steps f64 cuda = CPU", got, want,
+                                              1e-8)}
+
+    rcfg = crocket.RocketConfig()
+    land = lambda dtype, dev=device: crocket.plan_landing(  # noqa: E731
+        [20.0, 60.0, -3.0, -8.0], [0.0, 0.0], rcfg, dtype=dtype, device=dev)
+    (xs, us, cost), stats = ctl_part(
+        f"plan_landing at RocketConfig() f64 on {card}", lambda: land(f64), counted,
+        short=lambda: crocket.plan_landing([20.0, 60.0, -3.0, -8.0], [0.0, 0.0],
+                                           crocket.RocketConfig(outer_iterations=1,
+                                                                inner_iterations=1),
+                                           dtype=f64, device=device))
+    final = xs[-1].cpu()
+    mags = torch.linalg.vector_norm(us.cpu(), dim=-1)
+    ok = (float(torch.linalg.vector_norm(final[:2])) < 1.0
+          and float(torch.linalg.vector_norm(final[2:])) < 1.0
+          and float(mags.max()) <= rcfg.max_thrust + 1e-6 and float(xs[:, 1].min()) > -1.0)
+    _gate("plan_landing f64 lands softly within the thrust bound (test_rocket_lands_softly, "
+          "x64)", ok, f"final {final.tolist()}, max thrust {float(mags.max())!r}")
+    small = crocket.RocketConfig(outer_iterations=1, inner_iterations=50)
+    out["rocket"] = {**stats, "f64_max_diff": ctl_same(
+        "plan_landing (50 steps) f64 cuda = CPU",
+        crocket.plan_landing([20.0, 60.0, -3.0, -8.0], [0.0, 0.0], small, dtype=f64,
+                             device=device)[1],
+        crocket.plan_landing([20.0, 60.0, -3.0, -8.0], [0.0, 0.0], small, dtype=f64,
+                             device="cpu")[1], 1e-8)}
+    return out
+
+
+CTL_ARM = dict(lengths=[0.5] * 7, centers=[[1.2, 0.6, 0.3], [0.8, -0.8, 0.5]], radii=[0.25, 0.25])
+
+
+def ctl_rrt(nodes, kw, dtype, device, seed=SEED + 236):
+    """bench_arm_rrt_star's problem with seeded numpy draws."""
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    draws = (t(r.uniform(-np.pi, np.pi, (nodes - 2, 7))), t(r.random(nodes - 2)))
+    return carm.rrt_star_arm_plan(None, t(np.zeros(7)), t(np.full(7, 0.6)), t(CTL_ARM["lengths"]),
+                                  t(CTL_ARM["centers"]), t(CTL_ARM["radii"]), max_nodes=nodes,
+                                  draws=draws, **kw)
+
+
+def ctl_ik_inputs(b, dtype, device):
+    r = np.random.default_rng(SEED + 237)
+    q = r.uniform(-1.0, 1.0, (b, 7))
+    lengths = torch.full((7,), 0.5, dtype=dtype, device=device)
+    targets = carm.end_effector_3d(torch.tensor(q, dtype=dtype, device=device), lengths)
+    start = torch.tensor(q + r.normal(0, 0.3, q.shape), dtype=dtype, device=device)
+    return start, targets, lengths
+
+
+def ctl_arm_part(card, device, counted):
+    """(c) the arm: RRT* in joint space and the 3-D IK over a batch."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    for nodes, kw in CTL_RRT:
+        plan, stats = ctl_part(f"rrt_star_arm_plan: 7 joints, {nodes} nodes f32 on {card}",
+                               lambda nodes=nodes, kw=kw: ctl_rrt(nodes, kw, f32, device),
+                               counted, short=lambda kw=kw: ctl_rrt(4, kw, f32, device))
+        _gate(f"rrt_star_arm_plan {nodes} nodes finds a path (bench_arm_rrt_star)",
+              bool(plan["found"]), f"cost {float(plan['cost'])!r}, "
+              f"{int(plan['mask'].sum())} waypoints")
+        out[f"rrt_{nodes}"] = {**stats, "found": bool(plan["found"]),
+                               "cost": float(plan["cost"])}
+    kw = CTL_RRT[0][1]
+    got, want = ctl_rrt(48, kw, f64, device), ctl_rrt(48, kw, f64, "cpu")
+    ctl_same("rrt_star_arm_plan 48 nodes f64 cuda = CPU: mask", got["mask"], want["mask"])
+    out["rrt_f64_max_diff"] = ctl_same("rrt_star_arm_plan 48 nodes f64 cuda = CPU: waypoints",
+                                       got["waypoints"], want["waypoints"])
+
+    start, targets, lengths = ctl_ik_inputs(CTL_FLEET, f32, device)
+    (angles, err), stats = ctl_part(
+        f"inverse_kinematics_3d: {CTL_FLEET} targets x {CTL_IK_ITERATIONS} iterations f32 on "
+        f"{card}", lambda: carm.inverse_kinematics_3d(start, targets, lengths, CTL_IK_ITERATIONS),
+        counted, short=lambda: carm.inverse_kinematics_3d(start, targets, lengths, 1))
+    med = float(err.median())
+    _gate("inverse_kinematics_3d reaches reachable targets (median error < 1e-3)", med < 1e-3,
+          f"median {med!r}, max {float(err.max())!r}")
+    ctl_lanes(f"inverse_kinematics_3d f32, {CTL_LANE_STEPS} iterations",
+              carm.inverse_kinematics_3d(start, targets, lengths, CTL_LANE_STEPS)[0],
+              lambda i: carm.inverse_kinematics_3d(start[i], targets[i], lengths,
+                                                   CTL_LANE_STEPS)[0])
+    got = carm.inverse_kinematics_3d(*ctl_ik_inputs(CTL_SMALL, f64, device), 20)[0]
+    want = carm.inverse_kinematics_3d(*ctl_ik_inputs(CTL_SMALL, f64, "cpu"), 20)[0]
+    out["ik"] = {**stats, "median_error": med, "f64_max_diff": ctl_same(
+        "inverse_kinematics_3d 20 iterations f64 cuda = CPU", got, want, 1e-8)}
+    return out
+
+
+def ctl_mppi_loop(stage, terminal, state, cfg, steps, draws):
+    """A closed loop of `steps` MPPI plans on the double integrator, plan i
+    drawing draws[i]; the states [steps+1, ..., 4]."""
+    u = torch.zeros(state.shape[:-1] + (cfg.horizon, 2), dtype=state.dtype, device=state.device)
+    traj = [state]
+    for i in range(steps):
+        u, first, _ = cmppi.mppi_plan(None, cmppi.double_integrator_dynamics, stage, terminal,
+                                      state, u, cfg, draws=draws[i])
+        state = cmppi.double_integrator_dynamics(state, first, cfg.dt)
+        u = cmppi.shift_nominal(u)
+        traj.append(state)
+    return torch.stack(traj)
+
+
+def ctl_normals(seed, shape, dtype, device):
+    return torch.tensor(np.random.default_rng(seed).standard_normal(shape), dtype=dtype,
+                        device=device)
+
+
+def ctl_value_world(device):
+    """bench_mppi_value's 48x48 world: a wall between start and goal."""
+    res, origin, w, h = 0.25, (-2.0, -4.0), 48, 48
+    free = np.ones((w, h), bool)
+    wall_x, wall_top = int((2.5 - origin[0]) / res), int((2.0 - origin[1]) / res)
+    free[wall_x:wall_x + 2, :wall_top] = False
+    goal_idx = (int((6.0 - origin[0]) / res), int((0.0 - origin[1]) / res))
+    obstacle_pts = np.argwhere(~free) * res + np.asarray(origin) + res / 2
+    return res, origin, free, goal_idx, obstacle_pts
+
+
+def ctl_value_mppi(device, dtype, steps, samples=512, wavefront=None):
+    """bench_mppi_value: value-guided against vanilla MPPI behind the wall;
+    (final distances, the value field)."""
+    res, origin, free, goal_idx, obstacle_pts = ctl_value_world(device)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    goal = t([6.0, 0.0])
+    field = (wavefront or wavefront_costs)(
+        torch.tensor(free, device=device),
+        goal_raster(free.shape, torch.tensor(goal_idx, device=device)), dtype=dtype) * res
+    vgrid = cvalue.TerminalValueGrid(t(origin), torch.full((), res, dtype=dtype, device=device),
+                                     field)
+    stage, quad_terminal = cmppi.make_goal_costs(goal, obstacles=t(obstacle_pts),
+                                                 obstacle_radius=0.4, obstacle_weight=500.0)
+    cfg = cmppi.MPPIConfig(horizon=25, num_samples=samples, noise_sigma=(0.8, 0.8))
+    draws = ctl_normals(SEED + 238, (steps, samples, 25, 2), dtype, device)
+    dists = []
+    for terminal in (cvalue.make_value_terminal_cost(vgrid, weight=30.0), quad_terminal):
+        traj = ctl_mppi_loop(stage, terminal, torch.zeros(4, dtype=dtype, device=device), cfg,
+                             steps, draws)
+        dists.append(torch.linalg.vector_norm(traj[-1, :2] - goal))
+    return torch.stack(dists), field
+
+
+def ctl_person_racing(device, dtype, steps=(80, 120), samples=512):
+    """tests/test_temporal_mppi_variants.py's loops: following a walker at
+    1.5 m (mean distance over steps > 40) and racing a 5 m circle (lap
+    progress, the farthest distance from the centerline)."""
+    cfg = cmppi.MPPIConfig(horizon=20, num_samples=samples, temperature=0.4,
+                           noise_sigma=(0.6, 0.6))
+    tt = torch.arange(20, dtype=dtype, device=device) * 0.1
+    state = torch.tensor([0.0, 2.5, 0.0, 0.0], dtype=dtype, device=device)
+    u = torch.zeros((20, 2), dtype=dtype, device=device)
+    draws = ctl_normals(SEED + 239, (steps[0], samples, 20, 2), dtype, device)
+    dist = torch.zeros((), dtype=dtype, device=device)
+    for k in range(steps[0]):
+        target = torch.stack([0.5 * (k * 0.1 + tt), torch.zeros_like(tt)], -1)
+        stage, term = cvar.make_person_following_costs(target, standoff=1.5)
+        u, u0, _ = cmppi.mppi_plan(None, cmppi.double_integrator_dynamics, stage, term, state, u,
+                                   cfg, draws=draws[k])
+        state = cmppi.double_integrator_dynamics(state, u0, cfg.dt)
+        u = cmppi.shift_nominal(u)
+        if k > 40:
+            dist = dist + torch.linalg.vector_norm(state[:2] - target[0])
+    th = torch.tensor(np.linspace(0, 2 * np.pi, 100, endpoint=False), dtype=dtype, device=device)
+    centerline = torch.stack([5 * torch.cos(th), 5 * torch.sin(th)], -1)
+    stage, term = cvar.make_racing_costs(centerline, half_width=1.0)
+    rcfg = cmppi.MPPIConfig(horizon=25, num_samples=samples, temperature=0.4,
+                            noise_sigma=(0.8, 0.8), control_min=(-3, -3), control_max=(3, 3))
+    traj = ctl_mppi_loop(stage, term, torch.tensor([5.0, 0.0, 0.0, 0.5], dtype=dtype,
+                                                   device=device), rcfg, steps[1],
+                         ctl_normals(SEED + 240, (steps[1], samples, 25, 2), dtype, device))
+    prog = cvar.lap_progress(traj, centerline)
+    off = torch.amax(torch.amin(torch.linalg.vector_norm(traj[:, None, :2] - centerline, dim=-1),
+                                -1))
+    return dist / max(steps[0] - 41, 1), prog, off
+
+
+def ctl_square_gates():
+    """demos/benchmarks.py's square lap of four gates."""
+    return [crace.GatePlane(c, n, half_width=1.2, half_height=1.2) for c, n in (
+        ((3.0, 0.0, 1.5), (0.0, 1.0, 0.0)), ((0.0, 3.0, 1.5), (-1.0, 0.0, 0.0)),
+        ((-3.0, 0.0, 1.5), (0.0, -1.0, 0.0)), ((0.0, -3.0, 1.5), (1.0, 0.0, 0.0)))]
+
+
+def ctl_race(device, dtype, steps, horizon, num_samples):
+    draws = ctl_normals(SEED + 241, (steps, num_samples, horizon, 4), dtype, device)
+    return crace.simulate_gate_race(None, ctl_square_gates(), crace.PowertrainParams(),
+                                    start=(3.0, -3.0, 1.5), steps=steps, horizon=horizon,
+                                    num_samples=num_samples, draws=draws, dtype=dtype,
+                                    device=device)
+
+
+def ctl_push(device, dtype, steps, horizon=12, samples=64):
+    draws = ctl_normals(SEED + 242, (steps, 4, samples, horizon, 3), dtype, device)
+    return cpush.simulate_push(None, cpush.PusherSliderParams(), (0.0, 0.0, 0.0), (1.2, 0.6, 0.0),
+                               steps=steps, cfg=cpush.PusherMppiConfig(horizon=horizon,
+                                                                       num_samples=samples),
+                               goal_tol=0.12, draws=draws, dtype=dtype, device=device)
+
+
+def ctl_mppi_part(card, device, counted):
+    """(d) MPPI: bench_mppi's loop, a fleet plan, the value-guided MPPI (B2),
+    person following and racing, gate racing, the pusher-slider."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    goal = torch.tensor([5.0, 5.0], device=device)
+    stage, terminal = cmppi.make_goal_costs(goal)
+    cfg = cmppi.MPPIConfig(horizon=25, num_samples=256)
+    draws = ctl_normals(SEED + 243, (40, 256, 25, 2), f32, device)
+    traj, stats = ctl_part(f"bench_mppi: K 256 x H 25, 40 steps f32 on {card}",
+                           lambda: ctl_mppi_loop(stage, terminal, torch.zeros(4, device=device),
+                                                 cfg, 40, draws), counted,
+                           short=lambda: ctl_mppi_loop(stage, terminal,
+                                                       torch.zeros(4, device=device), cfg, 1,
+                                                       draws))
+    dist = float(torch.linalg.vector_norm(traj[-1, :2] - goal))
+    # tests/test_dwa_mppi.py's loop: K 512, temperature 0.5, σ 0.8, 120 steps
+    goal2 = torch.tensor([5.0, 3.0], device=device)
+    tcfg = cmppi.MPPIConfig(horizon=25, num_samples=512, temperature=0.5, noise_sigma=(0.8, 0.8))
+    traj2 = ctl_mppi_loop(*cmppi.make_goal_costs(goal2), torch.zeros(4, device=device), tcfg, 120,
+                          ctl_normals(SEED + 249, (120, 512, 25, 2), f32, device))
+    dist2 = float(torch.linalg.vector_norm(traj2[-1, :2] - goal2))
+    _gate("bench_mppi finite and nearer its goal; test_dwa_mppi.py's loop within 0.3 m of its "
+          "goal", bool(torch.isfinite(traj).all()) and dist < float(torch.linalg.vector_norm(goal))
+          and dist2 < 0.3, f"final distances {dist!r}, {dist2!r}")
+    out["bench_mppi"] = {**stats, "final_distance": dist, "test_loop_final_distance": dist2}
+
+    robots, samples, horizon, n_obs = CTL_MPPI_FLEET
+    r = np.random.default_rng(SEED + 244)
+    obstacles = torch.tensor(r.uniform(1.0, 4.0, (n_obs, 2)), dtype=f32, device=device)
+    fstage, fterm = cmppi.make_goal_costs(goal, obstacles, 0.4)
+    fcfg = cmppi.MPPIConfig(horizon=horizon, num_samples=samples)
+    fstate = torch.tensor(np.concatenate([r.uniform(-1, 1, (robots, 2)),
+                                          r.normal(0, 0.3, (robots, 2))], -1), dtype=f32,
+                          device=device)
+    fu = torch.zeros((robots, horizon, 2), device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 245)
+    fdraws = torch.randn((robots, samples, horizon, 2), generator=gen, device=device)
+    plan = lambda: cmppi.mppi_plan(None, cmppi.double_integrator_dynamics, fstage, fterm,  # noqa
+                                   fstate, fu, fcfg, draws=fdraws)
+    (u, first, diag), stats = ctl_part(f"mppi_plan: {robots} robots x {samples} samples x H "
+                                       f"{horizon}, {n_obs} obstacles f32 on {card}", plan,
+                                       counted)
+    ess = diag.effective_sample_size
+    _gate("mppi fleet plan: finite, within the control box",
+          bool(torch.isfinite(u).all()) and float(u.abs().max()) <= 2.0,
+          f"ESS median {float(ess.median())!r}, least {float(ess.min())!r}")
+    ctl_lanes("mppi fleet plan f32", u, lambda i: cmppi.mppi_plan(
+        None, cmppi.double_integrator_dynamics, fstage, fterm, fstate[i], fu[i], fcfg,
+        draws=fdraws[i])[0])
+    del fdraws
+    scfg = cmppi.MPPIConfig(horizon=horizon, num_samples=64)
+
+    def small_plan(dev):
+        t = lambda a: a.to(device=dev, dtype=f64)  # noqa: E731
+        st, tm_ = cmppi.make_goal_costs(t(goal), t(obstacles), 0.4)
+        return cmppi.mppi_plan(None, cmppi.double_integrator_dynamics, st, tm_,
+                               t(fstate[:CTL_SMALL]), t(fu[:CTL_SMALL]), scfg,
+                               draws=ctl_normals(SEED + 246, (CTL_SMALL, 64, horizon, 2), f64,
+                                                 dev))[0]
+
+    out["fleet_plan"] = {**stats, "f64_max_diff": ctl_same(
+        f"mppi_plan {CTL_SMALL} robots x 64 samples f64 cuda = CPU", small_plan(device),
+        small_plan("cpu"))}
+
+    (dists, field), stats = ctl_part(
+        f"bench_mppi_value: 48x48 value grid (B2) and 2 x 70 steps, K 512 f32 on {card}",
+        lambda: ctl_value_mppi(device, f32, 70, wavefront=ctl_wavefront), counted,
+        short=lambda: ctl_value_mppi(device, f32, 1, wavefront=ctl_wavefront))
+    _gate("bench_mppi_value: the value-guided MPPI ends nearer the goal than the vanilla "
+          "(test_mppi_value.py)", float(dists[0]) < float(dists[1]),
+          f"value {float(dists[0])!r}, vanilla {float(dists[1])!r}")
+    res, origin, free, goal_idx, _ = ctl_value_world(device)
+    for dtype in (f32, f64):
+        got = wavefront_costs(torch.tensor(free, device=device),
+                              goal_raster(free.shape, torch.tensor(goal_idx, device=device)),
+                              dtype=dtype)
+        want = wavefront_costs(torch.tensor(free), goal_raster(free.shape, torch.tensor(goal_idx)),
+                               dtype=dtype)
+        _gate(f"bench_mppi_value's field {dtype} bitwise the CPU's",
+              bitwise_equal(got.cpu(), want), "bitwise")
+    got = ctl_value_mppi(device, f64, 3, samples=64)[0]
+    want = ctl_value_mppi("cpu", f64, 3, samples=64)[0]
+    out["value_mppi"] = {**stats, "value_distance": float(dists[0]),
+                         "vanilla_distance": float(dists[1]), "f64_max_diff": ctl_same(
+                             "bench_mppi_value 3 steps, K 64 f64 cuda = CPU", got, want)}
+
+    (dist, prog, off), stats = ctl_part(
+        f"person following (80 steps) and racing (120 steps), K 512 f32 on {card}",
+        lambda: ctl_person_racing(device, f32), counted,
+        short=lambda: ctl_person_racing(device, f32, (1, 1)))
+    ok = 0.7 < float(dist) < 2.6 and float(prog) > 0.25 and float(off) < 2.0
+    _gate("person following keeps its standoff, racing makes lap progress "
+          "(test_temporal_mppi_variants.py)", ok,
+          f"mean distance {float(dist)!r}, lap progress {float(prog)!r}, farthest off "
+          f"{float(off)!r}")
+    got = torch.stack(ctl_person_racing(device, f64, (3, 3), 64))
+    want = torch.stack(ctl_person_racing("cpu", f64, (3, 3), 64))
+    out["person_racing"] = {**stats, "f64_max_diff": ctl_same(
+        "person following and racing 3 steps, K 64 f64 cuda = CPU", got, want)}
+
+    rep, stats = ctl_part(f"simulate_gate_race at its defaults {CTL_RACE} f32 on {card}",
+                          lambda: ctl_race(device, f32, **CTL_RACE), counted,
+                          short=lambda: ctl_race(device, f32, 1, CTL_RACE["horizon"],
+                                                 CTL_RACE["num_samples"]))
+    _gate("simulate_gate_race passes a gate, draws charge, stays finite (test_racing.py)",
+          rep["gates_passed"] >= 1 and rep["final_soc"] < 1.0
+          and bool(np.isfinite(rep["trajectory"]).all()),
+          f"{rep['gates_passed']} gates, final SOC {rep['final_soc']!r}")
+    got, want = ctl_race(device, f64, 2, 6, 16), ctl_race("cpu", f64, 2, 6, 16)
+    ctl_same("simulate_gate_race 2 steps gates passed cuda = CPU",
+             torch.tensor(got["gates_passed"]), torch.tensor(want["gates_passed"]))
+    out["gate_race"] = {**stats, "gates_passed": rep["gates_passed"],
+                        "final_soc": rep["final_soc"], "f64_max_diff": ctl_same(
+                            "simulate_gate_race 2 steps, K 16 f64 cuda = CPU",
+                            torch.tensor(got["trajectory"]), torch.tensor(want["trajectory"]))}
+
+    rep, stats = ctl_part(f"simulate_push: {CTL_PUSH_STEPS} steps, K 64 x H 12 x 4 faces f32 "
+                          f"on {card}", lambda: ctl_push(device, f32, CTL_PUSH_STEPS), counted,
+                          short=lambda: ctl_push(device, f32, 1))
+    twist, modes, valid = cpush.two_contact_twist(cpush.PusherSliderParams(), (0, 2), (0.0, 0.0),
+                                                  (0.05, 0.05), (0.5, 0.5), dtype=f32,
+                                                  device=device)
+    ok = (rep["final_position_error"] < 0.25 and len(rep["faces"]) > 0
+          and bool(np.isfinite(rep["trajectory"]).all()) and bool(valid)
+          and abs(float(twist[2])) > 0.1)
+    _gate("simulate_push nears its goal (test_pusher_slider.py) and the two-contact couple "
+          "spins (bench_pusher_slider)", ok,
+          f"final position error {rep['final_position_error']!r} after {rep['steps_used']} "
+          f"steps, couple ω {float(twist[2])!r}")
+    got, want = ctl_push(device, f64, 2, 6, 16), ctl_push("cpu", f64, 2, 6, 16)
+    ctl_same("simulate_push 2 steps faces and modes cuda = CPU",
+             torch.tensor(np.concatenate([got["faces"], got["modes"]])),
+             torch.tensor(np.concatenate([want["faces"], want["modes"]])))
+    out["push"] = {**stats, "final_position_error": rep["final_position_error"],
+                   "f64_max_diff": ctl_same("simulate_push 2 steps, K 16 f64 cuda = CPU",
+                                            torch.tensor(got["trajectory"]),
+                                            torch.tensor(want["trajectory"]))}
+    return out
+
+
+def ctl_tf32_part(card, device):
+    """(e) The solver paths (mpc_control, ilqr_solve, solve_horizon_consensus,
+    lqr_steer_control) give the same bits with TF32 allowed as without."""
+    f32 = torch.float32
+    x0, ref, u0 = ctl_mpc_inputs(CTL_SMALL, f32, device)
+    xb = torch.tensor(ctl_ilqr_starts(4), dtype=f32, device=device)
+    ub = torch.zeros((4, 60, 1), dtype=f32, device=device)
+    goals = torch.tensor(np.random.default_rng(SEED + 247).normal(0, 1, (4, 10, 2)), dtype=f32,
+                         device=device)
+    pts, mask = ctl_course(device, f32)
+    starts = torch.tensor(np.random.default_rng(SEED + 248).uniform(0, 2, (64, 4)), dtype=f32,
+                          device=device)
+
+    def runs():
+        return {
+            "mpc_control": cmpc.mpc_control(x0, ref, u0, cmpc.MPCConfig(qp_iterations=40))[0],
+            "ilqr_solve": ctraj.ilqr_solve(ctl_pendulum, ctl_pendulum_stage, ctl_pendulum_terminal,
+                                           xb, ub, 0.02, ctraj.ILQRConfig(iterations=5))[1],
+            "solve_horizon_consensus": cadmm.solve_horizon_consensus(
+                goals, goals[0, 0], 40.0, cadmm.ADMMConfig(iterations=120))[0],
+            "lqr_steer_control": ctrack.lqr_steer_control(
+                starts, pts, mask, 3.0, starts[:, 0] * 0, starts[:, 0] * 0,
+                ctrack.LQRSteerConfig(wheelbase=2.9))[1],
+        }
+
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want = runs()
+        torch.set_float32_matmul_precision("high")
+        got = runs()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    bad = [k for k in want if not bitwise_equal(got[k], want[k])]
+    _gate(f"control solver paths with TF32 allowed (float32 matmul precision 'high') bitwise "
+          f"their 'highest' runs on {card}", not bad, f"differ: {bad}" if bad else "bitwise")
+    return {"tf32_bitwise": sorted(want)}
+
+
+def control_phase(card, device, counted):
+    """The control layer (phase 23): (a) trackers and laws, (b) MPC and
+    trajectory optimisation, (c) the arm, (d) MPPI, (e) TF32."""
+    out = {"card": card}
+    start = time.perf_counter()
+    for name, part in (("trackers", ctl_trackers_part), ("trajopt", ctl_trajopt_part),
+                       ("arm", ctl_arm_part), ("mppi", ctl_mppi_part)):
+        t0 = time.perf_counter()
+        out[name] = part(card, device, counted)
+        out[name]["part_s"] = time.perf_counter() - t0
+        print(f"control, part {name}: {out[name]['part_s']!r} s")
+    out["tf32"] = ctl_tf32_part(card, device)
+    out["phase_s"] = time.perf_counter() - start
+    out["kernel_launches"] = dict(CTL_KERNEL_LAUNCHES)
+    print(f"control: {out['phase_s']!r} s; kernel entries over its parts "
+          f"{out['kernel_launches']}")
+    return out
+
+
 _VIEW_OPS = {"empty", "empty_strided", "as_strided", "view", "_reshape_alias", "resize_",
              "detach", "lift_fresh", "alias", "_unsafe_view", "expand", "slice", "select", "t",
              "transpose", "permute", "unsqueeze", "squeeze", "item", "_local_scalar_dense",
@@ -5433,7 +6355,13 @@ def main() -> int:
     planning_ii = planning_ii_phase(card, device, counted)
     print(json.dumps({"planning_ii": planning_ii}))
 
-    # 23. the kernels line
+    # 23. the control layer: trackers, laws, CBF, ADMM, MPC, iLQR/DDP,
+    # C/GMRES, the rocket, the arm, MPPI and its variants, gate racing, the
+    # pusher-slider (B2 on the value-guided MPPI's grid)
+    control = control_phase(card, device, counted)
+    print(json.dumps({"control": control}))
+
+    # 24. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -5532,6 +6460,9 @@ def main() -> int:
         "path_planning_ii": "phase 22's fields, coverage and frontier parts: one launch per "
                             "wavefront_costs call (flow_field, coverage_transform's and "
                             "obstacle_distance_transform's, frontier_navigate's two an episode)",
+        "launches_control": control["kernel_launches"]["wavefront_relax"],
+        "path_control": "phase 23's value-guided MPPI (bench_mppi_value): one launch per "
+                        "wavefront_costs call of its 48x48 terminal-value grid",
         "max_abs_err": b2_err,
         "ms": relax_ms,
         "plain_ms": relax_plain_ms,
@@ -5557,7 +6488,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 24. the result
+    # 25. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

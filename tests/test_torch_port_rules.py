@@ -51,7 +51,10 @@ def test_rule_scan_sees_what_it_must():
     assert scanned >= {"data/moving_ai.py"} | {
         f"planning/{m}.py" for m in ("a_star_variants", "any_angle", "fields", "frontier",
                                      "risk_graph", "coverage", "roadmap", "temporal",
-                                     "conformal", "stl")}
+                                     "conformal", "stl")} | {
+        f"control/{m}.py" for m in ("trackers", "nonlinear", "cbf", "admm", "trajopt", "mpc",
+                                    "cgmres", "rocket", "arm", "mppi", "mppi_variants",
+                                    "mppi_value", "racing", "pusher_slider")}
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
@@ -102,6 +105,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     from rust_robotics_tpu_torch.planning.roadmap import build_prm, voronoi_roadmap
     from rust_robotics_tpu_torch.planning.stl import stl_cbs_plan
     from rust_robotics_tpu_torch.planning.temporal import time_expanded_costs
+    from rust_robotics_tpu_torch.control import cgmres, mppi_value, pusher_slider, racing
+    from rust_robotics_tpu_torch.control.rocket import RocketConfig, plan_landing
+    from rust_robotics_tpu_torch.control.trackers import pid_reset
 
     blocked = np.eye(4, 3, dtype=bool)
     ox, oy = np.array([0.0, 4.0, 4.0]), np.array([0.0, 0.0, 3.0])
@@ -220,6 +226,38 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
         "stl_cbs_plan": lambda **kw: torch.tensor(stl_cbs_plan(~blocked, [(0, 1)], [(3, 2)], 6,
                                                                **kw)["total_cost"]),
     }
+    quad = racing.MotorQuadParams()
+    gate = racing.GatePlane((3.0, 0.0, 1.5), (0.0, 1.0, 0.0))
+    pusher, push_cfg = pusher_slider.PusherSliderParams(), pusher_slider.PusherMppiConfig(
+        horizon=2, num_samples=4)
+    host_data_calls.update({
+        "pid_reset": lambda **kw: pid_reset((2,), **kw)[0],
+        "make_track": lambda **kw: mppi_value.make_track([[0.0, 0.0], [1.0, 0.0]],
+                                                         **kw).cumulative_lengths,
+        "grid_from_goal_distance": lambda **kw: mppi_value.grid_from_goal_distance(
+            3, 2, (0.0, 0.0), 1.0, (1.0, 1.0), **kw).values,
+        "make_replay_buffer": lambda **kw: mppi_value.make_replay_buffer(2, 3, 4, **kw).states,
+        "hover_state": lambda **kw: racing.hover_state(0.0, 0.0, 1.0, quad, **kw),
+        "powertrain_init": lambda **kw: racing.powertrain_init(
+            racing.hover_state(0.0, 0.0, 1.0, quad, **kw), racing.PowertrainParams()),
+        "make_gate_lap_costs": lambda **kw: racing.make_gate_lap_costs([gate], **kw)[1](
+            racing.hover_state(0.0, 0.0, 1.0, quad, **kw)),
+        "simulate_gate_race": lambda **kw: torch.tensor(racing.simulate_gate_race(
+            None, [gate], racing.PowertrainParams(), steps=1, horizon=2, num_samples=4,
+            **kw)["final_soc"]),
+        "simulate_push": lambda **kw: torch.tensor(pusher_slider.simulate_push(
+            None, pusher, (0.0, 0.0, 0.0), (1.0, 0.0, 0.0), steps=1, cfg=push_cfg,
+            **kw)["final_position_error"]),
+        "pusher_mppi_plan": lambda **kw: pusher_slider.pusher_mppi_plan(
+            None, pusher, (0.0, 0.0, 0.0), (1.0, 0.0, 0.0), push_cfg, **kw)[2],
+        "two_contact_twist": lambda **kw: pusher_slider.two_contact_twist(
+            pusher, (0, 2), (0.0, 0.0), (0.05, 0.05), (0.5, 0.5), **kw)[0],
+        "plan_landing": lambda **kw: plan_landing([0.0, 5.0, 0.0, 0.0], [0.0, 0.0], RocketConfig(
+            horizon=2, outer_iterations=1, inner_iterations=1), **kw)[1],
+        "run_cgmres": lambda **kw: cgmres.run_cgmres(
+            lambda x, u: torch.stack([x[1], u[0] - x[0]]), lambda x, u: torch.sum(x * x) + u[0] ** 2,
+            lambda x: torch.sum(x * x), [1.0, 0.0], 1, cgmres.CGMRESConfig(horizon=2), **kw)[0],
+    })
     for name, call in host_data_calls.items():
         if torch.cuda.is_available():
             assert call().is_cuda, name
