@@ -234,13 +234,33 @@ any failure exits non-zero before the final line.
     f64 cuda = CPU at a reduced size (1e-9, discrete outputs exactly);
     (e) the solver paths bitwise with TF32 allowed; then one JSON line
     `{"control": {...}}`;
-24. one JSON line `{"kernels": [...]}`;
-25. the last line, `{"ok": true, "device": {...}}`.
+24. the kinematic planners, f32 at the widths of the JAX package's benches
+    and tests, each part once under sync debug mode "warn" on the host
+    clock and a short call of it under the profiler, no kernel entry
+    launching: (a) bench_frenet's cycle, `calc_spline_course` on its 5
+    waypoints, Dubins and Reeds-Shepp on 1024 pose pairs, η³ path and
+    trajectory samples; (b) bench_rrt_star's four runs (seeds 0 and 1, RRT
+    and RRT*, 300 nodes) and a forest of 1024 RRT* trees of 300 nodes
+    (lanes bitwise their solo runs); (c) informed RRT*, RRT-connect,
+    bidirectional RRT (300 nodes), FMT* and RRG at 256 samples, BIT* (4 x
+    96), the Sobol RRT, `shortcut_path`; (d) the Dubins RRT/RRT* and the
+    Reeds-Shepp RRT* on 16 trees of the tests' 96 nodes, closed-loop RRT*
+    (600 steps), LQR-RRT* at 200 nodes; (e) the elastic band, DMP, PSO with
+    64 particles, `lqr_plan`, Bug2 and tangent Bug (host); (f)
+    `hybrid_astar_costs` on 128² x 16 headings, the lattice lookup table,
+    the clothoid, CHOMP, bipedal; each part's gate the JAX test's of the
+    same function, f64 cuda = CPU at a reduced size (1e-9, discrete
+    outputs exactly); (g) the solver paths bitwise with TF32 allowed; then
+    one JSON line `{"kinematic_planning": {...}}`;
+25. one JSON line `{"kernels": [...]}`;
+26. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -386,6 +406,18 @@ from rust_robotics_tpu_torch.planning import roadmap as proad
 from rust_robotics_tpu_torch.planning import stl as pstl
 from rust_robotics_tpu_torch.planning import temporal as ptemporal
 from rust_robotics_tpu_torch.planning.smoothing import shortcut_path
+from rust_robotics_tpu_torch.planning import bipedal as pbipedal
+from rust_robotics_tpu_torch.planning import chomp as pchomp
+from rust_robotics_tpu_torch.planning import curves as pcurves
+from rust_robotics_tpu_torch.planning import eta3 as peta3
+from rust_robotics_tpu_torch.planning import frenet as pfrenet
+from rust_robotics_tpu_torch.planning import hybrid_astar as phybrid
+from rust_robotics_tpu_torch.planning import lattice as plattice
+from rust_robotics_tpu_torch.planning import reactive as preactive
+from rust_robotics_tpu_torch.planning import reeds_shepp as preeds
+from rust_robotics_tpu_torch.planning import rrt as prrt
+from rust_robotics_tpu_torch.planning import rrt_kinematic as pkin
+from rust_robotics_tpu_torch.planning import rrt_variants as pvar
 from rust_robotics_tpu_torch.control import admm as cadmm
 from rust_robotics_tpu_torch.control import arm as carm
 from rust_robotics_tpu_torch.control import cbf
@@ -890,6 +922,19 @@ TRACE_MARGIN_S = 0.02
 TRACE_ATTEMPTS = 3
 
 
+DeviceEvent = collections.namedtuple("DeviceEvent", "name time_range")
+Span = collections.namedtuple("Span", "start end")  # µs
+
+
+def device_events(prof):
+    """A finished trace's device activities (name, time_range in µs), read
+    from the profiler's raw results: `prof.events()` builds an event object
+    for every activity, ~0.1 ms each, minutes for a trace of 10⁶ launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [DeviceEvent(e.name(), Span(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3))
+            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+
+
 def device_trace(label, fn, cpu=True, enough=bool):
     """fn() once under torch.profiler (host and device activities, or the
     device's alone with cpu=False), TRACE_MARGIN_S of idle time on each side
@@ -904,7 +949,7 @@ def device_trace(label, fn, cpu=True, enough=bool):
             fn()
             torch.cuda.synchronize()
             time.sleep(TRACE_MARGIN_S)
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = device_events(prof)
         if enough(events):
             if attempt > 1:
                 print(f"{label}: the trace of attempt {attempt} is whole")
@@ -4741,10 +4786,14 @@ def ctl_same(label, got, want, atol=CTL_ATOL):
     return d
 
 
-def ctl_lanes(label, fleet, solo):
-    """Lane i of `fleet` bitwise `solo(i)`, for each of CTL_LANES."""
-    ok = all(bitwise_equal(fleet[i], solo(i)) for i in CTL_LANES)
-    _gate(f"{label}: lanes {CTL_LANES} bitwise their solo runs", ok, "bitwise" if ok else "differ")
+def ctl_lanes(label, fleet, solo, lanes=CTL_LANES):
+    """Lane i of `fleet` (a tensor, or a tuple of tensors held to the tuple
+    `solo(i)` returns) bitwise `solo(i)`, for each lane."""
+    def pairs(i):
+        return zip(fleet, solo(i)) if isinstance(fleet, tuple) else ((fleet, solo(i)),)
+
+    ok = all(bitwise_equal(f[i], s) for i in lanes for f, s in pairs(i))
+    _gate(f"{label}: lanes {lanes} bitwise their solo runs", ok, "bitwise" if ok else "differ")
     return ok
 
 
@@ -5560,6 +5609,688 @@ def control_phase(card, device, counted):
     return out
 
 
+# phase 24: the kinematic planners (planning/: curves, Frenet, Reeds-Shepp,
+# eta3, the RRT family and its variants, the kinematic RRTs, the reactive
+# planners, hybrid A*, the lattice, CHOMP, the bipedal planner; no kernel)
+KIN_FOREST = 1024
+KIN_ATOL = 1e-9
+KIN_PAIRS = 1024  # Dubins and Reeds-Shepp pose pairs
+KIN_RRT = dict(expand_dis=1.0, max_nodes=300, connect_radius=2.5, goal_threshold=1.0)
+KIN_COURSE = ([[5.0, 5.0], [3.0, 6.0], [7.0, 4.0]], [1.0, 0.8, 0.8])  # bench_rrt_star's
+KIN_KCOURSE = ([[4.5, 4.5], [2.0, 6.5]], [1.2, 0.9])  # tests/test_rrt_kinematic.py's
+KIN_KLANES = 16  # the kinematic RRTs' small forest (a lane per seed)
+KIN_HYBRID = (128, 16)  # map side, headings
+# Each part is profiled at the size it is timed, but those whose call
+# launches ~70k kernels or more (the kinematic RRTs, the closed loop,
+# LQR-RRT*, the clothoid, CHOMP): the profiler adds ~0.1 ms of host time a
+# launch, so they profile a short call, named in their numbers
+# ("profiled"). KIN_PROFILE_FULL=1 in the environment profiles them at
+# full size too (phase 24 then takes ~100 s more).
+KIN_PROFILE_FULL = os.environ.get("KIN_PROFILE_FULL") == "1"
+KIN_KERNEL_LAUNCHES = {}
+
+
+def kin_part(label, fn, counted, short=None):
+    """fn() once under sync debug mode "warn" on the host clock (its reads)
+    and once more under the profiler (launches, busy time, idle share): at
+    the same size, or, for a part given `short` = (its size, a callable) and
+    without KIN_PROFILE_FULL, that short call. The kernel entries counted
+    over both: none may launch. Returns (fn's result, the numbers)."""
+    for k in counted:
+        k.launches = 0
+    host_s, (out, reads) = timed(lambda: reads_in(fn))
+    profiled, call = ("full", fn) if short is None or KIN_PROFILE_FULL else short
+    stats = {"host_s": host_s, "reads": reads, "profiled": profiled,
+             **profile_once(label, call)}
+    stats["kernel_launches"] = {k.__name__: k.launches for k in counted}
+    for name, n in stats["kernel_launches"].items():
+        KIN_KERNEL_LAUNCHES[name] = KIN_KERNEL_LAUNCHES.get(name, 0) + n
+    print(f"{label}: {host_s!r} s host; {reads} device reads; profiled call ({profiled}): "
+          f"device busy {stats['busy_ms']!r} ms, {stats['launches']} launches, "
+          f"{stats['idle']!r} idle; kernel entries {stats['kernel_launches']}")
+    if any(stats["kernel_launches"].values()):
+        fail(f"{label}: launched a kernel: {stats['kernel_launches']}")
+    return out, stats
+
+
+def kin_same_tree(label, got, want):
+    """Parents, active masks and counts exactly, nodes (or poses) and costs
+    within KIN_ATOL; gated. Returns the largest float difference."""
+    for name in ("parents", "active", "count"):
+        ctl_same(f"{label}: {name}", getattr(got, name), getattr(want, name))
+    nodes = "nodes" if hasattr(got, "nodes") else "poses"
+    return max(ctl_same(f"{label}: {nodes}", getattr(got, nodes), getattr(want, nodes), KIN_ATOL),
+               ctl_same(f"{label}: costs", got.costs, want.costs, KIN_ATOL))
+
+
+def kin_pose_pairs(n, dtype, device, seed=SEED + 260):
+    r = np.random.default_rng(seed)
+    a = np.concatenate([r.uniform(-5, 5, (n, 2)), r.uniform(-np.pi, np.pi, (n, 1))], 1)
+    b = np.concatenate([r.uniform(-5, 5, (n, 2)), r.uniform(-np.pi, np.pi, (n, 1))], 1)
+    return (torch.tensor(a, dtype=dtype, device=device), torch.tensor(b, dtype=dtype,
+                                                                      device=device))
+
+
+def kin_frenet(dtype, device):
+    """bench_frenet's cycle: the reference's demo course and obstacles."""
+    csp = pcurves.Spline2D.fit([0.0, 10.0, 20.5, 35.0, 70.5], [0.0, -6.0, 5.0, 6.5, 0.0],
+                               dtype=dtype, device=device)
+    obs = torch.tensor([[20.0, 10.0], [30.0, 6.0], [35.0, 8.0]], dtype=dtype, device=device)
+    return csp, obs, pfrenet.frenet_optimal_plan(csp, 0.0, 10.0 / 3.6, 2.0, 0.0, 0.0, obs)
+
+
+def kin_eta3(dtype, device):
+    chain = peta3.eta3_path_coefficients([[0.0, 0.0, 0.0], [4.0, 0.0, 0.0],
+                                          [7.0, 3.0, math.pi / 2]], dtype=dtype, device=device)
+    line = peta3.eta3_path_coefficients([[0.0, 0.0, 0.0], [10.0, 0.0, 0.0]], dtype=dtype,
+                                        device=device)
+    return (peta3.eta3_path_sample(chain, 200),
+            peta3.eta3_trajectory_sample(line, max_vel=2.0, max_accel=1.0, num_points=100))
+
+
+def kin_curves_part(card, device, counted):
+    """(a) bench_frenet's cycle, `calc_spline_course` on its 5 waypoints,
+    Dubins and Reeds-Shepp on 1024 pose pairs, η³ path and trajectory."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    (csp, obs, plan), stats = kin_part(f"frenet_optimal_plan (bench_frenet) f32 on {card}",
+                                       lambda: kin_frenet(f32, device), counted)
+    path = plan["path"].cpu().double()
+    rx, ry = (float(v) for v in csp.calc_position(torch.zeros((), dtype=f32, device=device)))
+    d = torch.linalg.vector_norm(path[:, None, :] - obs.cpu().double(), dim=-1)
+    ok = (bool(plan["any_valid"]) and math.isfinite(float(plan["cost"]))
+          and math.hypot(float(path[0, 0]) - rx, float(path[0, 1]) - ry) < 3.0
+          and float(d.min()) > 2.0)
+    _gate("frenet_optimal_plan: a valid plan clear of the obstacles (test_produces_valid_plan)",
+          ok, f"cost {float(plan['cost'])!r}, {int(plan['num_valid'])} valid, min clearance "
+              f"{float(d.min())!r}")
+    got, want = kin_frenet(f64, device)[2], kin_frenet(f64, "cpu")[2]
+    ctl_same("frenet_optimal_plan f64 cuda = CPU: best index", got["best_index"],
+             want["best_index"])
+    out["frenet"] = {**stats, "cost": float(plan["cost"]), "valid": int(plan["num_valid"]),
+                     "f64_max_diff": ctl_same("frenet_optimal_plan f64 cuda = CPU: path",
+                                              got["path"], want["path"])}
+
+    wx, wy = [0.0, 2.0, 4.0, 6.0, 8.0], [0.0, 1.5, 0.0, -1.5, 0.0]
+    course, stats = kin_part(f"calc_spline_course (5 waypoints, ds 0.1) f32 on {card}",
+                             lambda: pcurves.calc_spline_course(wx, wy, 0.1, dtype=f32,
+                                                                device=device), counted)
+    px, py = course[0].cpu().double(), course[1].cpu().double()
+    near = max(float(torch.min(torch.hypot(px - a, py - b))) for a, b in zip(wx, wy))
+    _gate("calc_spline_course passes its waypoints (< 0.06) with finite curvature "
+          "(test_course_properties)", near < 0.06 and bool(torch.isfinite(course[3]).all()),
+          f"farthest waypoint {near!r}")
+    out["spline_course"] = {**stats, "points": int(px.shape[0])}
+
+    a, b = kin_pose_pairs(KIN_PAIRS, f32, device)
+    (pts, total, word), stats = kin_part(
+        f"dubins_shortest_path: {KIN_PAIRS} pose pairs x 200 samples f32 on {card}",
+        lambda: pcurves.dubins_shortest_path(a, b, 1.0, 200), counted)
+    end_err = float(torch.linalg.vector_norm(pts[:, -1, :2] - b[:, :2], dim=-1).max())
+    yaw_err = float(torch.abs(torch.atan2(torch.sin(pts[:, -1, 2] - b[:, 2]),
+                                          torch.cos(pts[:, -1, 2] - b[:, 2]))).max())
+    lower = float((total - torch.linalg.vector_norm(b[:, :2] - a[:, :2], dim=-1)).min())
+    _gate("dubins_shortest_path reaches every goal (test_endpoint_reached, f32: 1e-3)",
+          end_err < 1e-3 and yaw_err < 1e-3 and lower >= -1e-4,
+          f"end {end_err!r}, yaw {yaw_err!r}, total − chord >= {lower!r}")
+    a64, b64 = kin_pose_pairs(64, f64, device)
+    g = pcurves.dubins_shortest_path(a64, b64, 1.0, 50)
+    w = pcurves.dubins_shortest_path(a64.cpu(), b64.cpu(), 1.0, 50)
+    ctl_same("dubins_shortest_path 64 pairs f64 cuda = CPU: words", g[2], w[2])
+    out["dubins"] = {**stats, "end_err": end_err, "f64_max_diff": ctl_same(
+        "dubins_shortest_path 64 pairs f64 cuda = CPU: samples", g[0], w[0])}
+
+    def rs():
+        segs, steers, total = preeds.reeds_shepp_path(a, b, 1.0)
+        return total, preeds.sample_reeds_shepp(a, segs, steers, 1.0, 200)
+
+    (total, pts), stats = kin_part(
+        f"reeds_shepp_path + sample: {KIN_PAIRS} pose pairs x 200 samples f32 on {card}", rs,
+        counted)
+    fin = torch.isfinite(total)
+    end_err = float(torch.linalg.vector_norm(pts[fin][:, -1, :2] - b[fin][:, :2], dim=-1).max())
+    share = float(fin.double().mean())
+    # the three base words and their symmetries leave ~2 % of random pairs
+    # without a word, in JAX too (0.9805 of these 1024 in f64 on the CPU)
+    _gate("reeds_shepp_path: the samples of every pair with a word reach the goal "
+          "(test_round2_batch, f32: 1e-3); >= 95 % of pairs have one",
+          share >= 0.95 and end_err < 1e-3, f"{share!r} with a word, end {end_err!r}")
+    g = preeds.reeds_shepp_path(a64, b64, 1.0)[2]
+    w = preeds.reeds_shepp_path(a64.cpu(), b64.cpu(), 1.0)[2]
+    # a tied CCC word pair may split by rounding; the total cannot
+    out["reeds_shepp"] = {**stats, "end_err": end_err, "word_share": share, "f64_max_diff": ctl_same(
+        "reeds_shepp_path 64 pairs f64 cuda = CPU: totals", g, w)}
+
+    (pts, traj), stats = kin_part(f"eta3 path (200) and trajectory (100) samples f32 on {card}",
+                                  lambda: kin_eta3(f32, device), counted)
+    pts, st = pts.cpu().double(), traj["states"].cpu().double()
+    knots = max(float(torch.linalg.vector_norm(pts - torch.tensor(p), dim=-1).min())
+                for p in ([0.0, 0.0], [4.0, 0.0], [7.0, 3.0]))
+    v = st[:, 3]
+    ok = (knots < 0.08 and float(torch.diff(pts, dim=0).norm(dim=-1).max()) < 0.3
+          and abs(float(v.max()) - 2.0) < 1e-5 and float(v[0]) < 0.25 and float(v[-1]) < 0.25
+          and abs(float(st[-1, 0]) - 10.0) < 0.05)
+    _gate("eta3 chain passes its knots; the trapezoid reaches cruise and the end "
+          "(test_eta3_path_chain_continuous, test_eta3_trajectory_trapezoid; f32 cruise 1e-5)",
+          ok, f"knots {knots!r}, v max {float(v.max())!r}, end x {float(st[-1, 0])!r}")
+    g, w = kin_eta3(f64, device), kin_eta3(f64, "cpu")
+    out["eta3"] = {**stats, "f64_max_diff": max(
+        ctl_same("eta3_path_sample f64 cuda = CPU", g[0], w[0]),
+        ctl_same("eta3_trajectory_sample f64 cuda = CPU", g[1]["states"], w[1]["states"]))}
+    return out
+
+
+def kin_draws(shape, dtype, device, seed):
+    return torch.tensor(np.random.default_rng(seed).random(shape), dtype=dtype, device=device)
+
+
+def kin_rrt(star, draws, dtype, device, cfg=None):
+    cfg = cfg or prrt.RRTConfig(**KIN_RRT)
+    obs, rad = KIN_COURSE
+    return prrt.rrt_plan(None, [0.0, 0.0], [10.0, 10.0], obs, rad, cfg, star=star,
+                         draws=draws, dtype=dtype, device=device)
+
+
+def kin_path_clear(pts, mask, obs, rad, checks=20):
+    """tests/test_rrt.py's `path_clear`: every segment sampled at `checks`
+    points clears every circle (numpy, on the host)."""
+    p = pts.cpu().double().numpy()[mask.cpu().numpy()]
+    obs, rad = np.asarray(obs), np.asarray(rad)
+    for a, b in zip(p[:-1], p[1:]):
+        for t in np.linspace(0, 1, checks):
+            if (np.linalg.norm(obs - (a + t * (b - a)), axis=-1) <= rad - 1e-6).any():
+                return False
+    return True
+
+
+def kin_rrt_part(card, device, counted):
+    """(b) bench_rrt_star's four runs and a forest of 1024 RRT* trees."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    n = KIN_RRT["max_nodes"]
+    runs = {}
+    for seed in (0, 1):
+        for star in (False, True):
+            d = kin_draws((n - 1, 3), f32, device, SEED + 270 + seed)
+            (tree, best, cost), stats = kin_part(
+                f"rrt_plan seed {seed} star {star}: {n} nodes (bench_rrt_star) f32 on {card}",
+                lambda d=d, star=star: kin_rrt(star, d, f32, device), counted)
+            pts, mask = prrt.extract_rrt_path(tree, best)
+            clear = kin_path_clear(pts, mask, *KIN_COURSE)
+            _gate(f"rrt_plan seed {seed} star {star} finds a clear path (test_rrt_finds_feasible_"
+                  f"path{'; RRT* < 2x the straight line' if star else ''})",
+                  float(cost) < 1e17 and clear and (not star or float(cost) < 2 * math.hypot(10, 10)),
+                  f"cost {float(cost)!r}, {int(tree.active.sum())} nodes")
+            runs[f"seed{seed}_{'star' if star else 'rrt'}"] = {
+                **stats, "cost": float(cost), "nodes": int(tree.active.sum())}
+    out["bench_rrt_star"] = runs
+
+    d = kin_draws((KIN_FOREST, n - 1, 3), f32, device, SEED + 272)
+    (forest, best, cost), stats = kin_part(
+        f"rrt_plan star: a forest of {KIN_FOREST} trees x {n} nodes f32 on {card}",
+        lambda: kin_rrt(True, d, f32, device), counted)
+    found = float((cost < 1e17).double().mean())
+    _gate("rrt_plan star forest: most trees find the goal (test_rrt_forest_vmap: >= 3 of 4)",
+          found >= 0.75, f"{found!r} of the trees")
+    ctl_lanes(f"rrt_plan star forest of {KIN_FOREST}", (forest.nodes, forest.parents, cost),
+              lambda i: (lambda t: (t[0].nodes, t[0].parents, t[2]))(kin_rrt(True, d[i], f32,
+                                                                             device)))
+    small = prrt.RRTConfig(**{**KIN_RRT, "max_nodes": 48})
+    d64 = kin_draws((47, 3), f64, "cpu", SEED + 273)
+    g = kin_rrt(True, d64.to(device), f64, device, small)
+    w = kin_rrt(True, d64, f64, "cpu", small)
+    ctl_same("rrt_plan star 48 nodes f64 cuda = CPU: best", g[1], w[1])
+    out["forest"] = {**stats, "trees": KIN_FOREST, "found_share": found,
+                     "f64_max_diff": kin_same_tree("rrt_plan star 48 nodes f64 cuda = CPU", g[0],
+                                                   w[0])}
+    return out
+
+
+def kin_variants_part(card, device, counted):
+    """(c) informed RRT*, RRT-connect, bidirectional RRT, FMT* and RRG at 256
+    samples, BIT*, the Sobol RRT and `shortcut_path`."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    obs, rad = [[5.0, 5.0], [3.0, 6.0], [7.0, 4.0]], [1.0, 0.8, 0.8]  # test_rrt_variants.py's
+    cfg = prrt.RRTConfig(expand_dis=1.0, max_nodes=300, connect_radius=2.5, goal_threshold=1.0)
+    s, g = [0.0, 0.0], [10.0, 10.0]
+    straight = math.hypot(10.0, 10.0)
+    n = cfg.max_nodes
+
+    def informed(c, dt, dev, seed=SEED + 280):
+        return pvar.informed_rrt_star_plan(None, s, g, obs, rad, c, dtype=dt, device=dev,
+                                           draws=kin_draws((c.max_nodes - 1, 5), dt, dev, seed))
+
+    (tree, best, cost), stats = kin_part(f"informed_rrt_star_plan {n} nodes f32 on {card}",
+                                         lambda: informed(cfg, f32, device), counted)
+    pts, mask = prrt.extract_rrt_path(tree, best)
+    _gate("informed_rrt_star_plan: a clear path, straight line <= cost < 2.2x it",
+          float(cost) < pvar.BIG / 2 and kin_path_clear(pts, mask, obs, rad, 30)
+          and straight - 1e-4 <= float(cost) < 2.2 * straight, f"cost {float(cost)!r}")
+    out["informed"] = {**stats, "cost": float(cost)}
+
+    for name, fn in (("rrt_connect_plan", pvar.rrt_connect_plan),
+                     ("bidirectional_rrt_plan", pvar.bidirectional_rrt_plan)):
+        def connect(c, dt, dev, fn=fn):
+            return fn(None, s, g, obs, rad, c, dtype=dt, device=dev,
+                      draws=kin_draws((c.max_nodes - 1, 2), dt, dev, SEED + 281))
+        (trees, link, cost), stats = kin_part(f"{name} {n} nodes f32 on {card}",
+                                              lambda connect=connect: connect(cfg, f32, device),
+                                              counted)
+        _gate(f"{name} joins its trees (test_rrt_connect_joins_trees)", float(cost) < pvar.BIG / 2,
+              f"cost {float(cost)!r}")
+        out[name] = {**stats, "cost": float(cost)}
+
+    gcfg = pvar.GraphPlannerConfig(num_samples=256, connect_radius=2.5)
+
+    def fmt(c, dt, dev):
+        return pvar.fmt_star_plan(None, s, g, obs, rad, c, dtype=dt, device=dev,
+                                  draws=kin_draws((c.num_samples, 2), dt, dev, SEED + 282))
+
+    (nodes, idx, mask, cost), stats = kin_part(f"fmt_star_plan 256 samples f32 on {card}",
+                                               lambda: fmt(gcfg, f32, device), counted)
+    path = torch.gather(nodes, 0, idx[:, None].expand(-1, 2))
+    # a graph planner checks an edge at its own `edge_checks` points; an
+    # r-disk edge (up to 2.5-3 m) may clip a circle between them, in JAX too
+    _gate("fmt_star_plan: a path clear at its edge checks (test_fmt_star_plans_free_path)",
+          float(cost) < pvar.BIG / 2 and kin_path_clear(path, mask, obs, rad, gcfg.edge_checks),
+          f"cost {float(cost)!r}, clear at 30 points an edge: "
+          f"{kin_path_clear(path, mask, obs, rad, 30)}")
+    small = pvar.GraphPlannerConfig(num_samples=48, connect_radius=3.0)
+    gg, ww = fmt(small, f64, device), fmt(small, f64, "cpu")
+    ctl_same("fmt_star_plan 48 samples f64 cuda = CPU: path", gg[1], ww[1])
+    out["fmt_star"] = {**stats, "cost": float(cost), "f64_max_diff": ctl_same(
+        "fmt_star_plan 48 samples f64 cuda = CPU: cost", gg[3], ww[3])}
+
+    rcfg = prrt.RRTConfig(expand_dis=1.0, max_nodes=256, connect_radius=2.5, goal_threshold=1.0)
+
+    def rrg(c, dt, dev):
+        return pvar.rrg_plan(None, s, g, obs, rad, c, dtype=dt, device=dev,
+                             draws=kin_draws((c.max_nodes - 1, 3), dt, dev, SEED + 283))
+
+    (nodes, idx, mask, cost), stats = kin_part(f"rrg_plan 256 nodes f32 on {card}",
+                                               lambda: rrg(rcfg, f32, device), counted)
+    path = torch.gather(nodes, 0, idx[:, None].expand(-1, 2))
+    _gate("rrg_plan: a path clear at its edge checks (test_rrg_plans_free_path)",
+          float(cost) < pvar.BIG / 2 and kin_path_clear(path, mask, obs, rad, rcfg.edge_checks),
+          f"cost {float(cost)!r}, clear at 30 points an edge: "
+          f"{kin_path_clear(path, mask, obs, rad, 30)}")
+    out["rrg"] = {**stats, "cost": float(cost)}
+
+    bcfg = pvar.GraphPlannerConfig(num_samples=0, connect_radius=3.0, batches=4, batch_size=96)
+
+    def bit(c, dt, dev):
+        return pvar.bit_star_plan(None, s, g, obs, rad, c, dtype=dt, device=dev,
+                                  draws=kin_draws((c.batches, c.batch_size, 4), dt, dev,
+                                                  SEED + 284))
+
+    (nodes, idx, mask, cost, hist), stats = kin_part(
+        f"bit_star_plan 4 batches x 96 f32 on {card}", lambda: bit(bcfg, f32, device), counted)
+    path = torch.gather(nodes, 0, idx[:, None].expand(-1, 2))
+    h = hist.cpu().double()
+    clear = kin_path_clear(path, mask, obs, rad, bcfg.edge_checks)
+    _gate("bit_star_plan: a path clear at its edge checks, cost never rising over the batches "
+          "(test_bit_star_monotone_improvement)",
+          float(cost) < pvar.BIG / 2 and bool((torch.diff(h) <= 1e-6).all()) and clear,
+          f"history {h.tolist()}, clear at 30 points an edge: "
+          f"{kin_path_clear(path, mask, obs, rad, 30)}")
+    out["bit_star"] = {**stats, "cost": float(cost)}
+
+    (tree, best, cost), stats = kin_part(
+        f"rrt_sobol_plan {n} nodes f32 on {card}",
+        lambda: pvar.rrt_sobol_plan(s, g, obs, rad, cfg, dtype=f32, device=device), counted)
+    again = pvar.rrt_sobol_plan(s, g, obs, rad, cfg, dtype=f32, device=device)
+    pts, mask = prrt.extract_rrt_path(tree, best)
+    _gate("rrt_sobol_plan: a clear path, the same on a second run "
+          "(test_rrt_sobol_deterministic_plan)",
+          float(cost) < pvar.BIG / 2 and bitwise_equal(cost, again[2])
+          and kin_path_clear(pts, mask, obs, rad, 30), f"cost {float(cost)!r}")
+    out["sobol"] = {**stats, "cost": float(cost)}
+
+    wiggly = torch.tensor([[0.0, 0.0], [0.0, 3.0], [1.0, 8.0], [2.0, 9.5], [5.0, 9.8],
+                           [8.0, 9.9], [10.0, 10.0]], dtype=f32, device=device)
+    keep0 = torch.ones(7, dtype=torch.bool, device=device)
+    sd = kin_draws((64, 2), f32, device, SEED + 285)
+    (_, keep, length), stats = kin_part(
+        f"shortcut_path 64 iterations f32 on {card}",
+        lambda: pvar.shortcut_path(None, wiggly, keep0, obs, rad, iters=64, draws=sd), counted)
+    before = float(torch.linalg.vector_norm(torch.diff(wiggly, dim=0), dim=-1).sum())
+    kept = wiggly[keep]
+    _gate("shortcut_path keeps the ends and shortens a clear path (test_shortcut_path_reduces_"
+          "length)", bool(keep[0]) and bool(keep[-1]) and float(length) <= before + 1e-4
+          and kin_path_clear(kept, torch.ones(len(kept), dtype=torch.bool), obs, rad, 30),
+          f"{before!r} -> {float(length)!r}")
+    out["shortcut"] = {**stats, "before": before, "after": float(length)}
+    return out
+
+
+def kin_kinematic(name, draws, dtype, device, nodes=96):
+    """tests/test_rrt_kinematic.py's course and configuration; draws [...,
+    nodes − 1, 4] (leading dims: the forest)."""
+    fn = {"rrt_dubins": pkin.rrt_dubins_plan, "rrt_star_dubins": pkin.rrt_star_dubins_plan,
+          "rrt_star_reeds_shepp": pkin.rrt_star_reeds_shepp_plan}[name]
+    cfg = pkin.KinematicRRTConfig(max_nodes=nodes, curvature=0.8, connect_radius=5.0)
+    return fn(None, [0.0, 0.0, 0.0], [9.0, 9.0, math.pi / 2], *KIN_KCOURSE, cfg, draws=draws,
+              dtype=dtype, device=device)
+
+
+def kin_kinematic_part(card, device, counted):
+    """(d) the Dubins and Reeds-Shepp RRT/RRT* at the tests' configuration
+    (16 lanes of 96 nodes), closed-loop RRT*, LQR-RRT* at 200 nodes."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    goal = torch.tensor([9.0, 9.0, math.pi / 2], dtype=f32, device=device)
+    obs, rad = (np.asarray(v) for v in KIN_KCOURSE)
+    d = kin_draws((KIN_KLANES, 95, 4), f32, device, SEED + 290)
+    for name in ("rrt_dubins", "rrt_star_dubins", "rrt_star_reeds_shepp"):
+        (tree, best, cost), stats = kin_part(
+            f"{name}: {KIN_KLANES} trees x 96 nodes f32 on {card}",
+            lambda name=name: kin_kinematic(name, d, f32, device), counted,
+            short=(f"{KIN_KLANES} trees x 12 nodes",
+                   lambda name=name: kin_kinematic(name, d[:, :11], f32, device, nodes=12)))
+        found = cost < 1e17
+        poses, mask = pkin.extract_pose_path(tree, best, goal, 0.8,
+                                             reeds_shepp=name.endswith("shepp"))
+        bad = []
+        for lane in torch.nonzero(found).flatten().tolist():
+            kept = poses[lane][mask[lane]].cpu().double().numpy()
+            clearance = np.linalg.norm(kept[:, None, :2] - obs[None], axis=-1)
+            end = np.linalg.norm(kept[-1, :2] - [9.0, 9.0])
+            if not (np.all(clearance > rad[None] - 1e-6) and end < 0.05):
+                bad.append(lane)
+        share = float(found.double().mean())
+        _gate(f"{name}: most of {KIN_KLANES} trees find a path; every path clear, ending at the "
+              f"goal (test_rrt_kinematic.py)", share >= 0.5 and not bad,
+              f"{share!r} found, bad lanes {bad}")
+        # a solo run costs what the forest does (launch-bound): the Dubins
+        # RRT* checks its first and last lanes, the others their last
+        lanes = (0, KIN_KLANES - 1) if name == "rrt_star_dubins" else (KIN_KLANES - 1,)
+        ctl_lanes(name, (tree.poses, tree.parents, cost),
+                  lambda i, name=name: (lambda t: (t[0].poses, t[0].parents, t[2]))(
+                      kin_kinematic(name, d[i], f32, device)), lanes=lanes)
+        out[name] = {**stats, "found_share": share, "best_cost": float(cost.min())}
+    d64 = kin_draws((2, 23, 4), f64, "cpu", SEED + 293)
+    g = kin_kinematic("rrt_star_dubins", d64.to(device), f64, device, nodes=24)
+    w = kin_kinematic("rrt_star_dubins", d64, f64, "cpu", nodes=24)
+    out["rrt_star_dubins"]["f64_max_diff"] = kin_same_tree(
+        "rrt_star_dubins 2 x 24 nodes f64 cuda = CPU", g[0], w[0])
+
+    cfg = pkin.KinematicRRTConfig(max_nodes=96, curvature=0.8, connect_radius=5.0)
+
+    def closed(steps, nodes=96, c=cfg):
+        return pkin.closed_loop_rrt_star_plan(
+            None, [0.0, 0.0, 0.0], [9.0, 9.0, math.pi / 2], *KIN_KCOURSE, c, target_speed=1.2,
+            sim_steps=steps, draws=kin_draws((nodes - 1, 4), f32, device, SEED + 291),
+            dtype=f32, device=device)
+
+    (traj, tree, cost, report), stats = kin_part(
+        f"closed_loop_rrt_star_plan 96 nodes x 600 steps f32 on {card}", lambda: closed(600),
+        counted, short=("12 nodes x 60 steps", lambda: closed(60, 12, pkin.KinematicRRTConfig(
+            max_nodes=12, curvature=0.8, connect_radius=5.0))))
+    v = traj[:, 3]
+    ok = (float(cost) < 1e17 and bool(report["tracked_collision_free"])
+          and float(report["min_goal_distance"]) < 2.0 and bool(torch.isfinite(traj).all())
+          and float(v.max()) <= 2.4 + 1e-6)
+    _gate("closed_loop_rrt_star_plan tracks its plan clear of the obstacles "
+          "(test_closed_loop_rrt_star_tracks_plan)", ok,
+          f"cost {float(cost)!r}, min goal distance {float(report['min_goal_distance'])!r}")
+    out["closed_loop"] = {**stats, "cost": float(cost),
+                          "min_goal_distance": float(report["min_goal_distance"])}
+
+    lcfg = pkin.LQRRRTConfig(max_nodes=200)
+
+    def lqr(c, dt, dev):
+        return pkin.lqr_rrt_star_plan(None, [0.0, 0.0, 0.0, 0.0], [8.0, 8.0, 0.0, 0.0],
+                                      *KIN_KCOURSE, c, dtype=dt, device=dev,
+                                      draws=kin_draws((c.max_nodes - 1, 3), dt, dev, SEED + 292))
+
+    (tree, best, cost), stats = kin_part(
+        f"lqr_rrt_star_plan 200 nodes f32 on {card}", lambda: lqr(lcfg, f32, device), counted,
+        short=("24 nodes", lambda: lqr(pkin.LQRRRTConfig(max_nodes=24), f32, device)))
+    nodes = tree["nodes"].cpu().double().numpy()
+    parents = tree["parents"].cpu().numpy()
+    chain_ok, cur, seen = True, int(best), 0
+    while cur >= 0 and seen < lcfg.max_nodes:
+        chain_ok &= bool(np.all(np.linalg.norm(nodes[cur, :2] - obs, axis=-1) > rad - 1e-6))
+        cur, seen = int(parents[cur]), seen + 1
+    end = float(np.linalg.norm(nodes[int(best), :2] - [8.0, 8.0]))
+    _gate("lqr_rrt_star_plan reaches the goal region along clear nodes "
+          "(test_lqr_rrt_star_reaches_goal_region)",
+          float(cost) < 1e17 and end <= lcfg.goal_threshold and chain_ok,
+          f"cost {float(cost)!r}, end {end!r}")
+    small = pkin.LQRRRTConfig(max_nodes=32)
+    g, w = lqr(small, f64, device), lqr(small, f64, "cpu")
+    ctl_same("lqr_rrt_star_plan 32 nodes f64 cuda = CPU: parents", g[0]["parents"],
+             w[0]["parents"])
+    out["lqr_rrt_star"] = {**stats, "cost": float(cost), "f64_max_diff": ctl_same(
+        "lqr_rrt_star_plan 32 nodes f64 cuda = CPU: nodes", g[0]["nodes"], w[0]["nodes"])}
+    return out
+
+
+def kin_reactive_part(card, device, counted):
+    """(e) the elastic band, DMP, PSO with 64 particles, `lqr_plan`, and
+    Bug2 and tangent Bug on the host."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+
+    def band(dt, dev):
+        xs = torch.linspace(0.0, 10.0, 21, dtype=dt, device=dev)
+        return preactive.elastic_band_optimize(torch.stack([xs, torch.zeros_like(xs)], -1),
+                                               [[5.0, 0.0]], [1.0])
+
+    pts, stats = kin_part(f"elastic_band_optimize 21 points x 100 iterations f32 on {card}",
+                          lambda: band(f32, device), counted)
+    d = float(torch.linalg.vector_norm(pts - torch.tensor([5.0, 0.0], device=device), dim=-1).min())
+    _gate("elastic_band_optimize pushes off the obstacle, ends fixed "
+          "(test_elastic_band_pushes_off_obstacle)",
+          d > 0.8 and float(pts[0].abs().max()) == 0.0 and float(pts[-1, 0]) == 10.0, f"{d!r}")
+    out["elastic_band"] = {**stats, "min_distance": d,
+                           "f64_max_diff": ctl_same("elastic_band f64 cuda = CPU",
+                                                    band(f64, device), band(f64, "cpu"))}
+
+    def dmp(dt, dev):
+        t = torch.arange(100, dtype=dt, device=dev) * 0.01
+        demo = torch.stack([torch.sin(2 * math.pi * t), t**2], -1)
+        w, (y0, g) = preactive.dmp_fit(demo, 0.01)
+        return demo, preactive.dmp_rollout(w, y0, g, 100, 0.01)
+
+    (demo, roll), stats = kin_part(f"dmp_fit + dmp_rollout 100 steps f32 on {card}",
+                                   lambda: dmp(f32, device), counted)
+    end = float((roll[-1] - demo[-1]).abs().max())
+    err = float((roll - demo).abs().mean())
+    _gate("dmp reproduces its demonstration (test_dmp_reproduces_demo)", end < 0.08 and err < 0.12,
+          f"end {end!r}, mean {err!r}")
+    out["dmp"] = {**stats, "mean_error": err, "f64_max_diff": ctl_same(
+        "dmp f64 cuda = CPU", dmp(f64, device)[1], dmp(f64, "cpu")[1])}
+
+    def pso(dt, dev):
+        target = torch.tensor([2.0, -3.0], dtype=dt, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 300)
+        return preactive.pso_minimize(gen, lambda x: ((x - target) ** 2).sum(-1), 2,
+                                      num_particles=64, dtype=dt, device=dev)
+
+    (best, val), stats = kin_part(f"pso_minimize 64 particles x 100 iterations f32 on {card}",
+                                  lambda: pso(f32, device), counted)
+    off = float((best.cpu().double() - torch.tensor([2.0, -3.0], dtype=f64)).abs().max())
+    _gate("pso_minimize finds the minimum (test_pso_finds_minimum)", off < 0.05 and float(val) < 1e-2,
+          f"off {off!r}, value {float(val)!r}")
+    out["pso"] = {**stats, "off": off}
+
+    traj, stats = kin_part(f"lqr_plan 120 steps f32 on {card}",
+                           lambda: preactive.lqr_plan([0.0, 0.0], [6.0, -4.0], steps=120,
+                                                      dtype=f32, device=device), counted)
+    off = float((traj[-1].cpu().double() - torch.tensor([6.0, -4.0], dtype=f64)).abs().max())
+    _gate("lqr_plan reaches the goal (test_lqr_plan_reaches_goal)", off < 0.1, f"{off!r}")
+    g = preactive.lqr_plan([0.0, 0.0], [6.0, -4.0], steps=40, dtype=f64, device=device)
+    w = preactive.lqr_plan([0.0, 0.0], [6.0, -4.0], steps=40, dtype=f64, device="cpu")
+    out["lqr_plan"] = {**stats, "off": off,
+                       "f64_max_diff": ctl_same("lqr_plan f64 cuda = CPU", g, w)}
+
+    wall = np.zeros((30, 30), bool)
+    wall[14:16, 0:22] = True
+    box = np.zeros((20, 20), bool)
+    box[8:12, 5:15] = True
+    t0 = time.perf_counter()
+    path, reached = preactive.bug2_plan(wall, (2, 10), (28, 10))
+    tpath, treached = preactive.tangent_bug_plan(box, (2, 10), (18, 10), sensor_range=5.0)
+    host_s = time.perf_counter() - t0
+    ok = (reached and len(path) > 30 and not wall[path[:, 0], path[:, 1]].any() and treached
+          and not box[tpath[:, 0], tpath[:, 1]].any())
+    _gate("bug2_plan and tangent_bug_plan reach their goals on free cells (host)", ok,
+          f"{len(path)} and {len(tpath)} cells")
+    out["bug"] = {"host_s": host_s, "bug2_cells": len(path), "tangent_cells": len(tpath)}
+    return out
+
+
+def kin_hybrid(side, headings, dtype, device):
+    """tests/test_hybrid_astar.py's detour scaled to a side² map: a wall
+    across the middle, the goal beyond it."""
+    blocked = np.zeros((side, side), bool)
+    blocked[side * 9 // 20:side * 11 // 20, side // 8:side * 7 // 8] = True
+    costs = phybrid.hybrid_astar_costs(~blocked, (side // 2, side - 2), headings // 4,
+                                       n_theta=headings, dtype=dtype, device=device)
+    return blocked, costs
+
+
+def kin_grid_part(card, device, counted):
+    """(f) `hybrid_astar_costs` on 128² x 16 headings, the lattice lookup
+    table, the clothoid, CHOMP and the bipedal plan."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    side, headings = KIN_HYBRID
+    (blocked, costs), stats = kin_part(
+        f"hybrid_astar_costs {side}² x {headings} headings f32 on {card}",
+        lambda: kin_hybrid(side, headings, f32, device), counted)
+    start = (side // 2, 2)
+    c = float(costs[headings // 4, start[0], start[1]])
+    # the host descent compares its f64 sums at 1e-9, so it walks the f64 field
+    c64 = kin_hybrid(side, headings, f64, device)[1]
+    states, _, total = phybrid.extract_hybrid_path(c64, ~blocked, start, headings // 4,
+                                                   n_theta=headings)
+    clear = not any(blocked[int(x), int(y)] for x, y, _ in states)
+    fin = torch.isfinite(c64)
+    f32_rel = float(((costs.double() - c64)[fin] / c64[fin].clamp(min=1.0)).abs().max())
+    _gate("hybrid_astar_costs: the detour is finite, longer than the straight line, its path "
+          "clear to the goal (test_obstacle_detour); f32 within 1e-5 of f64",
+          math.isfinite(c) and c > side - 4 and clear and len(states) > 10
+          and tuple(int(v) for v in states[-1][:2]) == (side // 2, side - 2) and f32_rel < 1e-5,
+          f"cost {c!r}, {len(states)} states, f32 rel {f32_rel!r}")
+    g = kin_hybrid(32, 8, f64, device)[1]
+    w = kin_hybrid(32, 8, f64, "cpu")[1]
+    _gate("hybrid_astar_costs 32² x 8 f64 cuda = CPU bitwise", bitwise_equal(g.cpu(), w),
+          "bitwise")
+    out["hybrid_astar"] = {**stats, "cost": c, "path_states": len(states)}
+
+    lut = lambda dt, dev: plattice.generate_lookup_table(  # noqa: E731
+        [4.0, 6.0], [-1.0, 0.0, 1.0], [-0.3, 0.0, 0.3], dtype=dt, device=dev)
+    (params, errs, _), stats = kin_part(
+        f"generate_lookup_table 18 targets f32 on {card}", lambda: lut(f32, device), counted)
+    med = float(errs.median())
+    _gate("generate_lookup_table converges (test_lookup_table_generation; f32 median < 1e-3)",
+          med < 1e-3 and bool((params[:, 0] > 0).all()), f"median error {med!r}")
+    out["lookup_table"] = {**stats, "median_error": med, "f64_max_diff": ctl_same(
+        "generate_lookup_table f64 cuda = CPU", lut(f64, device)[0], lut(f64, "cpu")[0])}
+
+    clo = lambda dt, dev: plattice.clothoid_path([5.0, 2.0, 0.6], dtype=dt, device=dev)  # noqa
+    (poses, p, err), stats = kin_part(
+        f"clothoid_path 60 iterations f32 on {card}", lambda: clo(f32, device), counted,
+        short=("6 iterations", lambda: plattice.clothoid_path([5.0, 2.0, 0.6], iterations=6,
+                                                              dtype=f32, device=device)))
+    end = float((poses[-1, :2].cpu().double() - torch.tensor([5.0, 2.0], dtype=f64)).abs().max())
+    _gate("clothoid_path reaches its pose (test_clothoid_reaches_pose_with_linear_curvature)",
+          float(err) < 5e-3 and end < 5e-3, f"error {float(err)!r}")
+    out["clothoid"] = {**stats, "error": float(err)}
+
+    ch = pchomp.ChompConfig(n_waypoints=40, max_iterations=200, learning_rate=0.02,
+                            obstacle_cost_weight=5.0)
+    run = lambda dt, dev: pchomp.chomp_optimize([0.0, 0.0], [10.0, 0.0], [[5.0, 0.0]], [1.0], ch,  # noqa
+                                                dtype=dt, device=dev)
+    (x, cost, iters), stats = kin_part(
+        f"chomp_optimize 40 waypoints f32 on {card}", lambda: run(f32, device), counted,
+        short=("20 iterations", lambda: pchomp.chomp_optimize(
+            [0.0, 0.0], [10.0, 0.0], [[5.0, 0.0]], [1.0],
+            dataclasses.replace(ch, max_iterations=20), dtype=f32, device=device)))
+    xh = x.cpu().double()
+    mid = xh[torch.argmin((xh[:, 0] - 5.0).abs())]
+    _gate("chomp_optimize bows the path off the obstacle (test_chomp_clears_obstacle_and_"
+          "reduces_cost)", int(iters) > 1 and float(torch.linalg.vector_norm(
+              mid - torch.tensor([5.0, 0.0], dtype=f64))) > 1.0 and bool(torch.isfinite(xh).all()),
+          f"{int(iters)} iterations, cost {float(cost)!r}")
+    g, w = run(f64, device), run(f64, "cpu")
+    ctl_same("chomp_optimize f64 cuda = CPU: iterations", g[2], w[2])
+    out["chomp"] = {**stats, "iterations": int(iters),
+                    "f64_max_diff": ctl_same("chomp_optimize f64 cuda = CPU: waypoints", g[0],
+                                             w[0])}
+
+    steps = [[0.0, 0.2, 0.0]] + [[0.3, 0.2, 0.0]] * 6 + [[0.0, 0.2, 0.0]]
+    plan, stats = kin_part(
+        f"bipedal_plan 8 steps f32 on {card}",
+        lambda: pbipedal.bipedal_plan(steps, dtype=f32, device=device), counted)
+    refs, mods = plan["reference_footsteps"].cpu(), plan["modified_footsteps"].cpu()
+    com = plan["com_trajectory"].cpu()
+    ok = (bool(torch.isfinite(com).all()) and float(refs[-1, 0]) > float(refs[1, 0])
+          and float((mods[2:, :2] - refs[2:, :2]).abs().max()) < 0.5
+          and float(com[:, 1].max() - com[:, 1].min()) > 0.05 and float(com[-1, 0]) > 1.0)
+    _gate("bipedal_plan walks and tracks (test_bipedal_straight_walk_converges_and_tracks)", ok,
+          f"com end x {float(com[-1, 0])!r}")
+    g = pbipedal.bipedal_plan(steps, dtype=f64, device=device)["com_trajectory"]
+    w = pbipedal.bipedal_plan(steps, dtype=f64, device="cpu")["com_trajectory"]
+    out["bipedal"] = {**stats, "f64_max_diff": ctl_same("bipedal_plan f64 cuda = CPU", g, w)}
+    return out
+
+
+def kin_tf32_part(card, device):
+    """(g) The solver paths (the spline and Frenet solves, the lattice's
+    Gauss-Newton, LQR-RRT*'s gain) give the same bits with TF32 allowed."""
+    f32 = torch.float32
+
+    def runs():
+        return {"frenet": kin_frenet(f32, device)[2]["path"],
+                "lookup_table": plattice.generate_lookup_table([4.0], [1.0], [0.3], dtype=f32,
+                                                               device=device)[0],
+                "lqr_rrt_star": pkin.lqr_rrt_star_plan(
+                    None, [0.0, 0.0, 0.0, 0.0], [8.0, 8.0, 0.0, 0.0], *KIN_KCOURSE,
+                    pkin.LQRRRTConfig(max_nodes=16), dtype=f32, device=device,
+                    draws=kin_draws((15, 3), f32, device, SEED + 292))[0]["nodes"]}
+
+    saved = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        want = runs()
+        torch.set_float32_matmul_precision("high")
+        got = runs()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    bad = [k for k in want if not bitwise_equal(got[k], want[k])]
+    _gate(f"kinematic planners' solver paths with TF32 allowed bitwise their 'highest' runs on "
+          f"{card}", not bad, f"differ: {bad}" if bad else "bitwise")
+    return {"tf32_bitwise": sorted(want)}
+
+
+def kinematic_phase(card, device, counted):
+    """The kinematic planners (phase 24): (a) curves, Frenet, Dubins,
+    Reeds-Shepp, η³; (b) RRT/RRT* and a forest; (c) the variants; (d) the
+    kinematic RRTs; (e) the reactive planners; (f) hybrid A*, the lattice,
+    CHOMP, bipedal; (g) TF32."""
+    out = {"card": card}
+    KIN_KERNEL_LAUNCHES.clear()
+    start = time.perf_counter()
+    for name, part in (("curves", kin_curves_part), ("rrt", kin_rrt_part),
+                       ("variants", kin_variants_part), ("kinematic", kin_kinematic_part),
+                       ("reactive", kin_reactive_part), ("grid", kin_grid_part)):
+        t0 = time.perf_counter()
+        out[name] = part(card, device, counted)
+        out[name]["part_s"] = time.perf_counter() - t0
+        print(f"kinematic planning, part {name}: {out[name]['part_s']!r} s")
+    out["tf32"] = kin_tf32_part(card, device)
+    out["phase_s"] = time.perf_counter() - start
+    out["kernel_launches"] = dict(KIN_KERNEL_LAUNCHES)
+    print(f"kinematic planning: {out['phase_s']!r} s; kernel entries over its parts "
+          f"{out['kernel_launches']}")
+    return out
+
+
 _VIEW_OPS = {"empty", "empty_strided", "as_strided", "view", "_reshape_alias", "resize_",
              "detach", "lift_fresh", "alias", "_unsafe_view", "expand", "slice", "select", "t",
              "transpose", "permute", "unsqueeze", "squeeze", "item", "_local_scalar_dense",
@@ -6361,7 +7092,12 @@ def main() -> int:
     control = control_phase(card, device, counted)
     print(json.dumps({"control": control}))
 
-    # 24. the kernels line
+    # 24. the kinematic planners: curves, Frenet, Reeds-Shepp, eta3, the RRT
+    # family and its variants, the kinematic RRTs, the reactive planners,
+    # hybrid A*, the lattice, CHOMP, bipedal (no kernel on their path)
+    print(json.dumps({"kinematic_planning": kinematic_phase(card, device, counted)}))
+
+    # 25. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",

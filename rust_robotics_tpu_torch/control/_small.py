@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from rust_robotics_tpu_torch.planning.grid import _float_on
+from rust_robotics_tpu_torch._device import _float_on
 
 # a fixpoint loop reads its lanes' done flags once every this many steps
 READ_EVERY = 8

@@ -7,8 +7,8 @@ trajectory and solving the convex subproblem with trust regions.
 
 The convex subproblem (quadratic objective, linear dynamics, thrust
 bounds) is solved by projected gradient on the control sequence, the
-dynamics eliminated by a differentiable rollout (running sums: the
-dynamics are a double integrator) and the gradient taken by
+dynamics eliminated by a differentiable rollout (the double integrator
+stepped in JAX's order of adds) and the gradient taken by
 `torch.func.grad`, for a fixed number of steps with no read.
 """
 
@@ -59,15 +59,21 @@ def plan_landing(x0, target_xy, cfg: RocketConfig = RocketConfig(), dtype=None, 
     target_xy = as_float(target_xy, x0.dtype, x0.device)
 
     def rollout(us):
-        """`rocket_dynamics` step after step, as running sums: each
-        velocity is the sum of its start and the increments before it, each
-        position of its start and the velocities before it (the same adds
-        in the same order)."""
+        """`rocket_dynamics` one step after another, as JAX's `lax.scan`
+        adds: each velocity is the one before plus its increment, each
+        position the one before plus the velocity before times dt, one
+        rounding per add in both dtypes (a one-op `cumsum` adds in another
+        order: a parallel scan on CUDA, f64 accumulation of f32 on the CPU)."""
         acc = torch.stack([true_div(us[:, 0], cfg.mass),
                            true_div(us[:, 1], cfg.mass) - cfg.gravity], -1)
-        vel = torch.cumsum(torch.cat([x0[None, 2:], acc * cfg.dt]), dim=0)
-        pos = torch.cumsum(torch.cat([x0[None, :2], vel[:-1] * cfg.dt]), dim=0)
-        return torch.cat([pos, vel], -1)
+        vel = [x0[2:]]
+        for dv in (acc * cfg.dt).unbind(0):
+            vel.append(vel[-1] + dv)
+        vel = torch.stack(vel)
+        pos = [x0[:2]]
+        for dp in (vel[:-1] * cfg.dt).unbind(0):
+            pos.append(pos[-1] + dp)
+        return torch.cat([torch.stack(pos), vel], -1)
 
     def objective(us):
         xs = rollout(us)

@@ -19,17 +19,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from rust_robotics_tpu_torch._device import resolve_device
+from rust_robotics_tpu_torch._device import resolve_device, to_tensor  # noqa: F401 (re-exported)
 from rust_robotics_tpu_torch.core.types import GaussianBelief
 from rust_robotics_tpu_torch.filters.particle import ParticleBelief
 from rust_robotics_tpu_torch.planning.grid import GridMap
-
-
-def to_tensor(array, device=None, dtype=torch.float32):
-    """One numpy array (or tensor) -> a tensor on `device` in `dtype`."""
-    if isinstance(array, torch.Tensor):
-        return array.to(device=resolve_device(device), dtype=dtype)
-    return torch.tensor(np.asarray(array), dtype=dtype, device=resolve_device(device))
 
 
 def belief_from_numpy(mean, cov, device=None, dtype=torch.float32) -> GaussianBelief:
@@ -144,3 +137,59 @@ def vio_window_from_numpy(window, device=None, dtype=torch.float64):
     int64, the mask as bool."""
     kinds = {"cam_local": torch.int64, "pt_idx": torch.int64, "obs_mask": torch.bool}
     return {k: to_tensor(v, device, kinds.get(k, dtype)) for k, v in window.items()}
+
+
+def cubic_spline_from_numpy(t, a, b, c, d, device=None, dtype=torch.float64):
+    """A JAX `CubicSpline1D`'s knots and coefficients -> the port's."""
+    from rust_robotics_tpu_torch.planning.curves import CubicSpline1D
+
+    return CubicSpline1D(*(to_tensor(x, device, dtype) for x in (t, a, b, c, d)))
+
+
+def spline2d_from_numpy(s, sx_t, sx_a, sx_b, sx_c, sx_d, sy_t, sy_a, sy_b, sy_c, sy_d,
+                        device=None, dtype=torch.float64):
+    """A JAX `Spline2D` (its arc lengths and both 1-D splines' fields) ->
+    the port's."""
+    from rust_robotics_tpu_torch.planning.curves import Spline2D
+
+    return Spline2D(to_tensor(s, device, dtype),
+                    cubic_spline_from_numpy(sx_t, sx_a, sx_b, sx_c, sx_d, device, dtype),
+                    cubic_spline_from_numpy(sy_t, sy_a, sy_b, sy_c, sy_d, device, dtype))
+
+
+def quintic_from_numpy(coeffs, device=None, dtype=torch.float64):
+    """A JAX `QuinticPolynomial`'s coefficients [..., 6] -> the port's."""
+    from rust_robotics_tpu_torch.planning.curves import QuinticPolynomial
+
+    return QuinticPolynomial(to_tensor(coeffs, device, dtype))
+
+
+def eta3_chain_from_numpy(coeffs, device=None, dtype=torch.float64):
+    """η³ chain coefficients [S, 2, 8] -> a tensor."""
+    return to_tensor(coeffs, device, dtype)
+
+
+def tree_from_numpy(nodes, parents, costs, active, count, device=None, dtype=torch.float64):
+    """A JAX RRT `Tree` (nodes [..., N, 2], parents, costs, active, count)
+    -> the port's: parents and count as int64, active as bool."""
+    from rust_robotics_tpu_torch.planning.rrt import Tree
+
+    return Tree(to_tensor(nodes, device, dtype), to_tensor(parents, device, torch.int64),
+                to_tensor(costs, device, dtype), to_tensor(active, device, torch.bool),
+                to_tensor(count, device, torch.int64))
+
+
+def pose_tree_from_numpy(poses, parents, costs, active, count, device=None,
+                         dtype=torch.float64):
+    """A JAX `PoseTree` (poses [..., N, 3], ...) -> the port's."""
+    from rust_robotics_tpu_torch.planning.rrt_kinematic import PoseTree
+
+    return PoseTree(to_tensor(poses, device, dtype), to_tensor(parents, device, torch.int64),
+                    to_tensor(costs, device, dtype), to_tensor(active, device, torch.bool),
+                    to_tensor(count, device, torch.int64))
+
+
+def dmp_from_numpy(weights, y0, g, device=None, dtype=torch.float64):
+    """`dmp_fit`'s weights [n_basis, D] and (y0, g) -> tensors, as
+    `dmp_rollout` takes them."""
+    return tuple(to_tensor(x, device, dtype) for x in (weights, y0, g))

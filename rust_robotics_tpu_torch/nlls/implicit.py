@@ -31,8 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from rust_robotics_tpu_torch._device import resolve_device
-from rust_robotics_tpu_torch.convert import to_tensor
+from rust_robotics_tpu_torch._device import resolve_device, to_tensor
 from rust_robotics_tpu_torch.nlls.banded import _banded_ops, banded_problem
 from rust_robotics_tpu_torch.nlls.problem import Problem
 from rust_robotics_tpu_torch.nlls.solver import (

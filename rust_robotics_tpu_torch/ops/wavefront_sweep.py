@@ -28,7 +28,7 @@ or -0: what `relax_wavefront` builds (0 and the sentinel).
 
 Which moves are allowed is one uint8 plane: bit i of a cell is
 `_incoming_masks(...)[i]`, direction i being `OFFSETS[i]`
-(planning/wavefront.py's MOTIONS_8 order; 4-connectivity uses bits 0-3).
+(the MOTIONS_8 order of ops/stencil.py; 4-connectivity uses bits 0-3).
 
 `relax_wavefront` is the convergence loop, shared by
 `planning.wavefront.wavefront_costs` and `wavefront_costs_fused`, the
@@ -43,7 +43,7 @@ import ctypes
 import torch
 
 from rust_robotics_tpu_torch.ops import _build
-from rust_robotics_tpu_torch.planning.wavefront import (
+from rust_robotics_tpu_torch.ops.stencil import (
     SQRT2,
     _incoming_masks,
     _motions,

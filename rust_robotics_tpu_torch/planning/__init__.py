@@ -59,3 +59,52 @@ from rust_robotics_tpu_torch.planning.a_star_variants import (  # noqa: F401
     AStarVariantConfig,
     AStarVariantPlanner,
 )
+from rust_robotics_tpu_torch.planning.curves import (  # noqa: F401
+    CubicSpline1D,
+    QuinticPolynomial,
+    Spline2D,
+    bezier_path,
+    bspline_course,
+    calc_spline_course,
+    catmull_rom_course,
+    dubins_shortest_path,
+)
+from rust_robotics_tpu_torch.planning.frenet import (  # noqa: F401
+    FrenetConfig,
+    frenet_optimal_plan,
+)
+from rust_robotics_tpu_torch.planning.hybrid_astar import (  # noqa: F401
+    extract_hybrid_path,
+    hybrid_astar_costs,
+)
+from rust_robotics_tpu_torch.planning.rrt import (  # noqa: F401
+    RRTConfig,
+    extract_rrt_path,
+    rrt_plan,
+)
+from rust_robotics_tpu_torch.planning.rrt_kinematic import (  # noqa: F401
+    KinematicRRTConfig,
+    LQRRRTConfig,
+    closed_loop_rrt_star_plan,
+    extract_pose_path,
+    lqr_rrt_star_plan,
+    rrt_dubins_plan,
+    rrt_star_dubins_plan,
+    rrt_star_reeds_shepp_plan,
+)
+from rust_robotics_tpu_torch.planning.rrt_variants import (  # noqa: F401
+    GraphPlannerConfig,
+    bidirectional_rrt_plan,
+    bit_star_plan,
+    extract_graph_path,
+    fmt_star_plan,
+    graph_shortest_path,
+    informed_rrt_star_plan,
+    rrg_plan,
+    rrt_connect_plan,
+    rrt_sobol_plan,
+    sobol_sequence_2d,
+)
+from rust_robotics_tpu_torch.planning.rrt_variants import (  # noqa: F401
+    shortcut_path as shortcut_waypoint_path,
+)

@@ -20,10 +20,14 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
-from rust_robotics_tpu_torch._device import resolve_device
+from rust_robotics_tpu_torch._device import (  # noqa: F401 (the planners import them from here)
+    _bool_on,
+    _float_on,
+    _host_bool,
+    _placement,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,37 +64,6 @@ class GridMap:
 
     def free(self):
         return ~self.blocked
-
-
-def _placement(x, device):
-    """The device for tensors made from `x`: a tensor's own unless `device`
-    is given; host data goes to `device` (default `cuda`)."""
-    if isinstance(x, torch.Tensor) and device is None:
-        return x.device
-    return resolve_device(device)
-
-
-def _bool_on(x, device=None):
-    """x as a bool tensor placed by `_placement`."""
-    if isinstance(x, np.ndarray) and not x.flags.writeable:
-        x = x.copy()  # torch warns on a read-only array
-    return torch.as_tensor(x, device=_placement(x, device)).to(torch.bool)
-
-
-def _float_on(x, device=None, dtype=torch.float32):
-    """x as a `dtype` tensor placed by `_placement`; host numbers pass
-    through float64 (a Python list would otherwise round to float32)."""
-    device = _placement(x, device)
-    if not isinstance(x, torch.Tensor):
-        x = np.array(x, dtype=np.float64)
-    return torch.as_tensor(x, device=device).to(dtype)
-
-
-def _host_bool(x):
-    """x as a host NumPy bool array."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy().astype(bool)
-    return np.asarray(x, bool)
 
 
 def _one_hot(shape, idx, device):

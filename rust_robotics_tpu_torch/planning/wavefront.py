@@ -21,54 +21,15 @@ from __future__ import annotations
 import torch
 
 from rust_robotics_tpu_torch.core.types import Path2D
-from rust_robotics_tpu_torch.planning.grid import _placement
-
-SQRT2 = 1.4142135623730951
-
-# 8-connected motion model, matching grid.rs:29-44 ordering
-MOTIONS_8 = (
-    (1, 0, 1.0),
-    (0, 1, 1.0),
-    (-1, 0, 1.0),
-    (0, -1, 1.0),
-    (-1, -1, SQRT2),
-    (-1, 1, SQRT2),
-    (1, -1, SQRT2),
-    (1, 1, SQRT2),
+from rust_robotics_tpu_torch.ops.stencil import (  # noqa: F401 (the planners import them from here)
+    MOTIONS_4,
+    MOTIONS_8,
+    SQRT2,
+    _incoming_masks,
+    _motions,
+    _shift,
 )
-MOTIONS_4 = ((1, 0, 1.0), (0, 1, 1.0), (-1, 0, 1.0), (0, -1, 1.0))
-
-
-def _motions(connectivity, diag_cost):
-    motions = MOTIONS_8 if connectivity == 8 else MOTIONS_4
-    return tuple((dx, dy, diag_cost if (dx != 0 and dy != 0) else c) for dx, dy, c in motions)
-
-
-def _shift(a, dx, dy, fill):
-    """shifted[x, y] = a[x+dx, y+dy], out-of-bounds -> fill."""
-    w, h = a.shape[-2], a.shape[-1]
-    out = torch.full_like(a, fill)
-    if abs(dx) < w and abs(dy) < h:
-        out[..., max(0, -dx):w - max(0, dx), max(0, -dy):h - max(0, dy)] = \
-            a[..., max(0, dx):w + min(0, dx), max(0, dy):h + min(0, dy)]
-    return out
-
-
-def _incoming_masks(free, motions, corner_cutting):
-    """allowed[d][x,y]: may cell (x,y) be relaxed from neighbour (x+dx,y+dy)?
-
-    Encodes grid.rs:206-236 `is_valid_step` for the incoming move
-    (x+dx,y+dy) -> (x,y): both endpoints free; a diagonal move also needs
-    the two orthogonal side cells free (no corner cutting) unless
-    `corner_cutting` is True.
-    """
-    masks = []
-    for dx, dy, _ in motions:
-        m = free & _shift(free, dx, dy, False)
-        if dx != 0 and dy != 0 and not corner_cutting:
-            m = m & _shift(free, dx, 0, False) & _shift(free, 0, dy, False)
-        masks.append(m)
-    return masks
+from rust_robotics_tpu_torch.planning.grid import _placement
 
 
 def goal_raster(shape, goal_idx):

@@ -19,8 +19,7 @@ import dataclasses
 
 import torch
 
-from rust_robotics_tpu_torch._device import resolve_device
-from rust_robotics_tpu_torch.convert import to_tensor
+from rust_robotics_tpu_torch._device import resolve_device, to_tensor
 from rust_robotics_tpu_torch.core.lie import se3_exp, se3_inverse, se3_log
 from rust_robotics_tpu_torch.nlls import (
     FactorBlock,

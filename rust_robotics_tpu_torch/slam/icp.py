@@ -37,8 +37,7 @@ import dataclasses
 
 import torch
 
-from rust_robotics_tpu_torch._device import resolve_device
-from rust_robotics_tpu_torch.convert import to_tensor
+from rust_robotics_tpu_torch._device import resolve_device, to_tensor
 from rust_robotics_tpu_torch.nlls.tridiag import _tree_sum, small_mm
 from rust_robotics_tpu_torch.ops.smallmat import inv_spd_small
 

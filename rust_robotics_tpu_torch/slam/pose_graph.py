@@ -26,8 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rust_robotics_tpu_torch._device import resolve_device
-from rust_robotics_tpu_torch.convert import to_tensor
+from rust_robotics_tpu_torch._device import resolve_device, to_tensor
 from rust_robotics_tpu_torch.core import lie_np
 from rust_robotics_tpu_torch.core.angles import normalize_angle
 from rust_robotics_tpu_torch.core.lie import (

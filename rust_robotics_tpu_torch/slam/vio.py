@@ -30,8 +30,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from rust_robotics_tpu_torch._device import resolve_device
-from rust_robotics_tpu_torch.convert import to_tensor
+from rust_robotics_tpu_torch._device import resolve_device, to_tensor
 from rust_robotics_tpu_torch.core.lie import se3_exp, se3_inverse, se3_log, so3_exp, so3_log
 from rust_robotics_tpu_torch.data.euroc import quat_to_rot
 from rust_robotics_tpu_torch.nlls import RobustKernel, SolverConfig

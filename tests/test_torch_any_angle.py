@@ -31,6 +31,8 @@ from rust_robotics_tpu_torch.planning import a_star_variants as tav
 from rust_robotics_tpu_torch.planning import any_angle as taa
 from test_a_star_variants_golden import build_pythonrobotics_maze
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-12
 F64 = torch.float64
 

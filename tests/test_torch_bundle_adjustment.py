@@ -24,6 +24,8 @@ from rust_robotics_tpu_torch.nlls import SolverConfig as TConfig
 from rust_robotics_tpu_torch.ops import cholesky
 from rust_robotics_tpu_torch.slam import bundle_adjustment as tba
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 
 def project(cams, points, cam_idx, pt_idx, fx, fy, cx, cy):
     inv = np.linalg.inv(np.asarray(cams))[cam_idx]

@@ -32,6 +32,8 @@ from rust_robotics_tpu.ops.cholesky_pallas import (
 )
 from rust_robotics_tpu_torch.ops import cholesky as tc
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 
 def spd(n, dtype=np.float64, seed=None):
     rng = np.random.default_rng(n if seed is None else seed)

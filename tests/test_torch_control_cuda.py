@@ -10,6 +10,8 @@ from rust_robotics_tpu_torch.control import mppi_value as tv
 from rust_robotics_tpu_torch.ops.wavefront_sweep import wavefront_relax
 from rust_robotics_tpu_torch.planning.wavefront import goal_raster, wavefront_costs
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 
 @pytest.mark.cuda
 def test_value_grid_of_bench_mppi_value_cuda_equals_cpu():

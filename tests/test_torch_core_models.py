@@ -20,6 +20,8 @@ from rust_robotics_tpu_torch.core import angles, types
 from rust_robotics_tpu_torch.models import motion, observation
 from rust_robotics_tpu_torch.ops import smallmat
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-12
 DT = 0.1
 

@@ -23,6 +23,8 @@ from rust_robotics_tpu_torch.filters import kalman as tk
 from rust_robotics_tpu_torch.ops.ekf_scan import ekf_scan_reference
 from test_kalman import numpy_ekf_reference
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = dict(device="cpu", dtype=torch.float64)
 
 

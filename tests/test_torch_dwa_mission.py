@@ -28,6 +28,8 @@ from rust_robotics_tpu_torch.control import mission as tm
 from rust_robotics_tpu_torch.demos import headless as th
 from rust_robotics_tpu_torch.planning import dwa as td
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-12
 CFG = td.DWAConfig()
 F64 = torch.float64

@@ -20,6 +20,8 @@ import torch
 from rust_robotics_tpu.ops import ekf_pallas
 from rust_robotics_tpu_torch.ops import ekf_scan
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 Q = (0.01, 0.01, 3e-4, 0.01)
 R = (1.0, 1.0)
 DT = 0.1

@@ -29,6 +29,8 @@ import torch
 
 from rust_robotics_tpu_torch.parallel import fake_cluster
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MODES = ("train", "pipeline", "spike")
 LINES = {"train": r"FAKECLUSTER proc=(\d) (loss=\S+)",

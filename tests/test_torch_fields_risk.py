@@ -38,6 +38,8 @@ from rust_robotics_tpu_torch.planning import frontier as tfr
 from rust_robotics_tpu_torch.planning import risk_graph as tr
 from rust_robotics_tpu_torch.planning import roadmap as tm
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-12
 F64 = torch.float64
 

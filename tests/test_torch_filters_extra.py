@@ -26,6 +26,8 @@ from rust_robotics_tpu_torch.filters import extra as te
 from rust_robotics_tpu_torch.filters.kalman import ukf_step
 from rust_robotics_tpu_torch.ops.smallmat import householder_r
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 DT = 0.1
 ATOL = 1e-12
 SR_ATOL = 1e-8

@@ -12,6 +12,8 @@ from rust_robotics_tpu.planning import grid as jgrid
 from rust_robotics_tpu_torch import convert
 from rust_robotics_tpu_torch.planning import grid as tgrid
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = dict(device="cpu", dtype=torch.float64)
 
 

@@ -31,6 +31,8 @@ from rust_robotics_tpu_torch.planning import jps as tj
 from rust_robotics_tpu_torch.planning import smoothing as ts
 from rust_robotics_tpu_torch.planning.wavefront import wavefront_costs
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-12
 F64 = torch.float64
 

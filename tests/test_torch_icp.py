@@ -23,6 +23,8 @@ from rust_robotics_tpu.core.lie import se3_exp as j_se3_exp
 from rust_robotics_tpu.slam import icp as ji
 from rust_robotics_tpu_torch.slam import icp as ti
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = torch.float64
 FIELDS = ("transform", "iterations", "final_error", "final_error_mean", "initial_error_mean",
           "final_error_median", "final_error_p90", "inlier_ratio_5cm",

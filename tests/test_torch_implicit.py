@@ -38,6 +38,8 @@ from rust_robotics_tpu_torch import nlls as tn
 from rust_robotics_tpu_torch.nlls import implicit as ti
 from rust_robotics_tpu_torch.slam import pose_graph as tpg
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = torch.float64
 CFG = dict(method="lm", max_iterations=30, gradient_tolerance=1e-12, step_tolerance=1e-12,
            cost_tolerance=1e-14)

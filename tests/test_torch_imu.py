@@ -44,6 +44,8 @@ from rust_robotics_tpu_torch.nlls import SolverConfig
 from rust_robotics_tpu_torch.slam import imu as ti
 from rust_robotics_tpu_torch.slam.vio import interval_lanes
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = torch.float64
 FIELDS = [f.name for f in dataclasses.fields(ti.Preintegrated)]
 

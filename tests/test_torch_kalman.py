@@ -25,6 +25,8 @@ from rust_robotics_tpu_torch.filters import kalman as tk
 from rust_robotics_tpu_torch.models.motion import unicycle_propagate
 from rust_robotics_tpu_torch.models.observation import position_observe
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 DT = 0.1
 ATOL = 1e-12
 

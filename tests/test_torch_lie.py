@@ -15,6 +15,8 @@ import torch
 from rust_robotics_tpu.core import lie as jlie
 from rust_robotics_tpu_torch.core import lie as tlie
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 RTOL, ATOL = 1e-12, 1e-15
 
 

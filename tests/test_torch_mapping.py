@@ -37,6 +37,8 @@ from rust_robotics_tpu_torch.mapping import lines as tl
 from rust_robotics_tpu_torch.mapping import ndt as tn
 from rust_robotics_tpu_torch.mapping import occupancy as to
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-10
 F64 = torch.float64
 

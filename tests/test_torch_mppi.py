@@ -36,6 +36,8 @@ from rust_robotics_tpu_torch.control import mppi_variants as tmv
 from rust_robotics_tpu_torch.control import pusher_slider as tp
 from rust_robotics_tpu_torch.control import racing as tr
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-9
 F64 = torch.float64
 

@@ -33,6 +33,8 @@ from rust_robotics_tpu_torch.core.angles import normalize_angle as t_wrap
 from rust_robotics_tpu_torch.nlls import solver as tsolver
 from rust_robotics_tpu_torch.slam import pose_graph as tpg
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = torch.float64
 
 

@@ -31,11 +31,14 @@ from rust_robotics_tpu_torch.parallel import accounting as tacc
 from rust_robotics_tpu_torch.parallel import mesh as pmesh
 from rust_robotics_tpu_torch.parallel.sharded_scan import compose_trajectory, se2_compose
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 WORLDS = (2, 4)
 ITERATIONS = 8
 RTOL_F64 = 1e-10
 
 
+@functools.lru_cache(maxsize=None)
 def _scans(t=16, m=96):
     """tests/test_sharded_scan.py's scan sequence, f64: a fixed point cloud
     seen from a slowly moving SE(2) trajectory."""
@@ -50,13 +53,12 @@ def _scans(t=16, m=96):
 
 
 XS = np.arange(32, dtype=np.float64).reshape(8, 4) / 7.0
-SCANS = _scans()
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     return {w: workers.run_spmd(workers.parallel_program, w, tmp_path_factory.mktemp("par"), XS,
-                                SCANS, ITERATIONS) for w in WORLDS}
+                                _scans(), ITERATIONS) for w in WORLDS}
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,7 +72,7 @@ def _jax_runs(n, dtype_name):
     pipe = np.asarray(jax_pipeline(stage, jnp.asarray(XS, dtype), Mesh(devs, ("pipe",))))
     mesh = Mesh(devs, ("data",))
     rel, absolute = jax_scan_odometry(mesh, iterations=ITERATIONS)(
-        jax_shard_scans(mesh, jnp.asarray(SCANS, dtype)))
+        jax_shard_scans(mesh, jnp.asarray(_scans(), dtype)))
     return pipe, np.asarray(rel), np.asarray(absolute)
 
 
@@ -150,7 +152,7 @@ def test_scan_odometry_equals_serial_and_jax(runs, world):
         for name, (rtol, atol) in (("f64", (RTOL_F64, RTOL_F64)), ("f32", (1e-4, 1e-5))):
             rel, absolute = out[f"scan_{name}"]
             rel_s, abs_s = out[f"scan_serial_{name}"]
-            assert rel.shape == (SCANS.shape[0] - 1, 3)
+            assert rel.shape == (_scans().shape[0] - 1, 3)
             assert torch.equal(rel, rel_s) and torch.equal(absolute, abs_s), name
             assert torch.equal(rel, first[f"scan_{name}"][0])  # the same on every rank
             _, jrel, jabs = _jax_runs(world, "float64" if name == "f64" else "float32")

@@ -18,6 +18,8 @@ from rust_robotics_tpu.filters import particle as jpf
 from rust_robotics_tpu_torch import convert
 from rust_robotics_tpu_torch.filters import particle as tpf
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 LANDMARKS = np.array([[10.0, 0.0], [10.0, 10.0], [0.0, 15.0], [-5.0, 20.0]])
 DT = 0.1
 CONTROL = np.array([1.0, 0.1])

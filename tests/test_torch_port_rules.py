@@ -9,6 +9,8 @@ import pathlib
 import pytest
 import torch
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "rust_robotics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -54,7 +56,10 @@ def test_rule_scan_sees_what_it_must():
                                      "conformal", "stl")} | {
         f"control/{m}.py" for m in ("trackers", "nonlinear", "cbf", "admm", "trajopt", "mpc",
                                     "cgmres", "rocket", "arm", "mppi", "mppi_variants",
-                                    "mppi_value", "racing", "pusher_slider")}
+                                    "mppi_value", "racing", "pusher_slider")} | {
+        f"planning/{m}.py" for m in ("curves", "frenet", "reeds_shepp", "eta3", "rrt",
+                                     "rrt_variants", "rrt_kinematic", "reactive", "hybrid_astar",
+                                     "lattice", "chomp", "bipedal")}
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
@@ -108,6 +113,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     from rust_robotics_tpu_torch.control import cgmres, mppi_value, pusher_slider, racing
     from rust_robotics_tpu_torch.control.rocket import RocketConfig, plan_landing
     from rust_robotics_tpu_torch.control.trackers import pid_reset
+    from rust_robotics_tpu_torch.planning import frenet, hybrid_astar, rrt, rrt_kinematic
+    from rust_robotics_tpu_torch.planning import rrt_variants
+    from rust_robotics_tpu_torch.planning.curves import Spline2D
 
     blocked = np.eye(4, 3, dtype=bool)
     ox, oy = np.array([0.0, 4.0, 4.0]), np.array([0.0, 0.0, 3.0])
@@ -254,6 +262,19 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
             pusher, (0, 2), (0.0, 0.0), (0.05, 0.05), (0.5, 0.5), **kw)[0],
         "plan_landing": lambda **kw: plan_landing([0.0, 5.0, 0.0, 0.0], [0.0, 0.0], RocketConfig(
             horizon=2, outer_iterations=1, inner_iterations=1), **kw)[1],
+        "rrt_plan": lambda **kw: rrt.rrt_plan(None, [0.0, 0.0], [1.0, 1.0], [[5.0, 5.0]], [0.5],
+                                              rrt.RRTConfig(max_nodes=3), star=True, **kw)[2],
+        "rrt_connect_plan": lambda **kw: rrt_variants.rrt_connect_plan(
+            None, [0.0, 0.0], [1.0, 1.0], [[5.0, 5.0]], [0.5], rrt.RRTConfig(max_nodes=3),
+            **kw)[2],
+        "rrt_star_dubins_plan": lambda **kw: rrt_kinematic.rrt_star_dubins_plan(
+            None, [0.0, 0.0, 0.0], [1.0, 1.0, 0.0], [[5.0, 5.0]], [0.5],
+            rrt_kinematic.KinematicRRTConfig(max_nodes=3), **kw)[2],
+        "hybrid_astar_costs": lambda **kw: hybrid_astar.hybrid_astar_costs(
+            np.ones((4, 4), bool), (1, 1), 0, n_theta=4, **kw),
+        "frenet_optimal_plan": lambda **kw: frenet.frenet_optimal_plan(
+            Spline2D.fit([0.0, 10.0, 20.0, 30.0], [0.0, 1.0, 0.0, 1.0], **kw), 0.0, 1.0, 0.0, 0.0,
+            0.0, np.array([[50.0, 50.0]]), frenet.FrenetConfig(max_road_width=1.0))["path"],
         "run_cgmres": lambda **kw: cgmres.run_cgmres(
             lambda x, u: torch.stack([x[1], u[0] - x[0]]), lambda x, u: torch.sum(x * x) + u[0] ** 2,
             lambda x: torch.sum(x * x), [1.0, 0.0], 1, cgmres.CGMRESConfig(horizon=2), **kw)[0],

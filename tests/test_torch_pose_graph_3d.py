@@ -29,6 +29,8 @@ from rust_robotics_tpu_torch.demos import pose_graph_bench as tbench
 from rust_robotics_tpu_torch.nlls.solver import problem_cost as t_problem_cost
 from rust_robotics_tpu_torch.slam import pose_graph as tpg
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = torch.float64
 
 

@@ -10,6 +10,8 @@ import torch
 from rust_robotics_tpu.demos import pose_graph_bench as jbench
 from rust_robotics_tpu_torch.demos import pose_graph_bench as tbench
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 
 def _assert_bitwise(got, want):
     assert len(got) == len(want)

@@ -18,6 +18,8 @@ import torch
 from rust_robotics_tpu.ops import resample_pallas as jrs
 from rust_robotics_tpu_torch.ops import resample as trs
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 
 def make_case(b, p, d, dtype, skew=1.0, seed=0):
     rng = np.random.default_rng(seed)

@@ -32,6 +32,8 @@ from rust_robotics_tpu_torch.slam import g2o as tg
 from rust_robotics_tpu_torch.slam import scan_matching as ts
 from rust_robotics_tpu_torch.slam import slam_node as tn
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-12
 
 

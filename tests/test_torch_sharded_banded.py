@@ -36,6 +36,8 @@ from rust_robotics_tpu_torch.nlls.banded import solve_general_graph
 from rust_robotics_tpu_torch.nlls.tridiag import block_tridiag_solve
 from rust_robotics_tpu_torch.parallel.sharded_tridiag import _DENSE_INTERFACE_MAX
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 WORLDS = (2, 4)
 BANDED_KW = dict(max_iterations=12, tolerance=1e-9)
 SOLVE_ATOL, GRID_ATOL = 1e-10, 1e-9

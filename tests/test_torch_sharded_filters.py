@@ -34,6 +34,8 @@ from rust_robotics_tpu.slam.fastslam import init_fastslam
 from rust_robotics_tpu_torch.filters import particle as tpf
 from rust_robotics_tpu_torch.filters.particle import ParticleBelief
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 WORLDS = (2, 4)
 TOL = 1e-10
 PF_STEPS = 3
@@ -97,9 +99,11 @@ def _fs_inputs(p=64, nl=6, seed=5, sharp=False):
             "draws": _fs_draws(p, [0] if sharp else [100 + t for t in range(FS_STEPS)])}
 
 
-PF = _pf_inputs()
-FS = _fs_inputs()
-SHARP = _fs_inputs(p=32, sharp=True)
+@functools.lru_cache(maxsize=None)
+def _inputs():
+    """(PF, FS, SHARP): the bank and FastSLAM inputs, built on first use
+    rather than at collection, which every test process runs."""
+    return _pf_inputs(), _fs_inputs(), _fs_inputs(p=32, sharp=True)
 
 
 def _for_workers(d):
@@ -108,6 +112,7 @@ def _for_workers(d):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    PF, FS, SHARP = _inputs()
     return {w: workers.run_spmd(workers.filters_program, w, tmp_path_factory.mktemp("filt"),
                                 _for_workers(PF), _for_workers(FS), _for_workers(SHARP))
             for w in WORLDS}
@@ -115,6 +120,7 @@ def runs(tmp_path_factory):
 
 @functools.lru_cache(maxsize=None)
 def _jax_pf(world):
+    PF = _inputs()[0]
     mesh = Mesh(np.asarray(jax.devices()[:world]), ("data",))
     step = jax_pf_banks_step(mesh, PF["dt"], jnp.asarray(PF["cns"]), PF["range_noise"])
     belief = JaxBelief(jnp.asarray(PF["states"]), jnp.asarray(PF["weights"]))
@@ -127,7 +133,7 @@ def _jax_pf(world):
 
 @functools.lru_cache(maxsize=None)
 def _jax_fs(world, case):
-    inputs = FS if case == "fs" else SHARP
+    inputs = _inputs()[1 if case == "fs" else 2]
     mesh = Mesh(np.asarray(jax.devices()[:world]), ("data",))
     step = jax_fastslam_step(mesh, inputs["dt"], jnp.asarray(inputs["chol"]),
                              jnp.asarray(inputs["r_obs"]))

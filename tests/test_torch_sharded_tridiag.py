@@ -50,6 +50,8 @@ from rust_robotics_tpu_torch.nlls.tridiag import (
     solve_chain_lm,
 )
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 WORLDS = (2, 4)
 LM_KW = dict(max_iterations=20, gradient_tolerance=1e-8, step_tolerance=1e-8,
              cost_tolerance=1e-16)

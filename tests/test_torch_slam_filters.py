@@ -27,6 +27,8 @@ from rust_robotics_tpu_torch import convert
 from rust_robotics_tpu_torch.slam import ekf_slam as te
 from rust_robotics_tpu_torch.slam import fastslam as tf
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 LANDMARKS = np.array([[10.0, -2.0], [15.0, 10.0], [3.0, 15.0], [-5.0, 20.0]])
 DT = 0.1
 U = np.array([1.0, 0.1])

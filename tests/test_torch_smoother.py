@@ -23,6 +23,8 @@ from rust_robotics_tpu.filters import smoother as js
 from rust_robotics_tpu_torch.filters import smoother as ts
 from rust_robotics_tpu_torch.models.motion import unicycle_propagate
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-12
 NAMES = ("parallel_kalman_filter", "sequential_kalman_filter", "parallel_rts_smoother",
          "sequential_rts_smoother")

@@ -29,6 +29,8 @@ from rust_robotics_tpu_torch.planning import conformal as tcf
 from rust_robotics_tpu_torch.planning import stl as ts
 from rust_robotics_tpu_torch.planning import temporal as tt
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-12
 F32_ROUNDING = 3e-8
 F64 = torch.float64

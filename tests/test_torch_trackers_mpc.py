@@ -31,6 +31,8 @@ from rust_robotics_tpu_torch.control import mpc as tm
 from rust_robotics_tpu_torch.control import nonlinear as tn
 from rust_robotics_tpu_torch.control import trackers as tt
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 ATOL = 1e-9
 F64 = torch.float64
 

@@ -26,6 +26,8 @@ from rust_robotics_tpu import train as jtrain
 from rust_robotics_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from rust_robotics_tpu_torch import train as ttrain
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 WORLDS = (2, 4)
 LR = 0.05
 STEPS = 3
@@ -37,14 +39,18 @@ def _batch(seed, dtype, batch=8, steps=6, num_landmarks=16):
     return tuple(np.asarray(a) for a in arrays)
 
 
-BATCHES = {"f64": _batch(1, jnp.float64), "f32": _batch(1, jnp.float32)}
+@functools.lru_cache(maxsize=None)
+def batches():
+    """The f64 and f32 batches, built on first use rather than at
+    collection, which every test process runs."""
+    return {"f64": _batch(1, jnp.float64), "f32": _batch(1, jnp.float32)}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     out = {w: workers.run_spmd(workers.train_program, w, tmp_path_factory.mktemp("train"),
-                               BATCHES, LR, STEPS) for w in WORLDS}
-    out[1] = [workers.run_one_process(workers.train_program, BATCHES, LR, STEPS)]
+                               batches(), LR, STEPS) for w in WORLDS}
+    out[1] = [workers.run_one_process(workers.train_program, batches(), LR, STEPS)]
     return out
 
 
@@ -52,7 +58,7 @@ def runs(tmp_path_factory):
 def _jax_oracle(name):
     """JAX's one-device oracle: loss, grads, and STEPS Adam steps."""
     dtype = jnp.float64 if name == "f64" else jnp.float32
-    arrays = tuple(jnp.asarray(a) for a in BATCHES[name])
+    arrays = tuple(jnp.asarray(a) for a in batches()[name])
     mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
     loss, grads = jax.jit(jax.value_and_grad(jtrain.make_loss(mesh)))(
         jtrain.init_params(dtype), *arrays)
@@ -70,7 +76,7 @@ def _jax_oracle(name):
 def _jax_sharded(world, name):
     """JAX's loss and grads on a mesh of `world` virtual devices."""
     dtype = jnp.float64 if name == "f64" else jnp.float32
-    arrays = tuple(jnp.asarray(a) for a in BATCHES[name])
+    arrays = tuple(jnp.asarray(a) for a in batches()[name])
     loss, grads = jax.jit(jax.value_and_grad(jtrain.make_loss(jax_make_mesh(world))))(
         jtrain.init_params(dtype), *arrays)
     return float(loss), (np.asarray(grads.log_q), np.asarray(grads.log_r))

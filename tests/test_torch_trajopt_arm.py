@@ -19,6 +19,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from rust_robotics_tpu.control import arm as jarm
@@ -29,6 +30,8 @@ from rust_robotics_tpu_torch.control import arm as tarm
 from rust_robotics_tpu_torch.control import cgmres as tcg
 from rust_robotics_tpu_torch.control import rocket as tr
 from rust_robotics_tpu_torch.control import trajopt as tt
+
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
 
 ATOL = 1e-9
 F64 = torch.float64
@@ -165,6 +168,27 @@ def test_rocket_landing_matches_jax():
     close(got[2], want[2], atol=1e-13 * abs(float(want[2])))  # the cost is ~2e7 here
     close(tr.rocket_dynamics(t64(x0), t64([3.0, 120.0]), tcfg),
           jr.rocket_dynamics(jnp.asarray(x0), jnp.array([3.0, 120.0]), cfg))
+
+
+@pytest.mark.parametrize("horizon,inner", [(40, 1), (20, 5)])
+def test_rocket_landing_float32_adds_in_jax_order(horizon, inner):
+    """float32 against JAX's float32 run under `jax.jit`: the rollout adds
+    step after step as JAX's scan does (a one-op cumsum, which torch's CPU
+    accumulates in float64, was 8.8e-4 m and 2.7e-4 N off at horizon 40
+    after one step). Measured here: states within 1.5e-5, thrusts within
+    3.1e-5 N (a few float32 ulps of ~100 N: XLA fuses the jitted
+    multiply-adds), the cost to its float32 rounding."""
+    cfg = jr.RocketConfig(horizon=horizon, outer_iterations=1, inner_iterations=inner)
+    tcfg = tr.RocketConfig(horizon=horizon, outer_iterations=1, inner_iterations=inner)
+    x0 = [20.0, 60.0, -3.0, -8.0]
+    with jax.enable_x64(False):
+        want = jax.jit(lambda a, b: jr.plan_landing(a, b, cfg))(
+            jnp.asarray(x0, jnp.float32), jnp.zeros(2, jnp.float32))
+        want = [np.asarray(w) for w in want]
+    got = tr.plan_landing(x0, [0.0, 0.0], tcfg, dtype=torch.float32, device="cpu")
+    close(got[0], want[0], atol=2e-5)
+    close(got[1], want[1], atol=5e-5)
+    close(got[2], want[2], atol=2e-7 * abs(float(want[2])))
 
 
 def test_planar_arm_and_3d_kinematics_match_jax():

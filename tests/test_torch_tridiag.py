@@ -28,6 +28,8 @@ from rust_robotics_tpu.slam import pose_graph as jpg
 from rust_robotics_tpu_torch.nlls import tridiag as tt
 from rust_robotics_tpu_torch.slam import pose_graph as tpg
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = torch.float64
 
 

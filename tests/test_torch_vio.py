@@ -39,6 +39,8 @@ from rust_robotics_tpu_torch.data.kitti import KittiSequence
 from rust_robotics_tpu_torch.demos.headless import headless_euroc_vio
 from rust_robotics_tpu_torch.slam import vio as tvio
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = torch.float64
 CPU = torch.device("cpu")
 

@@ -32,6 +32,8 @@ from rust_robotics_tpu_torch.parallel.pipeline import (
 )
 from rust_robotics_tpu_torch.slam import vio_pp as tpp
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = torch.float64
 CPU = torch.device("cpu")
 

@@ -35,6 +35,8 @@ from rust_robotics_tpu.slam import visual_frontend as jv
 from rust_robotics_tpu_torch.ops.stencil import conv2d_same
 from rust_robotics_tpu_torch.slam import visual_frontend as tv
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 F64 = torch.float64
 INTR = (300.0, 300.0, 64.0, 48.0)
 

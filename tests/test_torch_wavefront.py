@@ -23,6 +23,8 @@ from rust_robotics_tpu_torch.ops import wavefront_sweep as ws
 from rust_robotics_tpu_torch.planning import grid as tgrid
 from rust_robotics_tpu_torch.planning import wavefront as twf
 
+torch.set_num_threads(1)  # one intra-op thread: the tests run a process a core (xdist)
+
 
 def random_maps(b=3, w=32, h=32, p_free=0.75, seed=0):
     """free [B, W, H] with both corners free, goals at the far corner."""
