@@ -129,7 +129,7 @@ any failure exits non-zero before the final line.
     loader (10 s of 3-D flight, IMU at 200 Hz with the pipeline's noise,
     201 keyframes of EuRoC's cam0, 2000 landmarks on a machine hall's
     walls, 0.5 px): (b) `run_vio_pipeline` in f32 (B4 launched once per BA
-    solve, counted) and f64, cold and warm, seconds per stage, LM
+    solve, counted), cold and warm, and f64, cold, seconds per stage, LM
     iterations, fused and dead-reckoned RMSE against truth (fused <= dead
     and under twice the port's f64 CPU run), B4 held against its twin and
     the f64 factor on the first and the last retained system (n = 1206)
@@ -252,8 +252,31 @@ any failure exits non-zero before the final line.
     same function, f64 cuda = CPU at a reduced size (1e-9, discrete
     outputs exactly); (g) the solver paths bitwise with TF32 allowed; then
     one JSON line `{"kinematic_planning": {...}}`;
-25. one JSON line `{"kernels": [...]}`;
-26. the last line, `{"ok": true, "device": {...}}`.
+25. the rigid-body and BranchOut planners, the aerial, meta and arena
+    controllers, the compaction serving runner, the experiment suites,
+    utils/ and viz/, f32 at users' widths unless said, each part once under
+    sync debug mode "warn" on the host clock and under the profiler (a
+    short call, named, where the part makes ~70k launches or more), no
+    kernel entry launching: (a) the meta controller (pure pursuit, the LQR
+    speed-steer fallback) on 1024 vehicles x 200 steps on
+    bench_meta_control's path, `run_controller_arena()` at its 600 steps,
+    the quintic flight and the minimum-snap solve (f64) on the JAX tests'
+    waypoints; (b) the rigid-body lattice and RRT (600 nodes) at
+    `RigidBodyConfig()` on the JAX test's scene, BranchOut's plans,
+    metrics and 40-step closed loops on its three scenes; (c) bench.py's
+    serving row: `run_batched_compaction_benchmark()` (256 x 200, rounds of
+    6, at most 8, tolerance 1e-6) beside the lock-step
+    `run_batched_benchmark` at the same shape; (d) the experiment suites
+    at their defaults (UKF/CKF 10 families x 32 x 120, path tracking 3 x 3
+    x 3 x 500, drone 3 seeds, point-cloud sampling's six problems; the
+    UKF/CKF suite in f64); (e) the
+    roofline of the run's EKF and resampling rates, one trace, a
+    checkpoint round trip on cuda, `assert_deterministic` on two planners,
+    frames drawn; each part's gate the JAX test's of the same function,
+    lanes bitwise their solo runs, f64 cuda = CPU at a reduced size (1e-9,
+    discrete outputs exactly); then one JSON line `{"breadth": {...}}`;
+26. one JSON line `{"kernels": [...]}`;
+27. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -261,6 +284,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -407,6 +431,24 @@ from rust_robotics_tpu_torch.planning import stl as pstl
 from rust_robotics_tpu_torch.planning import temporal as ptemporal
 from rust_robotics_tpu_torch.planning.smoothing import shortcut_path
 from rust_robotics_tpu_torch.planning import bipedal as pbipedal
+from rust_robotics_tpu_torch.planning import branchout as pbo
+from rust_robotics_tpu_torch.planning import rigid_body as prb
+from rust_robotics_tpu_torch.experiments import drone_quality as edq
+from rust_robotics_tpu_torch.experiments import path_tracking as ept
+from rust_robotics_tpu_torch.experiments import point_cloud_sampling as epcs
+from rust_robotics_tpu_torch.experiments import ukf_ckf_accuracy as eukf
+from rust_robotics_tpu_torch.utils import bench_gate as ugate
+from rust_robotics_tpu_torch.utils import checkpoint as ckpt
+from rust_robotics_tpu_torch.utils import profiling as uprof
+from rust_robotics_tpu_torch.utils import roofline as uroof
+from rust_robotics_tpu_torch.utils.roofline import (
+    EKF_OPS_PER_STEP,
+    RESAMPLE_OPS_PER_PARTICLE,
+    WAVEFRONT_OPS_PER_DIRECTION,
+    WAVEFRONT_OPS_PER_KIND,
+    card_peaks,
+)
+from rust_robotics_tpu_torch.viz import raster as vraster
 from rust_robotics_tpu_torch.planning import chomp as pchomp
 from rust_robotics_tpu_torch.planning import curves as pcurves
 from rust_robotics_tpu_torch.planning import eta3 as peta3
@@ -419,6 +461,9 @@ from rust_robotics_tpu_torch.planning import rrt as prrt
 from rust_robotics_tpu_torch.planning import rrt_kinematic as pkin
 from rust_robotics_tpu_torch.planning import rrt_variants as pvar
 from rust_robotics_tpu_torch.control import admm as cadmm
+from rust_robotics_tpu_torch.control import aerial as caerial
+from rust_robotics_tpu_torch.control import arena as carena
+from rust_robotics_tpu_torch.control import meta as cmeta
 from rust_robotics_tpu_torch.control import arm as carm
 from rust_robotics_tpu_torch.control import cbf
 from rust_robotics_tpu_torch.control import cgmres as ccg
@@ -482,31 +527,13 @@ RAGGED_B = 4099
 ATOL_F64 = 1e-12
 ATOL_F32_MEAN, ATOL_F32_COV = 1e-4, 1e-5
 
-# Data-sheet peaks (dense), by a fragment of torch.cuda.get_device_name();
-# the first match wins. Each type's peak at its full precision: float32
-# outside the tensor cores (TF32 rounds), float64 on the tensor cores
-# (DMMA keeps full FP64 precision, at twice the FP64 vector rate).
-CARDS = (
-    ("H100 PCIe", {"bytes_per_s": 2.0e12, "flops": {torch.float32: 51e12, torch.float64: 51e12}}),
-    ("H100 NVL", {"bytes_per_s": 3.9e12, "flops": {torch.float32: 60e12, torch.float64: 60e12}}),
-    ("H200", {"bytes_per_s": 4.8e12, "flops": {torch.float32: 67e12, torch.float64: 67e12}}),
-    ("H100", {"bytes_per_s": 3.35e12, "flops": {torch.float32: 67e12, torch.float64: 67e12}}),
-)
-# Least arithmetic of one EKF step of the unicycle + GPS model, counting
-# only terms the model's sparsity leaves non-zero: 118 adds/multiplies/
-# divides plus 4 sin/cos counted as one operation each.
-EKF_OPS_PER_STEP = 122
+# The card's data-sheet peaks (`CARDS`, `card_peaks`) and the kernels'
+# least work counts (EKF_OPS_PER_STEP, WAVEFRONT_OPS_*,
+# RESAMPLE_OPS_PER_PARTICLE) are utils/roofline.py's.
 
 # bench.py:154-159: B=64 maps of 128x128, 20 % blocked, goal at the far corner
 GRID_B, GRID_W, GRID_H = 64, 128, 128
 GRID_K = 16  # sweeps per launch of wavefront_costs_fused (wavefront_pallas.py:95)
-# The least work of one sweep of one cell, min(cur, s + straight, g +
-# diagonal): per direction a bit test and a min into s or g, and per kind
-# of direction (straight, and with 8 directions diagonal) an add and a min
-# with the cell. None of them is an FMA, so each is one instruction per
-# lane per clock: half the float32 peak, which counts an FMA as two.
-WAVEFRONT_OPS_PER_DIRECTION = 2
-WAVEFRONT_OPS_PER_KIND = 2
 
 # bench.py:182-221: resampling at D=4, pinned (B=256), saturated (B=8192)
 # and tiled (B=2048, P=4096)
@@ -517,9 +544,6 @@ RESAMPLE_IDX_OFF_LIMIT = 1e-3  # share of draws whose index may differ (f32)
 # may lie: the two f32 prefix sums of up to 4096 terms differ by their
 # summation order, a few units of 2^-24 times sqrt(P)
 RESAMPLE_CDF_ATOL = 1e-5
-# per particle: normalise, square-add, scan add, CDF divide, position
-# add+divide, and a log2(P)-step binary search
-RESAMPLE_OPS_PER_PARTICLE = 7
 
 # demos/benchmarks.py:245-271 (bench_particle_filter), for a fleet of filters
 PF_LANDMARKS = ((10.0, 0.0), (10.0, 10.0), (0.0, 15.0), (-5.0, 20.0))
@@ -617,8 +641,11 @@ FD_EPS, FD_RTOL, FD_ATOL = 1e-6, 5e-4, 1e-7
 FD_CHECKS = ((0, 0), (5, 1), (10, 2), (11, 0), (12, 1))  # edge, component; 11, 12 are loops
 # solve_device against solve on the 1000-pose benchmark chain, f64 (the
 # configuration of tests/test_nlls.py:193-215 with a PCG budget of 200);
-# poses within 1e-7 as there.
+# poses within 1e-7 as there. The f32 times are taken on the dense route
+# only: matfree_pcg's two f32 solves (~18 s) were cut to make room for
+# phase 25 (PERF.md §4).
 SD_CHAIN, SD_ATOL_F64 = 1000, 1e-7
+SD_TIMED = ("dense",)
 SD_CONFIG = dict(method="lm", max_iterations=25, gradient_tolerance=1e-10, step_tolerance=1e-10,
                  cost_tolerance=1e-14, pcg_max_iterations=200, pcg_tolerance=1e-10)
 # ICP: bench_icp's workload (demos/benchmarks.py:228-242: 120 points in
@@ -637,13 +664,6 @@ ICP_CUDA_CPU_ATOL = 1e-5
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def card_peaks(name: str) -> dict:
-    for fragment, peaks in CARDS:
-        if fragment in name:
-            return peaks
-    fail(f"no data-sheet peaks known for card {name!r}")
 
 
 def ekf_scan_bound(t, b, dtype, peaks):
@@ -714,7 +734,7 @@ def check_close(label, got, want, atol):
 
 def bitwise_equal(a, b):
     """Same shape and the same bits (floats compared as integers)."""
-    as_int = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    as_int = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.view(as_int), b.view(as_int))
 
 
@@ -1645,7 +1665,8 @@ def implicit_part(card, device):
 
 def solve_device_part(card, device):
     """(c) solve_device against solve on the 1000-pose chain: f64 equality,
-    no read inside an iteration, the reads of a whole solve; f32 times."""
+    no read inside an iteration, the reads of a whole solve; f32 times on
+    the routes of SD_TIMED."""
     truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_chain(SD_CHAIN)
 
     def problem(dtype):
@@ -1681,19 +1702,21 @@ def solve_device_part(card, device):
         state, step = nlls_solver.device_lm_start(prob32, cfg)
         prof = device_breakdown(f"solve_device {solver} {SD_CHAIN} chain, one LM iteration (f32) "
                                 f"on {card}", lambda: step(state))
+        out[solver] = {"f64": {"solve_device": vars(ds), "solve": vars(hs), "max_abs_diff": diff,
+                               "device_reads_per_solve": reads},
+                       "launches_per_iteration": len(prof["names"]),
+                       "profile": {k: v for k, v in prof.items() if k != "names"}}
+        print(f"solve_device {solver}: {len(prof['names'])} device launches per iteration")
+        if solver not in SD_TIMED:
+            continue
         # one call each: the f64 calls above ran the same code (eager
         # PyTorch compiles nothing)
         solve_s, (_, h32) = timed(lambda: nlls_solver.solve(prob32, cfg))
         device_s, (_, s32) = timed(lambda: nlls_solver.solve_device(prob32, cfg))
-        times = {"solve": solve_s, "solve_device": device_s}
         print(f"solve_device {solver} f32 on {card}: {device_s!r} s ({s32}); solve {solve_s!r} s "
-              f"({h32}); {len(prof['names'])} device launches per iteration")
-        out[solver] = {"f64": {"solve_device": vars(ds), "solve": vars(hs), "max_abs_diff": diff,
-                               "device_reads_per_solve": reads},
-                       "f32_s": times, "f32_summary": {"solve_device": vars(s32),
-                                                       "solve": vars(h32)},
-                       "launches_per_iteration": len(prof["names"]),
-                       "profile": {k: v for k, v in prof.items() if k != "names"}}
+              f"({h32})")
+        out[solver]["f32_s"] = {"solve": solve_s, "solve_device": device_s}
+        out[solver]["f32_summary"] = {"solve_device": vars(s32), "solve": vars(h32)}
     return out
 
 
@@ -2822,13 +2845,15 @@ def retained_systems():
 
 
 def vio_batch_part(card, device, ds, tracks, truth, counted):
-    """(b) run_vio_pipeline on cuda in f32 (B4 on its BA path) and f64, cold
-    and warm; B4 against its twin on the f32 BA's own retained systems; cuda
+    """(b) run_vio_pipeline on cuda in f32 (B4 on its BA path), cold and
+    warm, and f64, cold; B4 against its twin on the f32 BA's own retained systems; cuda
     against the CPU in f64 on the first VIO_CUT keyframes."""
     out = {}
     for dtype in (torch.float32, torch.float64):
         key = "f32" if dtype == torch.float32 else "f64"
-        for run in ("cold", "warm"):
+        # the f64 warm run (~7 s, a repeat for its time) was cut to make
+        # room for phase 25 (PERF.md §4)
+        for run in ("cold", "warm") if key == "f32" else ("cold",):
             for fn in counted:
                 fn.launches = 0
             with retained_systems() as systems:
@@ -5630,12 +5655,13 @@ KIN_PROFILE_FULL = os.environ.get("KIN_PROFILE_FULL") == "1"
 KIN_KERNEL_LAUNCHES = {}
 
 
-def kin_part(label, fn, counted, short=None):
+def kin_part(label, fn, counted, short=None, totals=KIN_KERNEL_LAUNCHES):
     """fn() once under sync debug mode "warn" on the host clock (its reads)
     and once more under the profiler (launches, busy time, idle share): at
     the same size, or, for a part given `short` = (its size, a callable) and
     without KIN_PROFILE_FULL, that short call. The kernel entries counted
-    over both: none may launch. Returns (fn's result, the numbers)."""
+    over both (summed into `totals`): none may launch. Returns (fn's result,
+    the numbers)."""
     for k in counted:
         k.launches = 0
     host_s, (out, reads) = timed(lambda: reads_in(fn))
@@ -5644,7 +5670,7 @@ def kin_part(label, fn, counted, short=None):
              **profile_once(label, call)}
     stats["kernel_launches"] = {k.__name__: k.launches for k in counted}
     for name, n in stats["kernel_launches"].items():
-        KIN_KERNEL_LAUNCHES[name] = KIN_KERNEL_LAUNCHES.get(name, 0) + n
+        totals[name] = totals.get(name, 0) + n
     print(f"{label}: {host_s!r} s host; {reads} device reads; profiled call ({profiled}): "
           f"device busy {stats['busy_ms']!r} ms, {stats['launches']} launches, "
           f"{stats['idle']!r} idle; kernel entries {stats['kernel_launches']}")
@@ -6291,6 +6317,499 @@ def kinematic_phase(card, device, counted):
     return out
 
 
+# phase 25: the rigid-body and BranchOut planners, the aerial, meta and
+# arena controllers, the compaction serving runner, the experiment suites,
+# utils/ and viz/ (no kernel on their path)
+BRD_FLEET = 1024
+BRD_META_STEPS = 200  # bench_meta_control
+BRD_LANES = (0, 511, 1023)
+BRD_LANE_STEPS = 4  # steps of a lane's solo run held to the fleet's
+BRD_SMALL, BRD_SMALL_STEPS = 16, 10  # the f64 cuda = CPU runs
+BRD_ATOL = 1e-9
+BRD_WPS = ((0.0, 0.0, 1.0), (2.0, 1.0, 2.0), (4.0, -1.0, 1.5), (6.0, 0.0, 1.0))  # the JAX test's
+BRD_SNAP = ((0.0, 1.0, -0.5, 2.0), (1.0, 1.0, 1.5))  # waypoints, segment times
+BRD_WALL = (3.5, 6.5, 0.0, 6.0)  # tests/test_breadth_planners.py's obstacle
+BRD_START, BRD_GOAL = (1.0, 1.0, 0.0), (9.0, 1.0, 0.0)
+BRD_SCENES = ("simple_overtake", "wide_overtake", "forced_yield")
+BRD_COMPACT_SMALL = dict(size=100, batch=6, chunk_iters=5, max_rounds=5)
+BRD_ARENA_F64_STEPS = 20
+BRD_KERNEL_LAUNCHES = {}
+
+
+def brd_part(label, fn, counted, short=None):
+    """kin_part, its kernel entries summed into phase 25's totals."""
+    return kin_part(label, fn, counted, short, totals=BRD_KERNEL_LAUNCHES)
+
+
+def brd_meta(state, pts, mask, steps):
+    """bench_meta_control's loop over a fleet: pure pursuit the primary, the
+    LQR speed-steer law the fallback (both at 3 m/s), the latch on the EMA
+    of the cross-track error. Returns (states [steps, ..., 4], use, ema)."""
+    cfg = cmeta.LQRSpeedSteerConfig(wheelbase=2.9)
+    speed = torch.full_like(mask, 3.0)
+    zero = torch.zeros_like(state[..., 0])
+    errs = [zero, zero]  # the fallback's (e, θe), threaded from step to step
+    use, ema = zero > 0, zero
+
+    def fallback(s):
+        accel, steer, errs[:] = cmeta.lqr_speed_steer_control(s, pts, mask, speed, *errs, cfg)
+        return accel, steer, tuple(errs)
+
+    traj = []
+    for _ in range(steps):
+        accel, steer, use, ema = cmeta.meta_control_step(
+            state, pts, mask, 3.0, use, ema,
+            lambda s: ctrack.pure_pursuit_control(s, pts, mask, 3.0), fallback)
+        state = ctrack.bicycle_kinematics(state, accel, steer, 0.1, 2.9)
+        traj.append(state)
+    return torch.stack(traj), use, ema
+
+
+def brd_controllers_part(card, device, counted):
+    """(a) The meta controller over a fleet on bench_meta_control's path, the
+    controller arena at its 600 steps, the quintic and minimum-snap
+    flights."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(SEED + 250)
+    # around bench_meta_control's start (0, -1, 0.2, 1)
+    starts = np.stack([rng.uniform(0.0, 1.0, BRD_FLEET), rng.uniform(-1.5, -0.5, BRD_FLEET),
+                       rng.uniform(0.0, 0.4, BRD_FLEET), rng.uniform(0.5, 1.5, BRD_FLEET)], -1)
+    pts, mask = ctl_course(device, f32)
+    s32 = torch.tensor(starts, dtype=f32, device=device)
+    (traj, use, ema), stats = brd_part(
+        f"meta control (pure pursuit, LQR speed-steer fallback): {BRD_FLEET} vehicles x "
+        f"{BRD_META_STEPS} steps f32 on {card}",
+        lambda: brd_meta(s32, pts, mask, BRD_META_STEPS), counted,
+        short=("1 step", lambda: brd_meta(s32, pts, mask, 1)))
+    x = traj[-1, :, 0]
+    _gate(f"meta control: every vehicle past x = 25 after {BRD_META_STEPS} steps, the EMA finite "
+          f"(tests/test_meta_p2p.py's gates)", bool((x > 25.0).all() and torch.isfinite(ema).all()),
+          f"min x {float(x.min())!r}, {int(use.sum())} vehicles on the fallback at the end")
+    ctl_lanes(f"meta control f32, {BRD_LANE_STEPS} steps",
+              brd_meta(s32, pts, mask, BRD_LANE_STEPS)[0][-1],
+              lambda i: brd_meta(s32[i], pts, mask, BRD_LANE_STEPS)[0][-1], BRD_LANES)
+    small = torch.tensor(starts[:BRD_SMALL], dtype=f64)
+    got = brd_meta(small.to(device), *ctl_course(device, f64), BRD_SMALL_STEPS)
+    want = brd_meta(small, *ctl_course("cpu", f64), BRD_SMALL_STEPS)
+    d = ctl_same(f"meta control: {BRD_SMALL} vehicles x {BRD_SMALL_STEPS} steps f64 cuda = CPU",
+                 got[0], want[0], BRD_ATOL)
+    ctl_same("meta control: latches f64 cuda = CPU", got[1], want[1])
+    out["meta"] = {**stats, "vehicles": BRD_FLEET, "steps": BRD_META_STEPS,
+                   "min_x": float(x.min()), "on_fallback": int(use.sum()), "f64_max_diff": d}
+    brd_state = {"states": traj[-1], "use": use, "ema": ema}
+
+    (res, (header, rows)), stats = brd_part(
+        f"run_controller_arena (600 steps, three controllers) f32 on {card}",
+        lambda: carena.run_controller_arena(device=device), counted,
+        short=("2 steps", lambda: carena.run_controller_arena(steps=2, device=device)))
+    ok = all(m["cross_track_rmse"] < 1.0 and m["progress"] > 20.0 for m in res.values())
+    _gate("controller arena: every controller's cross-track RMSE < 1 and progress > 20 m "
+          "(tests/test_aux.py's gates)", ok, f"{res}")
+    with tempfile.TemporaryDirectory() as tmp:
+        texts = [open(ugate.write_csv(os.path.join(tmp, f"{k}.csv"), *carena.run_controller_arena(
+            steps=BRD_ARENA_F64_STEPS, dtype=f64, device=dev)[1])).read()
+            for k, dev in (("cuda", device), ("cpu", "cpu"))]
+    problems = ugate.compare_csv(texts[1], texts[0])
+    _gate(f"controller arena, {BRD_ARENA_F64_STEPS} steps f64: the CSV gate holds cuda against "
+          f"the CPU", not problems, f"{problems or 'passes (the elapsed_ms column ignored)'}")
+    out["arena"] = {**stats, "metrics": res, "elapsed_ms": {r[0]: r[-1] for r in rows}}
+
+    wps = torch.tensor(BRD_WPS, dtype=f32, device=device)
+    (ps, refs), stats = brd_part(f"quintic segments + PD quadrotor (300 steps) f32 on {card}",
+                                 lambda: caerial.simulate_quadrotor(
+                                     caerial.quintic_3d_segments(wps, 2.0), 2.0), counted)
+    err = float(torch.linalg.vector_norm(ps - refs, dim=-1).max())
+    end = float(torch.linalg.vector_norm(ps[-1] - wps[-1]))
+    _gate("quadrotor: tracking error < 0.3 m, the flight ends within 0.2 m of the last waypoint "
+          "(tests/test_control_families.py's gates)", err < 0.3 and end < 0.2,
+          f"max error {err!r}, end {end!r}")
+    fleet = caerial.quintic_3d_segments(wps + torch.linspace(0.0, 1.0, 4, device=device)[:, None,
+                                                                                       None], 2.0)
+    flights = caerial.simulate_quadrotor(fleet, 2.0)
+    ctl_lanes("quadrotor flights f32", flights,
+              lambda i: caerial.simulate_quadrotor(fleet[i], 2.0), (0, 3))
+    wps64 = torch.tensor(BRD_WPS, dtype=f64)
+    d = ctl_same("quadrotor f64 cuda = CPU", caerial.simulate_quadrotor(
+        caerial.quintic_3d_segments(wps64.to(device), 2.0), 2.0)[0],
+        caerial.simulate_quadrotor(caerial.quintic_3d_segments(wps64, 2.0), 2.0)[0], BRD_ATOL)
+    out["quadrotor"] = {**stats, "max_error": err, "end_error": end, "f64_max_diff": d}
+
+    w, ts = (torch.tensor(v, dtype=f64, device=device) for v in BRD_SNAP)
+    c, stats = brd_part(f"minimum-snap coefficients (3 segments) f64 on {card}",
+                        lambda: caerial.minimum_snap_coeffs(w, ts), counted)
+    ends = torch.stack([caerial.eval_poly8(c, torch.zeros(3, dtype=f64, device=device)),
+                        caerial.eval_poly8(c, ts)])
+    interp = float((ends - torch.stack([w[:-1], w[1:]])).abs().max())
+    rest = float(caerial.eval_poly8(c[0], torch.zeros((), dtype=f64, device=device), 1).abs())
+    _gate("minimum snap: each segment interpolates its waypoints within 1e-7, rest to rest within "
+          "1e-8 (the JAX test's gates)", interp < 1e-7 and rest < 1e-8,
+          f"max|p - w| {interp!r}, |v(0)| {rest!r}")
+    d = ctl_same("minimum snap f64 cuda = CPU", c,
+                 caerial.minimum_snap_coeffs(w.cpu(), ts.cpu()), BRD_ATOL * float(c.abs().max()))
+    out["minimum_snap"] = {**stats, "interpolation_error": interp, "f64_max_diff": d}
+    return out, brd_state
+
+
+def brd_lattice(device, dtype):
+    return prb.rigid_body_lattice_plan(BRD_START, BRD_GOAL, [prb.aabb_obstacle(
+        *BRD_WALL, dtype=dtype, device=device)], prb.RigidBodyConfig())
+
+
+def brd_rrt(device, dtype):
+    return prb.rigid_body_rrt_plan(SEED, BRD_START, BRD_GOAL, [prb.aabb_obstacle(
+        *BRD_WALL, dtype=dtype, device=device)], prb.RigidBodyConfig(), max_nodes=600)
+
+
+def brd_scene(name):
+    return getattr(pbo.BranchOutScene, name)()
+
+
+def brd_branchout(device, dtype, steps=40):
+    """Each scene's plan, the wide overtake's metrics against its
+    lane-change-left mode, and each scene's closed loop."""
+    plans = {s: pbo.branchout_plan(brd_scene(s), dtype=dtype, device=device) for s in BRD_SCENES}
+    gt = plans["wide_overtake"]["poses"][2][None]
+    metrics = pbo.evaluate_multimodal(plans["wide_overtake"], gt)
+    loops = {s: pbo.simulate_closed_loop(brd_scene(s), [(0.0, 0.0)], steps=steps, dtype=dtype,
+                                         device=device) for s in BRD_SCENES}
+    return plans, metrics, loops
+
+
+def brd_planners_part(card, device, counted):
+    """(b) The rigid-body lattice and RRT planners at `RigidBodyConfig()` on
+    the JAX test's scene; BranchOut's plan, metrics and closed loop (40
+    steps) on the three scenes."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    cfg = prb.RigidBodyConfig()
+    plan, stats = brd_part(f"rigid_body_lattice_plan {cfg.heading_count} x 21 x 21 f32 on {card}",
+                           lambda: brd_lattice(device, f32), counted)
+    ok = (plan is not None and plan["min_separation_margin"] > cfg.clearance
+          and np.abs(plan["poses"][0][:2] - BRD_START[:2]).max() <= 0.26
+          and np.abs(plan["poses"][-1][:2] - BRD_GOAL[:2]).max() <= 0.26
+          and bool((plan["certificate_margins"] > cfg.clearance).all()))
+    _gate("rigid-body lattice: a certified path from start to goal (the JAX test's gates)", ok,
+          f"cost {plan and plan['total_cost']!r}, {plan and len(plan['poses'])} poses, min margin "
+          f"{plan and plan['min_separation_margin']!r}")
+    got, want = brd_lattice(device, f64), brd_lattice("cpu", f64)
+    same = all(np.array_equal(got[k], want[k]) for k in ("poses", "certificate_halfspaces",
+                                                         "certificate_margins", "iterations"))
+    _gate("rigid-body lattice f64 cuda = CPU", same and got["total_cost"] == want["total_cost"],
+          "poses, certificates and costs equal" if same else "differ")
+    out["lattice"] = {**stats, "total_cost": plan["total_cost"], "poses": len(plan["poses"]),
+                      "feasible_states": plan["iterations"]}
+
+    plan, stats = brd_part(f"rigid_body_rrt_plan (600 nodes) f32 on {card}",
+                           lambda: brd_rrt(device, f32), counted)
+    ok = plan is not None and plan["min_separation_margin"] > cfg.clearance and plan[
+        "path_length"] >= 8.0
+    _gate("rigid-body RRT: a certified path (the JAX test's gates)", ok,
+          f"{plan and plan['iterations']} iterations, length {plan and plan['path_length']!r}")
+    got, want = brd_rrt(device, f64), brd_rrt("cpu", f64)
+    _gate("rigid-body RRT f64 cuda = CPU", np.array_equal(got["poses"], want["poses"])
+          and got["iterations"] == want["iterations"], "the same tree and path")
+    out["rrt"] = {**stats, "iterations": plan["iterations"], "path_length": plan["path_length"]}
+
+    (plans, metrics, loops), stats = brd_part(
+        f"BranchOut: plans, metrics, 40-step closed loops on {len(BRD_SCENES)} scenes f32 on "
+        f"{card}", lambda: brd_branchout(device, f32), counted,
+        short=("2-step loops", lambda: brd_branchout(device, f32, steps=2)))
+    best = {s: pbo.MODES[int(torch.argmax(p["probability"]))] for s, p in plans.items()}
+    yt = plans["forced_yield"]["poses"][1, -1]
+    wide = loops["wide_overtake"]
+    ok = (all(abs(float(p["probability"].sum()) - 1.0) < 1e-6 for p in plans.values())
+          and best["simple_overtake"] != "keep-lane" and best["forced_yield"] == "yield"
+          and float(yt[2]) < 0.5 and float(yt[0]) < 4.1 and metrics["mode_count"] == 4
+          and 0.0 <= metrics["speed_jsd"] <= math.log(2) + 1e-6
+          and wide["collision_steps"] == 0 and wide["route_completion"] > 0.9
+          and wide["min_clearance"] > 0)
+    _gate("BranchOut: tests/test_breadth_planners.py's gates", ok,
+          f"winners {best}, wide overtake's loop {wide['route_completion']!r} complete, "
+          f"{wide['collision_steps']} collision steps")
+    got, want = brd_branchout(device, f64), brd_branchout("cpu", f64)
+    d = max(max(ctl_same(f"BranchOut {s} plan f64 cuda = CPU: {k}", got[0][s][k], want[0][s][k],
+                         BRD_ATOL) for k in ("poses", "cost", "probability"))
+            for s in BRD_SCENES)
+    d = max(d, *(abs(got[1][k] - want[1][k]) for k in want[1]))
+    for s in BRD_SCENES:
+        ctl_same(f"BranchOut {s} closed loop f64 cuda = CPU: mode sequence",
+                 torch.tensor([pbo.MODES.index(m) for m in got[2][s]["mode_sequence"]]),
+                 torch.tensor([pbo.MODES.index(m) for m in want[2][s]["mode_sequence"]]))
+        d = max(d, ctl_same(f"BranchOut {s} closed loop f64 cuda = CPU: executed path",
+                            torch.tensor(got[2][s]["executed_path"]),
+                            torch.tensor(want[2][s]["executed_path"]), BRD_ATOL))
+    _gate("BranchOut metrics f64 cuda = CPU", d <= BRD_ATOL, f"max|diff| {d!r}")
+    out["branchout"] = {**stats, "winners": best, "metrics": metrics,
+                        "loops": {s: {k: v for k, v in lp.items() if k != "executed_path"}
+                                  for s, lp in loops.items()}, "f64_max_diff": d}
+    return out
+
+
+def brd_serving_part(card, device, counted, lockstep=None):
+    """(c) bench.py's serving row: the compaction runner at its defaults
+    (256 graphs x 200 poses, rounds of 6 iterations, at most 8, tolerance
+    1e-6) beside the lock-step batch at the same shape (25 iterations, best
+    of 2): phase 15's run of it (`lockstep`, its "serving" numbers), or its
+    own when phase 25 runs alone."""
+    f32, f64 = torch.float32, torch.float64
+    (c_s, c_worst, c_rate, rounds), c_stats = brd_part(
+        f"run_batched_compaction_benchmark() 256 x 200 f32 on {card}",
+        lambda: pose_graph_bench.run_batched_compaction_benchmark(device=device), counted,
+        short=("one round", lambda: pose_graph_bench.run_batched_compaction_benchmark(
+            max_rounds=1, device=device)))
+    if lockstep is None:
+        (l_s, l_worst, l_rate, _, summ), l_stats = brd_part(
+            f"run_batched_benchmark 256 x 200 f32, lock-step, 25 iterations, best of 2 on {card}",
+            lambda: pose_graph_bench.run_batched_benchmark(
+                size=200, batch=256, max_iterations=25, device=device, runs=2), counted,
+            short=("1 iteration", lambda: pose_graph_bench.run_batched_benchmark(
+                size=200, batch=256, max_iterations=1, device=device)))
+        l_stats["iterations_max"] = int(summ.iterations.max())
+    else:
+        l_s, l_worst, l_rate = (lockstep[k] for k in ("seconds", "worst_rmse", "graphs_per_s"))
+        l_stats = {"from": "phase 15"}
+    buckets = [b for b, _ in rounds]
+    active = [a for _, a in rounds]
+    ok = (c_worst < 5e-3 and l_worst < 5e-3 and rounds[0] == (256, 256)
+          and buckets == sorted(buckets, reverse=True) and active == sorted(active, reverse=True)
+          and all(a <= b < 2 * a or a == b for b, a in rounds))
+    _gate("serving: both runners' worst RMSE < 5e-3, the rounds packed into shrinking "
+          "power-of-two buckets", ok, f"compaction {c_worst!r} in {len(rounds)} rounds {rounds}; "
+                                      f"lock-step {l_worst!r}")
+    print(f"serving 256 x 200 f32 on {card}: compaction {c_rate!r} graphs/s ({c_s!r} s), "
+          f"lock-step {l_rate!r} graphs/s ({l_s!r} s): compaction / lock-step = "
+          f"{c_rate / l_rate!r}")
+    got = pose_graph_bench.run_batched_compaction_benchmark(**BRD_COMPACT_SMALL, device=device,
+                                                            dtype=f64)
+    want = pose_graph_bench.run_batched_compaction_benchmark(**BRD_COMPACT_SMALL, device="cpu",
+                                                             dtype=f64)
+    _gate(f"compaction {BRD_COMPACT_SMALL} f64 cuda = CPU: the rounds profile exactly, the worst "
+          f"RMSE within {BRD_ATOL}", got[3] == want[3] and abs(got[1] - want[1]) <= BRD_ATOL,
+          f"{got[3]} against {want[3]}, {got[1]!r} against {want[1]!r}")
+    return {"compaction": {**c_stats, "seconds": c_s, "worst_rmse": c_worst,
+                           "graphs_per_s": c_rate, "rounds": [list(r) for r in rounds]},
+            "lockstep": {**l_stats, "seconds": l_s, "worst_rmse": l_worst, "graphs_per_s": l_rate},
+            "compaction_over_lockstep": c_rate / l_rate, "batch": 256, "size": 200}
+
+
+def brd_cell_draws(case, bucket, slots, max_iter, seed):
+    """A point-cloud cell's draws from a CPU generator, the Poisson sampler's
+    first points among each cloud's valid ones."""
+    gen = torch.Generator().manual_seed(seed)
+    draws = epcs.draw_cell(gen, case, slots, max_iter, torch.float64, "cpu")
+    _, valid = epcs._generate_cell_clouds(case, bucket, draws)
+    lanes = len(epcs._POISSON_FACTORS)
+    first = torch.multinomial(valid.double().repeat_interleave(lanes, 0), 1, generator=gen)
+    return draws._replace(poisson_first=first.reshape(slots, lanes))
+
+
+def brd_experiments_part(card, device, counted):
+    """(d) The experiment suites at their defaults: UKF against CKF (10
+    families x 32 scenarios x 120 steps, f64), path tracking (3 controllers x 3
+    courses x 3 seeds x 500 steps), drone trajectories (3 seeds), point-cloud
+    sampling (the six problems, 10 slots a cell)."""
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    # f64: the UKF's sigma weights at α = 1e-3 cancel in f32, where JAX's
+    # own suite gives NaN RMSEs (11 of 32 nominal scenarios; ROADMAP C13)
+    ukf, stats = brd_part(
+        f"run_ukf_ckf_accuracy() (10 families x 32 scenarios x 120 steps) f64 on {card}",
+        lambda: eukf.run_ukf_ckf_accuracy(dtype=f64, device=device), counted,
+        short=("one family, 20 steps", lambda: eukf.simulate_family_rmse(
+            eukf.SCENARIO_FAMILIES["nominal"], 20,
+            generator=torch.Generator(device=device).manual_seed(0), dtype=f64, device=device)))
+    rows = ukf["full_coverage"]
+    full = {r.comparison_key(): r for r in rows}
+    ok = (set(ukf) == {"full_coverage", "strided_2", "strided_4", "head_8", "escalating"}
+          and len(rows) == 10 * 3
+          and all(r.winner() in ("UKF", "CKF") and 0 < r.coverage_ratio() <= 1.0
+                  and math.isfinite(r.ukf_over_ckf())
+                  and r.ukf_min_rmse <= r.ukf_bucket_median_rmse <= r.ukf_max_rmse for r in rows)
+          and all(len(r.selected_slots) <= len(full[r.comparison_key()].selected_slots)
+                  for r in ukf["strided_4"])
+          and all(r.ukf_bucket_median_rmse < 1.0 and r.ckf_bucket_median_rmse < 1.0
+                  for r in rows if r.family_name == "nominal"))
+    _gate("UKF/CKF suite: tests/test_experiments.py's gates", ok,
+          f"CKF wins {sum(r.winner() == 'CKF' for r in rows)} of {len(rows)} full-coverage rows")
+    fams = {k: eukf.SCENARIO_FAMILIES[k] for k in ("outliers", "latency")}
+    draws = {k: eukf.draw_family(torch.Generator().manual_seed(i), 20, 8, f64)
+             for i, k in enumerate(sorted(fams))}
+    got = [eukf.simulate_family_rmse(p, 20, 8, draws=eukf.FamilyDraws(
+        *(t.to(device) for t in draws[k])), dtype=f64) for k, p in sorted(fams.items())]
+    want = [eukf.simulate_family_rmse(p, 20, 8, draws=draws[k], dtype=f64)
+            for k, p in sorted(fams.items())]
+    d = ctl_same("UKF/CKF RMSEs, 2 families x 8 scenarios x 20 steps f64 cuda = CPU",
+                 torch.stack([torch.stack(g) for g in got]),
+                 torch.stack([torch.stack(w) for w in want]), BRD_ATOL)
+    out["ukf_ckf"] = {**stats, "ckf_wins": sum(r.ckf_wins for r in rows), "f64_max_diff": d}
+
+    reports, stats = brd_part(
+        f"run_path_tracking_accuracy() (3 x 3 x 3 x 500 steps) f32 on {card}",
+        lambda: ept.run_path_tracking_accuracy(device=device), counted,
+        short=("2 steps", lambda: ept.run_path_tracking_accuracy(steps=2, device=device)))
+    ok = ({r.variant.name for r in reports} == {"pure_pursuit", "stanley", "lqr_steer"}
+          and all(len(r.observations) == 9 and r.summary["mean_cross_track_rmse"] < 3.0
+                  and 0.0 <= r.summary["goal_rate"] <= 1.0 for r in reports)
+          and reports[0].reference_deltas["mean_cross_track_rmse"] == 0.0)
+    _gate("path-tracking suite: tests/test_experiments.py's gates", ok,
+          f"{ {r.variant.name: r.summary for r in reports} }")
+    pts = torch.stack([ept._course(c, dtype=f32, device=device)[0] for c in ept.COURSES])
+    offsets = torch.rand((3, 2), generator=torch.Generator().manual_seed(SEED), dtype=f32)
+    # the lane's state and its exact reductions (a mean's order may follow
+    # the batch)
+    exact = ("max_cross_track", "progress", "goal_reached")
+
+    def lanes(off, p):
+        m = ept._rollout(off.to(device), p, torch.ones_like(p[..., 0]), "lqr_steer",
+                         BRD_LANE_STEPS)
+        return torch.stack([m[k].float() for k in exact], -1)
+
+    ctl_lanes(f"path tracking LQR f32, {BRD_LANE_STEPS} steps, a course a lane",
+              lanes(offsets, pts), lambda i: lanes(offsets[i:i + 1], pts[i:i + 1])[0], (0, 1, 2))
+    got, want = (ept.run_path_tracking_accuracy(seeds=(0,), steps=30, dtype=f64, device=dev)
+                 for dev in (device, "cpu"))
+    d = max(abs(g.summary[k] - w.summary[k]) for g, w in zip(got, want) for k in w.summary)
+    _gate("path-tracking suite (1 seed, 30 steps) f64 cuda = CPU", d <= BRD_ATOL,
+          f"max|diff| {d!r}")
+    out["path_tracking"] = {**stats, "summaries": {r.variant.name: r.summary for r in reports},
+                            "f64_max_diff": d}
+
+    wps = edq._waypoints(torch.rand((5, 3), generator=torch.Generator().manual_seed(SEED)).to(
+        device) * 2.0 - 1.0)
+    reports, stats = brd_part(f"run_drone_trajectory_quality() (3 seeds) f32 on {card}",
+                              lambda: edq.run_drone_trajectory_quality(device=device), counted,
+                              short=("a 20-step minimum-snap flight",
+                                     lambda: edq._fly_min_snap(wps, segment_time=0.1)))
+    by = {r.variant.name: r for r in reports}
+    ok = (set(by) == {"quintic", "min_snap"}
+          and all(math.isfinite(r.summary["mean_tracking_rmse"])
+                  and r.summary["mean_tracking_rmse"] < 5.0 for r in reports)
+          and by["min_snap"].summary["mean_jerk"] <= by["quintic"].summary["mean_jerk"] * 5.0)
+    _gate("drone suite: tests/test_experiments.py's gates", ok,
+          f"{ {n: r.summary for n, r in by.items()} }")
+    got, want = (edq.run_drone_trajectory_quality(seeds=(0,), dtype=f64, device=dev)
+                 for dev in (device, "cpu"))
+    d = max(abs(g.observations[0][k] - w.observations[0][k]) / max(1.0, abs(w.observations[0][k]))
+            for g, w in zip(got, want) for k in w.observations[0])
+    _gate("drone suite (1 seed) f64 cuda = CPU", d <= BRD_ATOL, f"max relative diff {d!r}")
+    out["drone"] = {**stats, "summaries": {n: r.summary for n, r in by.items()},
+                    "f64_max_rel_diff": d}
+
+    case0 = epcs.PROCESS_PROBLEMS["point_cloud_sampling"][0]
+    reports, stats = brd_part(
+        f"run_point_cloud_sampling_quality() (six problems, 10 slots a cell) f32 on {card}",
+        lambda: epcs.run_point_cloud_sampling_quality(device=device), counted,
+        short=("one cell, 2 slots", lambda: epcs.slot_scores_for_cell(
+            case0, 48, 2, generator=torch.Generator(device=device).manual_seed(0), device=device)))
+    obs = [o for r in reports.values() for o in r["observations"]]
+    full = reports["full-bucket"]
+    checks = {
+        "roster": set(reports) == {"full-bucket", "first-scenario", "sampled-bucket",
+                                   "percentile-bucket", "variance-triggered"},
+        "reference": (full["agreement_vs_reference"] == 1.0
+                      and full["mean_ratio_error_vs_reference"] == 0
+                      and full["average_coverage_ratio"] == 1.0),
+        "first-scenario coverage 1/10": abs(
+            reports["first-scenario"]["average_coverage_ratio"] - 0.1) < 1e-12,
+        "observations": all(
+            o.total_scenarios == 10 and all(map(math.isfinite, o.median_scores))
+            and o.runner_up_over_best() >= 1.0 and sum(o.wins) == len(o.selected_slots)
+            and all(lo <= md <= hi + 1e-12 for lo, md, hi in zip(
+                o.min_scores, o.median_scores, o.max_scores)) for o in obs)}
+    _gate("point-cloud suite: tests/test_experiments.py's gates", all(checks.values()),
+          f"{len(full['observations'])} cells; winners "
+          f"{collections.Counter(o.winner() for o in full['observations'])}; failing "
+          f"{[k for k, v in checks.items() if not v]}")
+    case = epcs.PROCESS_PROBLEMS["density_shift"][0]
+    draws = brd_cell_draws(case, 48, 3, 8 * epcs.cloud_size(case), SEED)
+    d = ctl_same("point-cloud cell (density shift, 48, 3 slots) f64 cuda = CPU",
+                 epcs.slot_scores_for_cell(case, 48, 3, draws=epcs.CellDraws(
+                     *(None if x is None else x.to(device) for x in draws)), dtype=f64),
+                 epcs.slot_scores_for_cell(case, 48, 3, draws=draws, dtype=f64), BRD_ATOL)
+    out["point_cloud"] = {**stats, "agreement": {k: r["agreement_vs_reference"]
+                                                 for k, r in reports.items()},
+                          "f64_max_diff": d}
+    return out
+
+
+def brd_utilities_part(card, device, counted, rates, state):
+    """(e) The roofline of the run's EKF and resampling rates, one trace, a
+    checkpoint round trip of a CUDA state, `assert_deterministic` on a
+    planner, `nan_report`, frames drawn (no GIF: the card's machine has no
+    PIL)."""
+    out = {}
+    extras = uroof.roofline_extras(rates, uroof.card_peaks(torch.cuda.get_device_name(0)))
+    _gate("roofline of the run's rates", set(extras) >= {"ekf_update", "resampled_particle"}
+          and all(math.isfinite(v) for m in extras.values() for k, v in m.items()
+                  if k != "expected_bound"), f"{extras}")
+    out["roofline"] = extras
+    with tempfile.TemporaryDirectory() as tmp:
+        with uprof.trace(tmp):
+            pbo.branchout_plan(brd_scene("wide_overtake"), device=device)
+        events = json.load(open(os.path.join(tmp, "trace.json")))["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        _gate("utils.profiling.trace: a Chrome trace written", len(events) > 0,
+              f"{len(events)} events, {kernels} device kernels")
+        out["trace_events"], out["trace_kernels"] = len(events), kernels
+        ckpt.save_checkpoint(tmp, 25, state)
+        like = {k: torch.zeros_like(v) for k, v in state.items()}
+        back = ckpt.load_checkpoint(tmp, ckpt.latest_step(tmp), like)
+    ok = all(back[k].device == state[k].device and bitwise_equal(back[k], state[k])
+             for k in state)
+    _gate(f"checkpoint round trip of the meta fleet's state on {device}", ok, "bitwise")
+    _gate("nan_report of the meta fleet's state", uprof.nan_report(state) == {}, "all finite")
+    uprof.assert_deterministic(lambda: pbo.branchout_plan(brd_scene("simple_overtake"),
+                                                          device=device), runs=3)
+    uprof.assert_deterministic(lambda: brd_lattice(device, torch.float32), runs=2)
+    print("assert_deterministic: BranchOut's plan (3 runs) and the rigid-body lattice plan (2 "
+          "runs) bitwise")
+    frame = vraster.Frame(vraster.CanvasConfig(x_range=(-1.0, 11.0), y_range=(-1.0, 11.0)))
+    plan = brd_lattice(device, torch.float32)
+    frame.draw_path_xy(plan["poses"][:, 0], plan["poses"][:, 1], vraster.ESTIMATED)
+    for p in plan["poses"]:
+        frame.draw_robot(p[0], p[1], p[2], 0.4, vraster.GROUND_TRUTH)
+    inked = int((frame.rgb != 255).any(-1).sum())
+    _gate("viz.raster: the lattice path drawn", inked > 0, f"{inked} pixels inked")
+    out["frame_pixels_inked"] = inked
+    return out
+
+
+def breadth_phase(card, device, counted, rates, lockstep=None):
+    """The rigid-body and BranchOut planners, the aerial, meta and arena
+    controllers, the compaction runner, the experiment suites, utils/ and
+    viz/ (phase 25): (a) controllers; (b) planners; (c) serving; (d)
+    experiments; (e) utilities. `rates`: the run's EKF updates/s and
+    resampled particles/s, for the roofline; `lockstep`: phase 15's serving
+    numbers, if it ran."""
+    out = {"card": card}
+    BRD_KERNEL_LAUNCHES.clear()
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    out["controllers"], state = brd_controllers_part(card, device, counted)
+    out["controllers"]["part_s"] = time.perf_counter() - t0
+    print(f"breadth, part controllers: {out['controllers']['part_s']!r} s")
+    for name, part in (("planners", brd_planners_part),
+                       ("serving", functools.partial(brd_serving_part, lockstep=lockstep)),
+                       ("experiments", brd_experiments_part)):
+        t0 = time.perf_counter()
+        out[name] = part(card, device, counted)
+        out[name]["part_s"] = time.perf_counter() - t0
+        print(f"breadth, part {name}: {out[name]['part_s']!r} s")
+    for k in counted:
+        k.launches = 0
+    out["utilities"] = brd_utilities_part(card, device, counted, rates, state)
+    out["phase_s"] = time.perf_counter() - start
+    for k in counted:
+        BRD_KERNEL_LAUNCHES[k.__name__] = BRD_KERNEL_LAUNCHES.get(k.__name__, 0) + k.launches
+    out["kernel_launches"] = dict(BRD_KERNEL_LAUNCHES)
+    print(f"breadth: {out['phase_s']!r} s; kernel entries over its parts "
+          f"{out['kernel_launches']}")
+    if any(out["kernel_launches"].values()):
+        fail(f"phase 25 launched a kernel: {out['kernel_launches']}")
+    return out
+
+
 _VIEW_OPS = {"empty", "empty_strided", "as_strided", "view", "_reshape_alias", "resize_",
              "detach", "lift_fresh", "alias", "_unsafe_view", "expand", "slice", "select", "t",
              "transpose", "permute", "unsqueeze", "squeeze", "item", "_local_scalar_dense",
@@ -6548,7 +7067,10 @@ def main() -> int:
         fail("torch.cuda.is_available() is false; this script needs a CUDA card")
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    peaks = card_peaks(name)
+    try:
+        peaks = card_peaks(name)
+    except ValueError as exc:
+        fail(str(exc))
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     # 3. full-precision float32 everywhere
@@ -7049,7 +7571,8 @@ def main() -> int:
         fail(f"B2's register body spills: {b2_ptxas['registers f32']}")
 
     # 15. bench.py's four pose-graph workloads (no kernel on their path)
-    print(json.dumps({"pose_graph": pose_graph_phase(card, device)}))
+    pose_graph = pose_graph_phase(card, device)
+    print(json.dumps({"pose_graph": pose_graph}))
 
     # 16. the SLAM back end: SE(3), implicit gradients, solve_device, ICP
     # (no kernel on their path)
@@ -7097,7 +7620,15 @@ def main() -> int:
     # hybrid A*, the lattice, CHOMP, bipedal (no kernel on their path)
     print(json.dumps({"kinematic_planning": kinematic_phase(card, device, counted)}))
 
-    # 25. the kernels line
+    # 25. the rigid-body and BranchOut planners, the aerial, meta and arena
+    # controllers, the compaction runner, the experiment suites, utils/ and
+    # viz/ (no kernel on their path)
+    rates = {"ekf_updates_per_s": updates,
+             "resampled_particles_per_s": b3_times["saturated"]["particles_per_s"]}
+    print(json.dumps({"breadth": breadth_phase(card, device, counted, rates,
+                                               pose_graph["serving"])}))
+
+    # 26. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -7224,7 +7755,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 25. the result
+    # 27. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -2,7 +2,8 @@
 
 The JAX package `rust_robotics_tpu` is the reference; this package mirrors
 its layout (`core/`, `models/`, `ops/`, `filters/`, `planning/`, `nlls/`,
-`slam/`, `data/`, `parallel/`, `demos/`) with the same
+`slam/`, `data/`, `parallel/`, `demos/`, `utils/`, `viz/`, `experiments/`)
+with the same
 module and function names, so each function has an obvious counterpart.
 
 Idiom: the JAX pytree dataclasses become frozen dataclasses of tensors with

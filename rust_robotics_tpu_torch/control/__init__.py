@@ -3,6 +3,12 @@ from rust_robotics_tpu_torch.control.admm import (  # noqa: F401
     solve_consensus,
     solve_formation_consensus,
 )
+from rust_robotics_tpu_torch.control.aerial import (  # noqa: F401
+    minimum_snap_coeffs,
+    quintic_3d_segments,
+    simulate_quadrotor,
+)
+from rust_robotics_tpu_torch.control.arena import run_controller_arena  # noqa: F401
 from rust_robotics_tpu_torch.control.arm import (  # noqa: F401
     arm_collides_3d,
     forward_kinematics,

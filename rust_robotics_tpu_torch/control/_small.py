@@ -23,10 +23,10 @@ READ_EVERY = 8
 
 def mm(a, b):
     """a [..., m, k] @ b [..., k, n] as an explicit sum over k, left to right."""
-    prod = a[..., :, :, None] * b[..., None, :, :]
-    out = prod[..., 0, :]
-    for j in range(1, a.shape[-1]):
-        out = out + prod[..., j, :]
+    terms = (a[..., :, :, None] * b[..., None, :, :]).unbind(-2)
+    out = terms[0]
+    for term in terms[1:]:
+        out = out + term
     return out
 
 
@@ -48,9 +48,10 @@ def rsum(x, dim=-1):
     if n == 0:
         return torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
     if n <= 8:
-        out = x[0]
-        for i in range(1, n):
-            out = out + x[i]
+        terms = x.unbind(0)
+        out = terms[0]
+        for term in terms[1:]:
+            out = out + term
         return out
     while x.shape[0] > 1:
         if x.shape[0] % 2:

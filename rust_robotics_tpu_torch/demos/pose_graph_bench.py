@@ -248,3 +248,74 @@ def run_batched_benchmark(size=10000, batch=8, max_iterations=25, tolerance=1e-8
     host = out.cpu().numpy()
     worst = max(rmse(host[k], truth) for k in range(batch))
     return seconds, worst, batch / seconds, out, summ
+
+
+def run_batched_compaction_benchmark(size=200, batch=256, chunk_iters=6, max_rounds=8,
+                                     tolerance=1e-6, wobble_spread=True, device=None,
+                                     dtype=torch.float32):
+    """Batched small-graph serving without paying the slowest graph's
+    iteration count everywhere (the JAX package's
+    `run_batched_compaction_benchmark`): the batched chain LM runs in rounds
+    of `chunk_iters` iterations; after each round the graphs whose
+    termination code is non-zero (converged, or failed) leave, and the rest
+    are packed into the next power-of-two bucket, padded with graph 0. Each
+    round restarts the LM's damping.
+
+    wobble_spread=True scales the B initial perturbations from 0.25× to 2×
+    across the batch, so that graphs converge in different rounds. The
+    default tolerance is 1e-6: below it, f32 graphs never report
+    convergence and nothing leaves the batch.
+
+    Returns (seconds, worst rmse, graphs/s, rounds_profile) with
+    rounds_profile = [(bucket size, active graphs)] per round; one untimed
+    sweep runs first, as in the JAX package, and the timed sweep ends in a
+    host read."""
+    from rust_robotics_tpu_torch.nlls.tridiag import classify_chain_edges, solve_chain_lm
+    from rust_robotics_tpu_torch.slam.pose_graph import se2_edge_residual, se2_retract
+
+    device = resolve_device(device)
+    truth, initial, ef, et, meas, info = synthesize_chain(size)
+    c_meas, c_info, l_ef, l_et, l_meas, l_info = classify_chain_edges(size, ef, et, meas, info)
+    scale = (np.linspace(0.25, 2.0, batch)[:, None, None] if wobble_spread
+             else np.ones((batch, 1, 1)))
+    wobbles = scale * np.stack([0.01 * np.sin(np.arange(size * 3) * 0.01 + k).reshape(size, 3)
+                                * [1.0, 1.0, 0.1] for k in range(batch)])
+    init_b = np.asarray(initial)[None] + wobbles
+    init_b[:, 0] = truth[0]
+    init_b = torch.as_tensor(init_b, dtype=dtype, device=device)
+    fixed = torch.zeros(size, dtype=torch.bool, device=device)
+    fixed[0] = True
+
+    def tensor(x, dt=dtype):
+        return None if x is None else torch.as_tensor(x, dtype=dt, device=device)
+
+    args = (tensor(c_meas), tensor(c_info), tensor(l_ef, torch.int64), tensor(l_et, torch.int64),
+            tensor(l_meas), tensor(l_info), fixed)
+
+    def sweep():
+        values = init_b.clone()
+        active = torch.arange(batch, device=device)
+        n_active = batch
+        profile = []
+        for _ in range(max_rounds):
+            if n_active == 0:
+                break
+            bucket = 1 << (n_active - 1).bit_length()
+            idx = torch.cat([active, active.new_zeros(bucket - n_active)])
+            out, summ = solve_chain_lm(
+                values[idx], *args, residual_fn=se2_edge_residual, retract_fn=se2_retract,
+                tdim=3, max_iterations=chunk_iters, gradient_tolerance=tolerance,
+                step_tolerance=tolerance, cost_tolerance=tolerance * tolerance)
+            values[active] = out[:n_active]
+            profile.append((bucket, n_active))
+            active = active[summ.termination_code[:n_active] == 0]  # 0 = max_iterations
+            n_active = active.numel()
+        return values, profile
+
+    sweep()  # untimed, as the JAX package's warm-up sweep
+    t0 = time.perf_counter()
+    values, profile = sweep()
+    host = values.cpu().numpy()
+    seconds = time.perf_counter() - t0
+    worst = max(rmse(host[k], truth) for k in range(batch))
+    return seconds, worst, batch / seconds, profile

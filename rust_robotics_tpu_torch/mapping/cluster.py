@@ -167,36 +167,47 @@ def estimate_normals(points, k: int = 8):
 # ---------------------------------------------------------------------------
 
 def voxel_sample_mask(points, voxel_size):
-    """Keep-first-per-voxel mask [N] (voxel grid sampling). The int64 voxel
-    hash is sorted stably, as `jnp.argsort` sorts."""
-    cells = torch.floor(true_div(points, voxel_size)).to(torch.int64)
-    h = cells[:, 0] * 73856093
-    for j in range(1, points.shape[1]):
-        h = h ^ cells[:, j] * (19349663 if j == 1 else 83492791)
-    order = torch.argsort(h, stable=True)
-    hs = h[order]
-    first_sorted = torch.cat([torch.ones(1, dtype=torch.bool, device=h.device), hs[1:] != hs[:-1]])
-    return torch.zeros(points.shape[0], dtype=torch.bool, device=h.device).index_put_(
-        (order,), first_sorted)
+    """Keep-first-per-voxel mask [..., N] of points [..., N, D] (voxel grid
+    sampling), over leading batch dims; `voxel_size` a number or a tensor
+    of the batch shape. The int64 voxel hash is sorted stably, as
+    `jnp.argsort` sorts."""
+    if isinstance(voxel_size, torch.Tensor):
+        scaled = points / voxel_size[..., None, None]
+    else:
+        scaled = true_div(points, voxel_size)
+    cells = torch.floor(scaled).to(torch.int64)
+    h = cells[..., 0] * 73856093
+    for j in range(1, points.shape[-1]):
+        h = h ^ cells[..., j] * (19349663 if j == 1 else 83492791)
+    order = torch.argsort(h, dim=-1, stable=True)
+    hs = torch.gather(h, -1, order)
+    first_sorted = torch.cat([torch.ones_like(hs[..., :1], dtype=torch.bool),
+                              hs[..., 1:] != hs[..., :-1]], -1)
+    return torch.zeros_like(h, dtype=torch.bool).scatter(-1, order, first_sorted)
+
+
+def _rows(points, idx):
+    """points [..., N, D] at idx [..., k] -> [..., k, D]."""
+    return torch.gather(points, -2, idx[..., None].expand(idx.shape + points.shape[-1:]))
 
 
 def farthest_point_sample(points, num_samples, start: int = 0, valid=None):
-    """FPS indices [num_samples] (int32) via running min-distance field.
-    `valid` masks padded points out of selection (their distance is pinned
-    -inf). The loop reads nothing back."""
-    n = points.shape[0]
+    """FPS indices [..., num_samples] (int32) of points [..., N, D] via
+    running min-distance field, over leading batch dims. `valid` masks
+    padded points out of selection (their distance is pinned -inf). The
+    loop reads nothing back."""
+    batch, n = points.shape[:-2], points.shape[-2]
     dev = points.device
-    cur = torch.full((1,), start, dtype=torch.int64, device=dev)
+    cur = torch.full(batch + (1,), start, dtype=torch.int64, device=dev)
     idx = [cur]
-    mind = torch.full((n,), torch.inf, dtype=points.dtype, device=dev)
+    mind = torch.full(batch + (n,), torch.inf, dtype=points.dtype, device=dev)
     for _ in range(1, num_samples):
-        last = points.index_select(0, cur)
-        d = torch.sum((points - last) ** 2, dim=-1)
+        d = torch.sum((points - _rows(points, cur)) ** 2, dim=-1)
         mind = torch.minimum(mind, d)
         gated = mind if valid is None else mind.where(valid, -torch.inf)
-        cur = torch.argmax(gated).reshape(1)
+        cur = torch.argmax(gated, dim=-1, keepdim=True)
         idx.append(cur)
-    return torch.cat(idx).to(torch.int32)
+    return torch.cat(idx, -1).to(torch.int32)
 
 
 def random_sample(points, num_samples, generator=None, draws=None):
@@ -210,34 +221,38 @@ def random_sample(points, num_samples, generator=None, draws=None):
 
 def poisson_disk_sample(points, n_points, min_distance, max_iter: int, valid=None,
                         generator=None, draws=None):
-    """Poisson-disk (dart-throwing) subset mask [N]
-    (point_cloud_sampling.rs:129 `poisson_disk_sampling`): start from a
-    random valid point, then propose `max_iter` random candidates, accepting
-    one when its distance to every already-selected point is >=
-    min_distance and fewer than `n_points` are selected.
+    """Poisson-disk (dart-throwing) subset mask [..., N] of points
+    [..., N, D] (point_cloud_sampling.rs:129 `poisson_disk_sampling`), over
+    leading batch dims: start from a random valid point, then propose
+    `max_iter` random candidates, accepting one when its distance to every
+    already-selected point is >= min_distance and fewer than `n_points` are
+    selected. `n_points` and `min_distance` may be tensors of the batch
+    shape.
 
-    `draws` = (first [], candidates [max_iter]) indices, else drawn from
-    `generator`: the first uniformly among the valid points, the candidates
-    uniformly among all N. One step a proposal, with nothing read back.
+    `draws` = (first [...], candidates [..., max_iter]) indices, else drawn
+    from `generator`: the first uniformly among the valid points, the
+    candidates uniformly among all N. One step a proposal, with nothing read
+    back.
     """
-    n = points.shape[0]
+    batch, n = points.shape[:-2], points.shape[-2]
     dev = points.device
-    if valid is None:
-        valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None else valid).expand(
+        batch + (n,))
     if draws is None:
-        first = torch.multinomial(valid.to(points.dtype), 1, generator=generator)[0]
-        cands = torch.randint(0, n, (max_iter,), generator=generator, device=dev)
+        first = torch.multinomial(valid.reshape(-1, n).to(points.dtype), 1,
+                                  generator=generator).reshape(batch)
+        cands = torch.randint(0, n, batch + (max_iter,), generator=generator, device=dev)
     else:
         first, cands = draws
     idx = torch.arange(n, device=dev)
-    sel = idx == first
-    count = torch.ones((), dtype=torch.int32, device=dev)
-    for cand in cands.reshape(-1, 1):
-        base = points.index_select(0, cand)
-        diff = points - base
+    sel = idx == first[..., None]
+    count = torch.ones(batch, dtype=torch.int32, device=dev)
+    for j in range(cands.shape[-1]):
+        cand = cands[..., j:j + 1]
+        diff = points - _rows(points, cand)
         d = torch.sqrt(torch.sum(diff * diff, dim=-1))
-        dmin = torch.amin(d.where(sel, torch.inf))
-        ok = (dmin >= min_distance) & (count < n_points) & valid.index_select(0, cand)[0]
-        sel = sel | ((idx == cand) & ok)
+        dmin = torch.amin(d.where(sel, torch.inf), dim=-1)
+        ok = (dmin >= min_distance) & (count < n_points) & torch.gather(valid, -1, cand)[..., 0]
+        sel = sel | ((idx == cand) & ok[..., None])
         count = count + ok.to(torch.int32)
     return sel

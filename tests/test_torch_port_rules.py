@@ -59,7 +59,13 @@ def test_rule_scan_sees_what_it_must():
                                     "mppi_value", "racing", "pusher_slider")} | {
         f"planning/{m}.py" for m in ("curves", "frenet", "reeds_shepp", "eta3", "rrt",
                                      "rrt_variants", "rrt_kinematic", "reactive", "hybrid_astar",
-                                     "lattice", "chomp", "bipedal")}
+                                     "lattice", "chomp", "bipedal", "rigid_body", "branchout")} | {
+        f"control/{m}.py" for m in ("aerial", "meta", "arena")} | {
+        f"utils/{m}.py" for m in ("__init__", "bench_gate", "experiments", "profiling",
+                                  "checkpoint", "roofline")} | {
+        f"viz/{m}.py" for m in ("__init__", "raster")} | {
+        f"experiments/{m}.py" for m in ("__init__", "path_tracking", "drone_quality",
+                                        "ukf_ckf_accuracy", "point_cloud_sampling")}
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
@@ -116,6 +122,14 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
     from rust_robotics_tpu_torch.planning import frenet, hybrid_astar, rrt, rrt_kinematic
     from rust_robotics_tpu_torch.planning import rrt_variants
     from rust_robotics_tpu_torch.planning.curves import Spline2D
+    from rust_robotics_tpu_torch.control import aerial, arena
+    from rust_robotics_tpu_torch.planning import branchout, rigid_body
+    from rust_robotics_tpu_torch.experiments import (
+        drone_quality,
+        path_tracking,
+        point_cloud_sampling,
+        ukf_ckf_accuracy,
+    )
 
     blocked = np.eye(4, 3, dtype=bool)
     ox, oy = np.array([0.0, 4.0, 4.0]), np.array([0.0, 0.0, 3.0])
@@ -278,6 +292,43 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
         "run_cgmres": lambda **kw: cgmres.run_cgmres(
             lambda x, u: torch.stack([x[1], u[0] - x[0]]), lambda x, u: torch.sum(x * x) + u[0] ** 2,
             lambda x: torch.sum(x * x), [1.0, 0.0], 1, cgmres.CGMRESConfig(horizon=2), **kw)[0],
+    })
+    cell = point_cloud_sampling.CloudCase("c", (8,), base_point_count=16)
+    nominal = ukf_ckf_accuracy.SCENARIO_FAMILIES["nominal"]
+    host_data_calls.update({
+        "quintic_3d_segments": lambda **kw: aerial.quintic_3d_segments(points, 2.0, **kw),
+        "minimum_snap_coeffs": lambda **kw: aerial.minimum_snap_coeffs([0.0, 1.0, 0.5],
+                                                                       [1.0, 1.0], **kw),
+        "run_controller_arena": lambda **kw: torch.tensor(arena.run_controller_arena(
+            steps=2, **kw)[0]["stanley"]["progress"]),
+        "aabb_obstacle": lambda **kw: rigid_body.aabb_obstacle(0.0, 1.0, 0.0, 1.0, **kw),
+        "branchout_plan": lambda **kw: branchout.branchout_plan(branchout.BranchOutScene(),
+                                                                **kw)["cost"],
+        "simulate_closed_loop": lambda **kw: torch.tensor(branchout.simulate_closed_loop(
+            branchout.BranchOutScene(), [(0.0, 0.0)], steps=1, **kw)["min_clearance"]),
+        "discrete_frechet": lambda **kw: branchout.discrete_frechet(cloud, cloud, **kw),
+        "time_to_collision": lambda **kw: branchout.time_to_collision(
+            (0.0, 0.0), (1.0, 0.0), (3.0, 0.0), (0.0, 0.0), 1.0, **kw),
+        "run_path_tracking_accuracy": lambda **kw: torch.tensor(
+            path_tracking.run_path_tracking_accuracy(seeds=(0,), steps=2, **kw)[0].summary[
+                "goal_rate"]),
+        "run_drone_trajectory_quality": lambda **kw: torch.tensor(
+            drone_quality.run_drone_trajectory_quality(seeds=(0,), **kw)[0].summary[
+                "mean_jerk"]),
+        "simulate_family_rmse": lambda **kw: ukf_ckf_accuracy.simulate_family_rmse(
+            nominal, 2, 2, **kw)[0],
+        "run_ukf_ckf_accuracy": lambda **kw: torch.tensor(ukf_ckf_accuracy.run_ukf_ckf_accuracy(
+            families={"nominal": nominal}, steps=2, n_scenarios=2, buckets=(2,), **kw)[
+                "head_8"][0].ukf_min_rmse),
+        "slot_scores_for_cell": lambda **kw: point_cloud_sampling.slot_scores_for_cell(
+            cell, 8, 2, max_iter=4, **kw),
+        "run_point_cloud_sampling_quality": lambda **kw: torch.tensor(
+            point_cloud_sampling.run_point_cloud_sampling_quality(
+                problems={"p": [cell]}, scenarios_per_bucket=2, max_iter=4, **kw)[
+                "full-bucket"]["average_coverage_ratio"]),
+        "run_batched_compaction_benchmark": lambda **kw: torch.tensor(
+            pose_graph_bench.run_batched_compaction_benchmark(size=4, batch=2, chunk_iters=1,
+                                                              max_rounds=1, **kw)[1]),
     })
     for name, call in host_data_calls.items():
         if torch.cuda.is_available():

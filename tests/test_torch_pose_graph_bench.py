@@ -1,7 +1,8 @@
 """The port's copy of the pose-graph benchmark problems
 (`rust_robotics_tpu_torch/demos/pose_graph_bench.py`, numpy only) equals
-the JAX package's, bitwise, on the same arguments; and the batched
-serving problem holds the same graphs as its chain."""
+the JAX package's, bitwise, on the same arguments; the batched serving
+problem holds the same graphs as its chain; and the compaction runner
+packs the same rounds as the JAX package's."""
 
 import numpy as np
 import pytest
@@ -53,3 +54,17 @@ def test_batched_problem_wobbles_the_chain():
         wobble = 0.01 * np.sin(np.arange(600) * 0.01 + k).reshape(200, 3) * [1.0, 1.0, 0.1]
         np.testing.assert_array_equal(init_b[k, 1:].numpy(), (initial + wobble)[1:])
         np.testing.assert_array_equal(init_b[k, 0].numpy(), truth[0])
+
+
+def test_batched_compaction_benchmark_matches_jax():
+    """The compaction runner (the JAX package's
+    `run_batched_compaction_benchmark`) at a size where a graph leaves the
+    batch before the others, in float64: the rounds profile exactly (the
+    run stops above the rounding floor), the worst RMSE within 1e-9."""
+    kw = dict(size=40, batch=6, chunk_iters=3, max_rounds=4)  # one JAX compile: one bucket
+    _, want_rmse, _, want_profile = jbench.run_batched_compaction_benchmark(**kw)  # x64: conftest
+    seconds, rmse, graphs_per_s, profile = tbench.run_batched_compaction_benchmark(
+        **kw, device="cpu", dtype=torch.float64)
+    assert profile == want_profile == [(8, 6), (8, 6), (8, 6), (8, 5)]
+    assert abs(rmse - want_rmse) <= 1e-9 and rmse < 1e-3
+    assert seconds > 0 and graphs_per_s == 6 / seconds
