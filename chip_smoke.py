@@ -71,7 +71,7 @@ any failure exits non-zero before the final line.
     bodies (the register body must not spill);
 15. bench.py's four pose-graph workloads (bench.py:113-117; no kernel on
     their path), f32 on cuda, LM at most 25 iterations, tolerance 1e-8: the
-    10k chain through `chain_direct` (RMSE < 5e-3, warm time best of 2,
+    10k chain through `chain_direct` (RMSE < 5e-3, one warm time,
     iterations, the same solve in f64 on cuda and on the CPU within
     PG_F64_ATOL, one LM step under sync debug mode "error", the device
     reads of a whole solve counted under "warn", one step's profile and
@@ -80,10 +80,10 @@ any failure exits non-zero before the final line.
     graphs/s, three lanes equal to their solo solves); the 100x100 grid
     with 50 closures through `banded_direct` (the plan, RMSE < 2.2e-3, at
     least 3 iterations, one step's profile) and `direct`'s routes on the
-    grid and a 2000-pose chain, by counter; then one JSON line
+    grid and a 2000-pose chain, by counter (2 LM iterations); then one JSON line
     `{"pose_graph": {...}}`;
 16. the SLAM back end (no kernel on its path): (a) the anchored 10k SE(3)
-    chain in f32 (RMSE < 1e-4, gradient_converged, warm time best of 2, the
+    chain in f32 (RMSE < 1e-4, gradient_converged, one warm time, the
     rounds and LM iterations by counter, one LM step with no device read
     and its profile, the reads of a whole solve) and the plain 1k SE(3)
     chain in f64 (RMSE < 1e-6); (b) implicit gradients in f64: the 10k
@@ -129,14 +129,15 @@ any failure exits non-zero before the final line.
     loader (10 s of 3-D flight, IMU at 200 Hz with the pipeline's noise,
     201 keyframes of EuRoC's cam0, 2000 landmarks on a machine hall's
     walls, 0.5 px): (b) `run_vio_pipeline` in f32 (B4 launched once per BA
-    solve, counted), cold and warm, and f64, cold, seconds per stage, LM
+    solve, counted) and f64, once each (cold), seconds per stage, LM
     iterations, fused and dead-reckoned RMSE against truth (fused <= dead
     and under twice the port's f64 CPU run), B4 held against its twin and
     the f64 factor on the first and the last retained system (n = 1206)
     that the f32 BA gave it, one BA and one IMU-LM iteration profiled, and
-    cuda = CPU in f64 on 40 keyframes; (c) `run_vio_pipeline_windowed` (67
-    windows of 3, f64) pipelined, RMSE gated alike, and the sequential
-    order on its first 12 windows bitwise equal to the pipelined run's; (d) `detect_corners` +
+    cuda = CPU in f64 on 40 keyframes; (c) `run_vio_pipeline_windowed` (the
+    flight's first 34 of 67 windows of 3, f64) pipelined, RMSE gated alike,
+    and the sequential order on its first 4 windows bitwise equal to the
+    pipelined run's; (d) `detect_corners` +
     `track_with_fb_check` on 64 pairs of 752x480 f32 images shifted by known
     sub-pixel flows (median flow error <= 0.25 px), 4 pairs against the
     CPU, `triangulate_tracks` of the 2000 landmarks over 201 views; (e) one
@@ -275,8 +276,22 @@ any failure exits non-zero before the final line.
     frames drawn; each part's gate the JAX test's of the same function,
     lanes bitwise their solo runs, f64 cuda = CPU at a reduced size (1e-9,
     discrete outputs exactly); then one JSON line `{"breadth": {...}}`;
-26. one JSON line `{"kernels": [...]}`;
-27. the last line, `{"ok": true, "device": {...}}`.
+26. the headless demo family, the playground, dataflow, the speed
+    comparison and the embedded demo, each part once under sync debug
+    mode "warn" on the host clock (the longest a short call under the
+    profiler), B2 once per `wavefront_costs` call on the card and no other
+    kernel entry launching: (a) the 23 headless demos in f64 at their
+    sizes, each through tests/test_headless_family.py's gate, the FAST
+    twelve f64 cuda = CPU (1e-9, discrete outputs exactly), the ten with
+    steps cuda = CPU over 3 steps on shared draws; (b) the playground's five
+    tabs into a temporary directory, the grid tab equal to
+    docs/playground/data.json's, the arena's speed lanes bitwise their solo
+    rollouts; (c) dataflow's 5 planner ticks (cuda = CPU) and 50 EKF ticks;
+    (d) `run_speed_comparison()` at its defaults (20 runs, batch 32), its
+    rows printed with the card; (e) the embedded demo's PASS line; then one
+    JSON line `{"family": {...}}`;
+27. one JSON line `{"kernels": [...]}`;
+28. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -361,7 +376,13 @@ from rust_robotics_tpu_torch.ops.wavefront_sweep import (
     wavefront_sweeps,
     wavefront_sweeps_plain,
 )
+from rust_robotics_tpu_torch.demos import dataflow as dflow
+from rust_robotics_tpu_torch.demos import embedded_demo as embedded
+from rust_robotics_tpu_torch.demos import headless_family as hfam
+from rust_robotics_tpu_torch.demos import playground as pground
 from rust_robotics_tpu_torch.demos import pose_graph_bench
+from rust_robotics_tpu_torch.demos import speed_comparison as speed
+from rust_robotics_tpu_torch.planning import wavefront as pwavefront
 from rust_robotics_tpu_torch.nlls import banded, tridiag
 from rust_robotics_tpu_torch.planning.grid import grid_from_raster
 from rust_robotics_tpu_torch.planning.wavefront import (
@@ -477,6 +498,7 @@ from rust_robotics_tpu_torch.control import racing as crace
 from rust_robotics_tpu_torch.control import rocket as crocket
 from rust_robotics_tpu_torch.control import trackers as ctrack
 from rust_robotics_tpu_torch.control import trajopt as ctraj
+from rust_robotics_tpu_torch.control._small import masked_fixpoint
 from rust_robotics_tpu_torch.parallel import mesh as pmesh
 from rust_robotics_tpu_torch.parallel.pipeline import (
     pipeline_schedule,
@@ -610,6 +632,7 @@ PG_GRID_RMSE, PG_GRID_MIN_ITERATIONS = 2.2e-3, 3  # tests/test_banded.py:153-168
 # ~kappa·eps of the step, kappa ~ n^2 = 1e8 for a 10k chain: 1e8 · 1.1e-16 ·
 # 0.05 (a first step) ~ 6e-10 a step, < 2e-8 over 25 steps; 1e-6 leaves 50x.
 PG_F64_ATOL = 1e-6
+PG_ROUTE_ITERATIONS = 2  # LM iterations of `direct`'s route check (its counters are the gate)
 # a serving lane against its solo solve, f32 poses: both solve the same
 # 200-pose graph in f32 and each ends within a few ulps of the truth (an
 # ulp at the chain's 10 m extent is 9.5e-7); 1e-5 is ~10 ulps.
@@ -648,6 +671,9 @@ SD_CHAIN, SD_ATOL_F64 = 1000, 1e-7
 SD_TIMED = ("dense",)
 SD_CONFIG = dict(method="lm", max_iterations=25, gradient_tolerance=1e-10, step_tolerance=1e-10,
                  cost_tolerance=1e-14, pcg_max_iterations=200, pcg_tolerance=1e-10)
+# matfree_pcg's LM (~18k launches an iteration) stops at the iteration cap:
+# 10 iterations, not 25, to make room for phase 26 in phases 16 and 19 (PERF.md §4)
+SD_MATFREE = dict(SD_CONFIG, max_iterations=10)
 # ICP: bench_icp's workload (demos/benchmarks.py:228-242: 120 points in
 # [0, 10)^2, a 0.3 rad turn, shift (1, -0.5)), then a fleet of 256 pairs of
 # 1000 points in [0, 10)^2, turns in +-0.1 rad, 0.1 m shifts, f32.
@@ -1366,10 +1392,10 @@ def pose_graph_phase(card, device):
     # 1. the 10k chain through chain_direct
     size = PG_CHAIN
     seconds, err, summary = pose_graph_bench.run_large_benchmark(
-        size, PG_ITERATIONS, PG_TOLERANCE, device=device, runs=2)
+        size, PG_ITERATIONS, PG_TOLERANCE, device=device, runs=1)
     print(f"pose graph {size} chain f32 chain_direct on {card}: RMSE {err!r} (gate "
           f"{PG_CHAIN_RMSE}; the reference measured {PG_REFERENCE_RMSE}, README.md:728-730); "
-          f"warm {seconds!r} s host clock (best of 2); {summary.iterations} LM iterations, "
+          f"warm {seconds!r} s host clock; {summary.iterations} LM iterations, "
           f"{seconds / summary.iterations!r} s each; {summary}")
     if not err < PG_CHAIN_RMSE:
         fail(f"10k chain RMSE {err!r} >= {PG_CHAIN_RMSE}")
@@ -1437,10 +1463,10 @@ def pose_graph_phase(card, device):
     # 3. serving: 256 distinct 200-pose graphs in lock-step
     size, batch = PG_SERVING
     seconds, worst, rate, values, summ = pose_graph_bench.run_batched_benchmark(
-        size, batch, PG_ITERATIONS, PG_TOLERANCE, device=device, runs=2)
+        size, batch, PG_ITERATIONS, PG_TOLERANCE, device=device, runs=1)
     terms = np.bincount(summ.termination_code.cpu().numpy(), minlength=5).tolist()
     print(f"pose graph serving {batch} x {size} f32 on {card}: worst RMSE {worst!r}; "
-          f"{rate!r} graphs/s ({seconds!r} s warm, best of 2); iterations max "
+          f"{rate!r} graphs/s ({seconds!r} s warm); iterations max "
           f"{int(summ.iterations.max())} mean {float(summ.iterations.float().mean())!r}; "
           f"terminations {terms} (codes 0-4)")
     if not worst < PG_CHAIN_RMSE:
@@ -1474,10 +1500,12 @@ def pose_graph_phase(card, device):
           f"{plan.supernode}, {plan.num_super} supernodes, bandwidth {plan.bandwidth}, "
           f"{int(plan.in_band.sum())} edges in band, {int((~plan.in_band).sum())} demoted to the "
           f"Woodbury correction")
+    # one warm timed solve after the cold one: the second warm solve, a
+    # repeat for its time (~15 s), was cut to make room for phase 26 (PERF.md §4)
     seconds, err, summary = pose_graph_bench.run_grid_benchmark(
-        *PG_GRID, PG_ITERATIONS, PG_TOLERANCE, device=device, runs=2)
+        *PG_GRID, PG_ITERATIONS, PG_TOLERANCE, device=device, runs=1)
     print(f"pose graph grid f32 banded_direct on {card}: RMSE {err!r} (gate {PG_GRID_RMSE}); "
-          f"warm {seconds!r} s host clock (best of 2); {summary.iterations} LM iterations, "
+          f"warm {seconds!r} s host clock; {summary.iterations} LM iterations, "
           f"{seconds / summary.iterations!r} s each; {summary}")
     if not (err < PG_GRID_RMSE and summary.iterations >= PG_GRID_MIN_ITERATIONS):
         fail(f"grid: RMSE {err!r}, {summary.iterations} iterations")
@@ -1496,8 +1524,10 @@ def pose_graph_phase(card, device):
                          ("chain 2000", pose_graph_bench.synthesize_chain(2000))):
         calls = (tridiag.solve_chain_lm.calls, banded.solve_banded_lm.calls)
         g_truth, g_init, g_ef, g_et, g_meas, g_info = graph
+        # the route is taken before the first iteration: PG_ROUTE_ITERATIONS
+        # of them (the grid's full solve, ~15 s again, was cut; PERF.md §4)
         poses, s_direct = optimize_pose_graph_2d(g_init, g_ef, g_et, g_meas, g_info,
-                                                 PG_ITERATIONS, PG_TOLERANCE, "direct",
+                                                 PG_ROUTE_ITERATIONS, PG_TOLERANCE, "direct",
                                                  device=device)
         routes[label] = {"chain": tridiag.solve_chain_lm.calls - calls[0],
                          "banded": banded.solve_banded_lm.calls - calls[1],
@@ -1532,11 +1562,12 @@ def se3_part(card, device):
     (cold_s, _), reads = reads_in(lambda: timed(anchored))
     rounds = tridiag.solve_chain_lm.calls - calls
     steps = tridiag.lm_run.steps - steps
-    warm = [timed(anchored) for _ in range(2)]
-    warm_s, (poses, summary) = min(w[0] for w in warm), warm[-1][1]
+    # one warm solve: the second, a repeat for its time (~7 s), was cut to
+    # make room for phase 26 (PERF.md §4)
+    warm_s, (poses, summary) = timed(anchored)
     err = pose_graph_bench.se3_position_rmse(poses, tm)
     print(f"SE(3) {SE3_CHAIN} chain f32 anchored chain_direct on {card}: RMSE {err!r} (gate "
-          f"{SE3_RMSE_F32}; JAX measured 3.4e-5); warm {warm_s!r} s host clock (best of 2), "
+          f"{SE3_RMSE_F32}; JAX measured 3.4e-5); warm {warm_s!r} s host clock, "
           f"cold {cold_s!r} s; {rounds} rounds, {steps} LM iterations in all "
           f"({warm_s / steps!r} s each); last round {summary}; device reads in one solve {reads}")
     if not (err < SE3_RMSE_F32 and summary.termination == "gradient_converged"):
@@ -1676,7 +1707,8 @@ def solve_device_part(card, device):
 
     out = {}
     for solver in ("dense", "matfree_pcg"):
-        cfg = SolverConfig(linear_solver=solver, **SD_CONFIG)
+        cfg = SolverConfig(linear_solver=solver,
+                           **(SD_MATFREE if solver == "matfree_pcg" else SD_CONFIG))
         prob = problem(torch.float64)
         host, hs = nlls_solver.solve(prob, cfg)
         sites = {}
@@ -2595,8 +2627,15 @@ VIO_WINDOWED_DTYPE = torch.float64
 # windows that the sequential order runs, to be held bitwise against the
 # pipelined run's first windows (a window depends on no later one): the
 # whole flight in both orders took 56.4 and 56.6 s, 121 s of the part
-# (measured on one H100)
-VIO_WINDOWED_PREFIX = 12
+# (measured on one H100); 12 windows (~13 s) until they were cut to 4 to
+# make room for phase 26 (PERF.md §4)
+VIO_WINDOWED_PREFIX = 4
+# windows of the pipelined run: the flight's first 34 of 67 (~1 s each,
+# dispatch-bound), cut to make room for phase 26 (PERF.md §4). The port's f64
+# run on the CPU gives fused 0.01618 m against dead-reckoned 0.01939 m
+# there (fused 0.01392 / 0.01615 at 30 windows, but 0.01255 / 0.01198 at 24:
+# fewer windows would fail fused <= dead-reckoned)
+VIO_WINDOWED_WINDOWS = 34
 FRONT_PAIRS, FRONT_CORNERS, FRONT_MAX_SHIFT = 64, 200, 3.0
 FRONT_CPU_PAIRS = 4
 # tests/test_visual_frontend.py:62-75: the median flow of the valid points
@@ -2845,15 +2884,15 @@ def retained_systems():
 
 
 def vio_batch_part(card, device, ds, tracks, truth, counted):
-    """(b) run_vio_pipeline on cuda in f32 (B4 on its BA path), cold and
-    warm, and f64, cold; B4 against its twin on the f32 BA's own retained systems; cuda
+    """(b) run_vio_pipeline on cuda in f32 (B4 on its BA path) and f64, each
+    once (cold); B4 against its twin on the f32 BA's own retained systems; cuda
     against the CPU in f64 on the first VIO_CUT keyframes."""
     out = {}
     for dtype in (torch.float32, torch.float64):
         key = "f32" if dtype == torch.float32 else "f64"
-        # the f64 warm run (~7 s, a repeat for its time) was cut to make
-        # room for phase 25 (PERF.md §4)
-        for run in ("cold", "warm") if key == "f32" else ("cold",):
+        # the warm runs (~7 s each, repeats for their time) were cut to make
+        # room for phases 25 (f64) and 26 (f32) (PERF.md §4)
+        for run in ("cold",):
             for fn in counted:
                 fn.launches = 0
             with retained_systems() as systems:
@@ -2909,12 +2948,14 @@ def vio_batch_part(card, device, ds, tracks, truth, counted):
 
 
 def vio_windowed_part(card, device, ds, tracks, truth):
-    """(c) run_vio_pipeline_windowed pipelined over the whole flight in f64
-    (see VIO_WINDOWED_DTYPE), timed and gated; the sequential order on the
-    first VIO_WINDOWED_PREFIX windows, bitwise against the pipelined run's."""
+    """(c) run_vio_pipeline_windowed pipelined over the flight's first
+    VIO_WINDOWED_WINDOWS windows in f64 (see VIO_WINDOWED_DTYPE), timed and
+    gated; the sequential order on the first VIO_WINDOWED_PREFIX windows,
+    bitwise against the pipelined run's."""
     f = VIO_WINDOWED_DTYPE
     pipe_s, pipe = timed(lambda: run_vio_pipeline_windowed(
-        ds, tracks, window_frames=VIO_WINDOW_FRAMES, pipelined=True, device=device, dtype=f))
+        ds, tracks, window_frames=VIO_WINDOW_FRAMES, pipelined=True, device=device, dtype=f,
+        max_windows=VIO_WINDOWED_WINDOWS))
     stages, windows, _, _ = make_stages(ds, tracks, VIO_WINDOW_FRAMES, device=device, dtype=f)
     seq_s, seq = timed(lambda: run_sequential(stages, windows[:VIO_WINDOWED_PREFIX]))
     rows = sum(o["fused"].shape[0] for o in seq)
@@ -3295,7 +3336,7 @@ def par_nlls_part(card, device, mesh):
     t = lambda a, dt=torch.float64: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
     prob = build_pose_graph_2d(t(initial), t(ef, torch.int64), t(et, torch.int64), t(meas),
                                t(info))
-    cfg = SolverConfig(linear_solver="matfree_pcg", **SD_CONFIG)
+    cfg = SolverConfig(linear_solver="matfree_pcg", **SD_MATFREE)
     _collectives_reset()
     sharded_s, (solved, summary) = timed(lambda: solve_sharded(prob, cfg, mesh, ("model",)))
     collectives = dict(pmesh.COLLECTIVES)
@@ -5652,6 +5693,10 @@ KIN_HYBRID = (128, 16)  # map side, headings
 # ("profiled"). KIN_PROFILE_FULL=1 in the environment profiles them at
 # full size too (phase 24 then takes ~100 s more).
 KIN_PROFILE_FULL = os.environ.get("KIN_PROFILE_FULL") == "1"
+# the RRT family's trees (~20k-220k launches at 256-300 nodes) profile a
+# tree of this many nodes (cut for phase 26: their full-size profiles cost
+# ~50 s of phase 24)
+KIN_PROFILE_NODES = 60
 KIN_KERNEL_LAUNCHES = {}
 
 
@@ -5835,12 +5880,15 @@ def kin_rrt_part(card, device, counted):
     f32, f64 = torch.float32, torch.float64
     n = KIN_RRT["max_nodes"]
     runs = {}
+    short_cfg = prrt.RRTConfig(**{**KIN_RRT, "max_nodes": KIN_PROFILE_NODES})
     for seed in (0, 1):
         for star in (False, True):
             d = kin_draws((n - 1, 3), f32, device, SEED + 270 + seed)
             (tree, best, cost), stats = kin_part(
                 f"rrt_plan seed {seed} star {star}: {n} nodes (bench_rrt_star) f32 on {card}",
-                lambda d=d, star=star: kin_rrt(star, d, f32, device), counted)
+                lambda d=d, star=star: kin_rrt(star, d, f32, device), counted,
+                (f"{KIN_PROFILE_NODES} nodes", lambda d=d, star=star: kin_rrt(
+                    star, d[:KIN_PROFILE_NODES - 1], f32, device, short_cfg)))
             pts, mask = prrt.extract_rrt_path(tree, best)
             clear = kin_path_clear(pts, mask, *KIN_COURSE)
             _gate(f"rrt_plan seed {seed} star {star} finds a clear path (test_rrt_finds_feasible_"
@@ -5854,7 +5902,9 @@ def kin_rrt_part(card, device, counted):
     d = kin_draws((KIN_FOREST, n - 1, 3), f32, device, SEED + 272)
     (forest, best, cost), stats = kin_part(
         f"rrt_plan star: a forest of {KIN_FOREST} trees x {n} nodes f32 on {card}",
-        lambda: kin_rrt(True, d, f32, device), counted)
+        lambda: kin_rrt(True, d, f32, device), counted,
+        (f"{KIN_FOREST} trees x {KIN_PROFILE_NODES} nodes", lambda: kin_rrt(
+            True, d[:, :KIN_PROFILE_NODES - 1], f32, device, short_cfg)))
     found = float((cost < 1e17).double().mean())
     _gate("rrt_plan star forest: most trees find the goal (test_rrt_forest_vmap: >= 3 of 4)",
           found >= 0.75, f"{found!r} of the trees")
@@ -5882,13 +5932,16 @@ def kin_variants_part(card, device, counted):
     s, g = [0.0, 0.0], [10.0, 10.0]
     straight = math.hypot(10.0, 10.0)
     n = cfg.max_nodes
+    short_cfg = dataclasses.replace(cfg, max_nodes=KIN_PROFILE_NODES)
+    short = f"{KIN_PROFILE_NODES} nodes"
 
     def informed(c, dt, dev, seed=SEED + 280):
         return pvar.informed_rrt_star_plan(None, s, g, obs, rad, c, dtype=dt, device=dev,
                                            draws=kin_draws((c.max_nodes - 1, 5), dt, dev, seed))
 
     (tree, best, cost), stats = kin_part(f"informed_rrt_star_plan {n} nodes f32 on {card}",
-                                         lambda: informed(cfg, f32, device), counted)
+                                         lambda: informed(cfg, f32, device), counted,
+                                         (short, lambda: informed(short_cfg, f32, device)))
     pts, mask = prrt.extract_rrt_path(tree, best)
     _gate("informed_rrt_star_plan: a clear path, straight line <= cost < 2.2x it",
           float(cost) < pvar.BIG / 2 and kin_path_clear(pts, mask, obs, rad, 30)
@@ -5902,7 +5955,8 @@ def kin_variants_part(card, device, counted):
                       draws=kin_draws((c.max_nodes - 1, 2), dt, dev, SEED + 281))
         (trees, link, cost), stats = kin_part(f"{name} {n} nodes f32 on {card}",
                                               lambda connect=connect: connect(cfg, f32, device),
-                                              counted)
+                                              counted, (short, lambda connect=connect: connect(
+                                                  short_cfg, f32, device)))
         _gate(f"{name} joins its trees (test_rrt_connect_joins_trees)", float(cost) < pvar.BIG / 2,
               f"cost {float(cost)!r}")
         out[name] = {**stats, "cost": float(cost)}
@@ -5934,8 +5988,9 @@ def kin_variants_part(card, device, counted):
         return pvar.rrg_plan(None, s, g, obs, rad, c, dtype=dt, device=dev,
                              draws=kin_draws((c.max_nodes - 1, 3), dt, dev, SEED + 283))
 
-    (nodes, idx, mask, cost), stats = kin_part(f"rrg_plan 256 nodes f32 on {card}",
-                                               lambda: rrg(rcfg, f32, device), counted)
+    (nodes, idx, mask, cost), stats = kin_part(
+        f"rrg_plan 256 nodes f32 on {card}", lambda: rrg(rcfg, f32, device), counted,
+        (short, lambda: rrg(dataclasses.replace(rcfg, max_nodes=KIN_PROFILE_NODES), f32, device)))
     path = torch.gather(nodes, 0, idx[:, None].expand(-1, 2))
     _gate("rrg_plan: a path clear at its edge checks (test_rrg_plans_free_path)",
           float(cost) < pvar.BIG / 2 and kin_path_clear(path, mask, obs, rad, rcfg.edge_checks),
@@ -5964,7 +6019,8 @@ def kin_variants_part(card, device, counted):
 
     (tree, best, cost), stats = kin_part(
         f"rrt_sobol_plan {n} nodes f32 on {card}",
-        lambda: pvar.rrt_sobol_plan(s, g, obs, rad, cfg, dtype=f32, device=device), counted)
+        lambda: pvar.rrt_sobol_plan(s, g, obs, rad, cfg, dtype=f32, device=device), counted,
+        (short, lambda: pvar.rrt_sobol_plan(s, g, obs, rad, short_cfg, dtype=f32, device=device)))
     again = pvar.rrt_sobol_plan(s, g, obs, rad, cfg, dtype=f32, device=device)
     pts, mask = prrt.extract_rrt_path(tree, best)
     _gate("rrt_sobol_plan: a clear path, the same on a second run "
@@ -6012,8 +6068,8 @@ def kin_kinematic_part(card, device, counted):
         (tree, best, cost), stats = kin_part(
             f"{name}: {KIN_KLANES} trees x 96 nodes f32 on {card}",
             lambda name=name: kin_kinematic(name, d, f32, device), counted,
-            short=(f"{KIN_KLANES} trees x 12 nodes",
-                   lambda name=name: kin_kinematic(name, d[:, :11], f32, device, nodes=12)))
+            short=(f"{KIN_KLANES} trees x 6 nodes",
+                   lambda name=name: kin_kinematic(name, d[:, :5], f32, device, nodes=6)))
         found = cost < 1e17
         poses, mask = pkin.extract_pose_path(tree, best, goal, 0.8,
                                              reeds_shepp=name.endswith("shepp"))
@@ -6051,8 +6107,8 @@ def kin_kinematic_part(card, device, counted):
 
     (traj, tree, cost, report), stats = kin_part(
         f"closed_loop_rrt_star_plan 96 nodes x 600 steps f32 on {card}", lambda: closed(600),
-        counted, short=("12 nodes x 60 steps", lambda: closed(60, 12, pkin.KinematicRRTConfig(
-            max_nodes=12, curvature=0.8, connect_radius=5.0))))
+        counted, short=("6 nodes x 30 steps", lambda: closed(30, 6, pkin.KinematicRRTConfig(
+            max_nodes=6, curvature=0.8, connect_radius=5.0))))
     v = traj[:, 3]
     ok = (float(cost) < 1e17 and bool(report["tracked_collision_free"])
           and float(report["min_goal_distance"]) < 2.0 and bool(torch.isfinite(traj).all())
@@ -6807,6 +6863,442 @@ def breadth_phase(card, device, counted, rates, lockstep=None):
           f"{out['kernel_launches']}")
     if any(out["kernel_launches"].values()):
         fail(f"phase 25 launched a kernel: {out['kernel_launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 26. the headless demo family, the playground, dataflow, the speed
+# comparison and the embedded demo (B2 on every wavefront_costs call)
+
+FAM_ATOL = 1e-9  # f64 cuda = CPU (tests/test_torch_headless_family.py's tolerance)
+FAM_SHORT = 3  # steps of the MPPI family's cuda = CPU runs, on shared draws
+FAM_ARENA_LANE_STEPS = 20  # steps of an arena speed lane's solo run held to the lanes'
+FAM_SPEED = dict(runs=20, batch=32)  # run_speed_comparison's defaults
+FAM_KERNEL_LAUNCHES = {}
+FAM_WAVEFRONT_CALLS = [0]  # wavefront_costs calls on cuda tensors this phase
+# tests/test_headless_family.py's FAST list: cuda = CPU at full size
+FAM_FAST = (
+    "headless_grid_planners", "headless_factor_graph_stack", "headless_conformal_sipp",
+    "headless_stl_cbs_multi_robot", "headless_kinodynamic_stl_cbs",
+    "headless_hierarchical_mapf_replanning", "headless_traversal_risk_graph",
+    "headless_clearance_risk_graph", "headless_elevation_risk_graph",
+    "headless_risk_map_smoothing", "headless_adaptive_costmap_namo",
+    "headless_rigid_body_mip_planning")
+# the demos with steps, run FAM_SHORT steps on cuda and the CPU: (name,
+# extra kwargs, the shape of their draws at FAM_SHORT steps)
+FAM_STEPPED = (
+    ("headless_localizers", {}, None),
+    ("headless_mppi_double_integrator", {}, (FAM_SHORT, 256, 25, 2)),
+    ("headless_mppi_terminal_value", {}, (FAM_SHORT, 512, 25, 2)),
+    ("headless_mppi_value_learning", {"episodes": 2}, (2, FAM_SHORT, 256, 24, 2)),
+    ("headless_mppi_replay_value_learning", {"episodes": 2}, (2, FAM_SHORT, 256, 22, 2)),
+    ("headless_mppi_adaptive_temperature", {}, (FAM_SHORT, 256, 25, 2)),
+    ("headless_mppi_constraint_discount", {}, (FAM_SHORT, 320, 28, 2)),
+    ("headless_mppi_track_progress", {}, (FAM_SHORT, 320, 25, 2)),
+    ("headless_mppi_racing_gate_progress", {}, (FAM_SHORT, 128, 15, 4)),
+    ("headless_adap_rpf_mppi", {}, (FAM_SHORT, 360, 16, 2)),
+)
+
+
+def _fam_expect():
+    """tests/test_headless_family.py's EXPECT gates: name -> out -> [(what,
+    holds)]."""
+    def mppi_rows(out):
+        return [(f"{v} final distance < 0.5 and min clearance > 0.1",
+                 out[f"{v}_final_distance"] < 0.5 and out[f"{v}_min_clearance"] > 0.1)
+                for v in ("uniform", "discounted")]
+
+    return {
+        "headless_grid_planners": lambda o: [
+            ("4-conn >= 8-conn optimum", o["wavefront_4_cost"] >= o["wavefront_8_cost"] - 1e-9),
+            ("ARA* final == optimal (1e-6)", abs(o["ara_final_cost"] - o["wavefront_8_cost"])
+             < 1e-6),
+            ("beam >= optimal", o["beam_ge_optimal"])],
+        "headless_factor_graph_stack": lambda o: [
+            ("IMU drift < 1e-6", o["stationary_imu_drift"] < 1e-6),
+            ("pose graph error < 0.2", o["pose_graph_terminal_error"] < 0.2),
+            ("BA point error < 0.1", o["bundle_adjustment_mean_point_error"] < 0.1),
+            ("ICP error < 1e-3", o["point_to_plane_icp_transform_error"] < 1e-3)],
+        "headless_conformal_sipp": lambda o: [
+            ("feasible, arrival <= 20", o["feasible"] and o["arrival"] <= 20),
+            ("min confidence >= 0.9", o["min_confidence"] >= 0.9),
+            ("violation bound <= 0.1", o["trajectory_violation_bound"] <= 0.1)],
+        "headless_stl_cbs_multi_robot": lambda o: [
+            ("success, >= 1 conflict resolved", o["success"] and o["conflicts_resolved"] >= 1),
+            ("min separation >= 1", o["min_separation"] >= 1.0)],
+        "headless_kinodynamic_stl_cbs": lambda o: [
+            ("both succeed, speed-up", o["both_succeed"] and o["speedup"]),
+            ("fast arrives first", o["fast_arrival"] < o["slow_arrival"]),
+            ("avoid robustness > 0", o["fast_avoid_robustness"] > 0)],
+        "headless_hierarchical_mapf_replanning": lambda o: [
+            ("both plans succeed", o["base_success"] and o["replan_success"]),
+            ("replan not shorter", o["replan_not_shorter"])],
+        "headless_traversal_risk_graph": lambda o: [("risk-averse safer", o["risk_averse_safer"])],
+        "headless_clearance_risk_graph": lambda o: [
+            ("clearance improved", o["clearance_improved"])],
+        "headless_elevation_risk_graph": lambda o: [
+            ("avoids the blocked cells, >= 1 of them",
+             o["avoids_blocked"] and o["blocked_cells"] >= 1)],
+        "headless_risk_map_smoothing": lambda o: [
+            ("smoothing straightens", o["smoothing_straightens"])],
+        "headless_adaptive_costmap_namo": lambda o: [
+            ("first plan through the corridor", o["initial_through_corridor"]),
+            ("replanned around", o["replanned_around"]),
+            ("3 stuck observations to lethal", o["stuck_observations_to_lethal"] == 3),
+            ("replanned cost higher", o["replanned_cost"] > o["initial_cost"])],
+        "headless_rigid_body_mip_planning": lambda o: [
+            ("reached and certified", o["reached"] and o["certified"]),
+            ("margin > 0", o["min_separation_margin"] > 0),
+            ("path >= 8 m", o["path_length"] >= 8.0)],
+        "headless_localizers": lambda o: [
+            *((f"{n} RMSE in (0, 0.5)", 0.0 < o[f"{n}_rmse"] < 0.5) for n in ("ekf", "ukf", "ckf")),
+            ("PF RMSE < 0.2", o["pf_rmse"] < 0.2), ("the PF best", o["best"] == "pf")],
+        "headless_mppi_double_integrator": lambda o: [
+            ("goal reached", o["goal_reached"]), ("final distance < 0.3", o["final_distance"] < 0.3),
+            ("mean ESS > 10", o["mean_ess"] > 10.0)],
+        "headless_mppi_terminal_value": lambda o: [
+            ("value wins", o["value_wins"]),
+            ("value nearer", o["value_final_distance"] < o["naive_final_distance"])],
+        "headless_mppi_value_learning": lambda o: [
+            ("improved", o["improved"]), ("TD delta shrinks",
+                                          o["last_td_delta"] <= o["first_td_delta"]),
+            ("last episode cost > 0", o["last_episode_cost"] > 0.0)],
+        "headless_mppi_replay_value_learning": lambda o: [
+            ("improved", o["improved"]), ("all rollouts kept", o["buffer_count"] == o["episodes"]),
+            ("TD delta shrinks", o["last_td_delta"] <= o["first_td_delta"])],
+        "headless_mppi_adaptive_temperature": lambda o: [
+            ("lambda changed", o["lambda_changed"]),
+            ("ESS fraction >= the fixed run's", o["mean_ess_fraction_adaptive"]
+             >= o["mean_ess_fraction_fixed"] - 1e-6),
+            ("final distance < 1", o["final_distance"] < 1.0)],
+        "headless_mppi_constraint_discount": lambda o: [
+            ("discount helps progress", o["discount_helps_progress"]), *mppi_rows(o)],
+        "headless_mppi_track_progress": lambda o: [
+            ("completed", o["completed"]), ("max lateral error < 1.5", o["max_lateral_error"] < 1.5),
+            ("progress fraction <= 1.5", o["progress_fraction"] <= 1.5)],
+        "headless_mppi_racing_gate_progress": lambda o: [
+            (">= 1 gate", o["gates_passed"] >= 1), ("lap fraction >= 0.5", o["lap_fraction"] >= 0.5),
+            ("SOC in (0, 1]", 0.0 < o["final_soc"] <= 1.0),
+            ("saturation <= 0.5", o["saturation_fraction"] <= 0.5),
+            ("mean speed > 0.5", o["mean_speed"] > 0.5)],
+        "headless_adap_rpf_mppi": lambda o: [
+            ("adaptive less occluded", o["adaptive_less_occluded"]),
+            ("adaptive clearance > 0.5", o["adaptive_min_clearance"] > 0.5),
+            ("adaptive clearance >= fixed", o["adaptive_min_clearance"]
+             >= o["fixed_min_clearance"] - 1e-6),
+            ("adaptive proximity <= fixed", o["adaptive_mean_proximity"]
+             <= o["fixed_mean_proximity"])],
+        "headless_branchout_multimodal_driving": lambda o: [
+            ("no collision", o["no_collision_rate"] == 1.0),
+            ("TTC > 1", o["min_time_to_collision"] > 1.0),
+            ("clearance > 0.5", o["min_clearance"] > 0.5),
+            ("route completion > 0.3", o["route_completion"] > 0.3),
+            (">= 1 mode", o["modes_used"] >= 1)],
+    }
+
+
+@contextlib.contextmanager
+def fam_count_wavefront():
+    """Counts the `wavefront_costs` calls made on cuda tensors while the
+    block runs into FAM_WAVEFRONT_CALLS: every caller of this phase's path
+    (the demos, the playground, dataflow, the speed comparison, and
+    `plan_grid`) looks the function up in `planning/wavefront.py` when it
+    runs."""
+    def counted(free, goals, *args, **kwargs):
+        if torch.as_tensor(free).is_cuda:
+            FAM_WAVEFRONT_CALLS[0] += 1
+        return wavefront_costs(free, goals, *args, **kwargs)
+
+    pwavefront.wavefront_costs = counted
+    try:
+        yield
+    finally:
+        pwavefront.wavefront_costs = wavefront_costs
+
+
+def fam_part(label, fn, counted, short=None):
+    """fn() once under sync debug mode "warn" on the host clock (its reads)
+    and, given `short` = (its name, a callable), that short call under the
+    profiler; the kernel entries counted over both: B2 once per cuda
+    `wavefront_costs` call, every other entry never (summed into
+    FAM_KERNEL_LAUNCHES). Returns (fn's result, the numbers)."""
+    for k in counted:
+        k.launches = 0
+    calls = FAM_WAVEFRONT_CALLS[0]
+    host_s, (out, reads) = timed(lambda: reads_in(fn))
+    stats = {"host_s": host_s, "reads": reads}
+    if short is not None:
+        stats["profiled"] = short[0]
+        stats.update(profile_once(label, short[1]))
+    stats["kernel_launches"] = {k.__name__: k.launches for k in counted}
+    stats["wavefront_costs_calls"] = FAM_WAVEFRONT_CALLS[0] - calls
+    for name, n in stats["kernel_launches"].items():
+        FAM_KERNEL_LAUNCHES[name] = FAM_KERNEL_LAUNCHES.get(name, 0) + n
+    prof = (f"; profiled call ({short[0]}): device busy {stats['busy_ms']!r} ms, "
+            f"{stats['launches']} launches, {stats['idle']:.3f} idle" if short else "")
+    print(f"{label}: {host_s!r} s host; {reads} device reads{prof}; "
+          f"{stats['wavefront_costs_calls']} wavefront_costs calls; kernel entries "
+          f"{stats['kernel_launches']}")
+    others = {n: v for n, v in stats["kernel_launches"].items() if n != "wavefront_relax" and v}
+    if others or stats["kernel_launches"]["wavefront_relax"] != stats["wavefront_costs_calls"]:
+        fail(f"{label}: kernel entries {stats['kernel_launches']} for "
+             f"{stats['wavefront_costs_calls']} wavefront_costs calls")
+    return out, stats
+
+
+def fam_same(label, got, want, atol=FAM_ATOL):
+    """Two demo outputs: the same keys, floats within atol, anything else
+    equal; gated. Returns the largest float difference."""
+    _gate(f"{label}: the same keys", sorted(got) == sorted(want), sorted(got))
+    worst, bad = 0.0, []
+    for k, w in want.items():
+        if isinstance(w, float):
+            d = abs(got[k] - w) if math.isfinite(w) else (0.0 if got[k] == w else math.inf)
+            worst = max(worst, d)
+            if not d <= atol:
+                bad.append((k, got[k], w))
+        elif got[k] != w or type(got[k]) is not type(w):
+            bad.append((k, got[k], w))
+    _gate(label, not bad, f"max|diff| {worst!r} (<= {atol}), discrete outputs equal"
+          if not bad else f"differ: {bad}")
+    return worst
+
+
+def fam_draws(name, shape, seed):
+    """Host draws for a demo's FAM_SHORT-step runs: normals of `shape`, or
+    the localizer's (init, predict, resample)."""
+    r = np.random.default_rng(seed)
+    if name == "headless_localizers":
+        return (r.standard_normal((512, 4)), r.standard_normal((FAM_SHORT, 512, 2)),
+                r.uniform(size=(FAM_SHORT, 1)))
+    return r.standard_normal(shape)
+
+
+def fam_headless_part(card, device, counted):
+    """(a) The 23 demos in f64 at their sizes, each through its EXPECT gate;
+    the FAST twelve cuda = CPU at full size, the demos with steps cuda =
+    CPU over FAM_SHORT steps on shared draws."""
+    f64 = torch.float64
+    expect = _fam_expect()
+    out = {}
+    # the longest demos, each profiled on a short call
+    profiled = {name: ("2 steps", lambda name=name: hfam.HEADLESS[name](
+        2, device=device, dtype=f64)) for name in (
+        "headless_localizers", "headless_mppi_double_integrator",
+        "headless_mppi_adaptive_temperature", "headless_mppi_racing_gate_progress")}
+    cpu_s = 0.0
+    for name, demo in hfam.HEADLESS.items():
+        got, stats = fam_part(f"{name} f64 on {card}", lambda demo=demo: demo(
+            device=device, dtype=f64), counted, profiled.get(name))
+        for what, holds in expect[name](got):
+            _gate(f"{name}: {what} (tests/test_headless_family.py)", holds, "holds")
+        row = {**stats, "out": got}
+        if name in FAM_FAST:
+            seconds, want = timed(lambda: hfam.HEADLESS[name](device="cpu", dtype=f64))
+            cpu_s += seconds
+            row["f64_max_diff"] = fam_same(f"{name} f64 cuda = CPU", got, want)
+        out[name] = row
+    print(f"the FAST twelve on the CPU (torch {torch.get_num_threads()} threads): {cpu_s!r} s")
+    out["fast_cpu_s"] = cpu_s
+
+    def short_runs():
+        diffs = {}
+        for i, (name, kw, shape) in enumerate(FAM_STEPPED):
+            draws = fam_draws(name, shape, SEED + 300 + i)
+
+            def run(dev, name=name, kw=kw, draws=draws):
+                return hfam.HEADLESS[name](steps=FAM_SHORT, **kw, device=dev, dtype=f64,
+                                           draws=draws)
+
+            diffs[name] = fam_same(f"{name} {FAM_SHORT} steps f64 cuda = CPU on shared draws",
+                                   run(device), run("cpu"))
+        return diffs
+
+    diffs, out["short_runs"] = fam_part(
+        f"the demos with steps, {FAM_SHORT} steps f64 on {card} and the CPU", short_runs,
+        counted)
+    out["short_runs"]["f64_max_diff"] = diffs
+    return out
+
+
+def fam_playground_part(card, device, counted):
+    """(b) The playground's five tabs in f64 into a temporary directory:
+    the grid tab equal to docs/playground/data.json's (read, never
+    written), every tab's equality to it reported; the arena's speed lanes
+    bitwise their solo rollouts over FAM_ARENA_LANE_STEPS steps."""
+    f64 = torch.float64
+    tab_s = {}
+
+    def timed_tab(name, tab):
+        def run(**kw):
+            seconds, out = timed(lambda: tab(**kw))
+            tab_s[name] = seconds
+            return out
+        return run
+
+    tabs = {n: getattr(pground, n) for n in ("_grid_planners_tab", "_localization_tab",
+                                              "_slam_tab", "_admm_tab", "_arena_tab")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for n, tab in tabs.items():  # each tab's seconds, as main builds it
+            setattr(pground, n, timed_tab(n, tab))
+        try:
+            (_, stats) = fam_part(f"playground main(tmp) f64 on {card}", lambda: pground.main(
+                tmp, device=device, dtype=f64), counted, ("the arena's LQR steer, 2 steps",
+                                                          lambda: pground.arena_rollouts(
+                                                              "lqr_steer", steps=2,
+                                                              device=device, dtype=f64)))
+        finally:
+            for n, tab in tabs.items():
+                setattr(pground, n, tab)
+        print(f"playground tabs' seconds on {card}: {tab_s}")
+        stats["tab_s"] = tab_s
+        with open(os.path.join(tmp, "data.json")) as fh:
+            data = json.load(fh)
+        files = sorted(os.listdir(tmp))
+    _gate("playground: main wrote data.json and index.html", files == ["data.json", "index.html"],
+          files)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "playground",
+                           "data.json")) as fh:
+        artifact = json.load(fh)
+    equal = {tab: json.dumps(data[tab]) == json.dumps(artifact[tab]) for tab in artifact}
+    print(f"playground tabs equal to docs/playground/data.json on {card}: {equal}")
+    _gate("playground: the grid tab (12 wavefront plans) equals docs/playground/data.json's",
+          equal["grid_planners"] and stats["wavefront_costs_calls"] == 12,
+          f"{stats['wavefront_costs_calls']} wavefront_costs calls")
+    reached = all(r["reached"] for r in data["grid_planners"]["runs"].values())
+    progress = min(r["progress"] for r in data["controller_arena"]["runs"].values())
+    _gate("playground: every grid run reaches its goal, every arena run progresses > 30 m "
+          "(tests/test_playground.py)", reached and progress > 30.0, f"least progress {progress}")
+    for name in pground.ARENA_CONTROLLERS:
+        # a speed a lane: the rollout's second axis
+        lanes = pground.arena_rollouts(name, steps=FAM_ARENA_LANE_STEPS, device=device, dtype=f64)
+        ctl_lanes(f"playground arena {name}, {FAM_ARENA_LANE_STEPS} steps f64, a speed a lane",
+                  lanes.transpose(0, 1), lambda i, name=name: pground.arena_rollouts(
+                      name, speeds=(pground.ARENA_SPEEDS[i],), steps=FAM_ARENA_LANE_STEPS,
+                      device=device, dtype=f64)[:, 0], lanes=(0, 1, 2))
+    return {**stats, "tabs_equal_artifact": equal}
+
+
+def fam_dataflow_part(card, device, counted):
+    """(c) Dataflow: the path-planning graph for 5 ticks (cuda = CPU, and a
+    rerun the same) and the EKF graph for 50 ticks."""
+    f64 = torch.float64
+
+    def run():
+        reports, metrics = dflow.run_path_planning_dataflow(5, device=device, dtype=f64)
+        flow, est = dflow.build_ekf_dataflow(device=device, dtype=f64)
+        flow.run(50)
+        again, _ = dflow.run_path_planning_dataflow(1, device=device, dtype=f64)
+        return reports, metrics, est, again
+
+    (reports, metrics, est, again), stats = fam_part(
+        f"dataflow: 5 planner ticks and 50 EKF ticks, then a tick again, f64 on {card}", run,
+        counted)
+    cpu, _ = dflow.run_path_planning_dataflow(5, device="cpu", dtype=f64)
+    ok = (len(reports) == len(metrics) == 5 and all(r["found"] for r in reports)
+          and all(m["waypoint_count"] == len(r["waypoints"])
+                  and abs(m["euclidean_length"] - r["cost"]) <= 1e-5 * r["cost"]
+                  for r, m in zip(reports, metrics)))
+    _gate("dataflow: 5 reports found, the metrics agree (tests/test_aux.py)", ok,
+          f"cost {reports[0]['cost']!r}, {len(reports[0]['waypoints'])} waypoints")
+    _gate("dataflow: the planner's reports equal the CPU's and a rerun's",
+          [r["waypoints"] for r in reports] == [r["waypoints"] for r in cpu]
+          and max(abs(a["cost"] - b["cost"]) for a, b in zip(reports, cpu)) <= FAM_ATOL
+          and again[0] == reports[0], "equal")
+    _gate("dataflow: 50 EKF estimates, the last within 0.5 m (tests/test_aux.py)",
+          len(est) == 50 and est[-1]["position_error"] < 0.5, f"{est[-1]['position_error']!r}")
+    return {**stats, "cost": reports[0]["cost"], "ekf_last_error": est[-1]["position_error"]}
+
+
+def fam_speed_part(card, device, counted):
+    """(d) run_speed_comparison at its defaults (f32), the rows printed with
+    the card."""
+    (header, rows), stats = fam_part(
+        f"run_speed_comparison({FAM_SPEED}) f32 on {card}", lambda: speed.run_speed_comparison(
+            **FAM_SPEED, device=device), counted,
+        ("one A* query", lambda: speed.speed_workloads(2, device)["a_star"][0]()))
+    table = [dict(zip(header, row)) for row in rows]
+    for row in table:
+        print(f"speed comparison on {card}: {row}")
+    # a warm-up and the runs, single and batched, and the profiled query
+    want = 2 * (FAM_SPEED["runs"] + 1) + 1
+    _gate("speed comparison: the four rows, one wavefront_costs call a timed A* run",
+          [r["algorithm"] for r in table] == ["a_star", "rrt", "ekf", "cubic_spline"]
+          and stats["wavefront_costs_calls"] == want, f"{stats['wavefront_costs_calls']} calls")
+    return {**stats, "rows": table}
+
+
+def fam_embedded_part(card, device, counted):
+    """(e) The embedded demo (NumPy only): its PASS line."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report, stats = fam_part("embedded demo (host, NumPy)", lambda: embedded.run_embedded_demo(
+            verbose=True), counted)
+    lines = buf.getvalue().strip().splitlines()
+    print("\n".join(lines))
+    _gate("embedded demo: PASS (main.rs:144-147, tests/test_gallery_embedded.py)",
+          report["passed"] and "embedded demo PASS" in lines and report["final_error"] < 0.1,
+          f"final error {report['final_error']!r}")
+    return {**stats, "final_error": report["final_error"]}
+
+
+def fam_dare_graph_check(card, device):
+    """The LQR laws' DARE as replays of a CUDA graph of its READ_EVERY-
+    iteration block (trackers.solve_dare on the card) bitwise the eager
+    loop, on LQR steer's error model at random speeds: 3 lanes (the arena's
+    speeds) and 1024 (the fleets), f32 and f64."""
+    rng = np.random.default_rng(SEED + 310)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        for n in (3, 1024):
+            v = torch.tensor(rng.uniform(0.2, 6.0, n), dtype=dtype, device=device)
+            zero, one = torch.zeros_like(v), torch.ones_like(v)
+            a = torch.stack([torch.stack([one, zero + 0.1, zero, zero], -1),
+                             torch.stack([zero, zero, v, zero], -1),
+                             torch.stack([zero, zero, one, zero + 0.1], -1),
+                             torch.stack([zero, zero, zero, zero], -1)], -2)
+            b = torch.stack([zero, zero, zero, v / 2.9], -1)[..., None]
+            q = torch.diag_embed(torch.stack([one] * 4, -1))
+            r = one[..., None, None]
+            graphed = ctrack.solve_dare(a, b, q, r)
+            eager = masked_fixpoint(ctrack._dare_step(a, b, q, r), q.expand(a.shape), 150, 0.01)
+            key = f"{'f32' if dtype == torch.float32 else 'f64'} x {n}"
+            out[key] = bitwise_equal(graphed, eager)
+            _gate(f"solve_dare {key} on {card}: the CUDA graph's blocks bitwise the eager loop",
+                  out[key], "bitwise" if out[key] else "differ")
+    return out
+
+
+def family_phase(card, device, counted):
+    """The headless demo family, the playground, dataflow, the speed
+    comparison and the embedded demo (phase 26): B2 once per cuda
+    `wavefront_costs` call, every other kernel entry never."""
+    out = {"card": card}
+    FAM_KERNEL_LAUNCHES.clear()
+    FAM_WAVEFRONT_CALLS[0] = 0
+    start = time.perf_counter()
+    out["dare_graph_bitwise"] = fam_dare_graph_check(card, device)
+    with fam_count_wavefront():
+        for name, part in (("headless", fam_headless_part), ("playground", fam_playground_part),
+                           ("dataflow", fam_dataflow_part), ("speed", fam_speed_part),
+                           ("embedded", fam_embedded_part)):
+            t0 = time.perf_counter()
+            calls = FAM_WAVEFRONT_CALLS[0]
+            out[name] = part(card, device, counted)
+            out[name]["part_s"] = time.perf_counter() - t0
+            out[name]["part_wavefront_costs_calls"] = FAM_WAVEFRONT_CALLS[0] - calls
+            print(f"demo family, part {name}: {out[name]['part_s']!r} s; "
+                  f"{out[name]['part_wavefront_costs_calls']} wavefront_costs calls on {card}")
+    out["phase_s"] = time.perf_counter() - start
+    out["kernel_launches"] = dict(FAM_KERNEL_LAUNCHES)
+    out["wavefront_costs_calls"] = FAM_WAVEFRONT_CALLS[0]
+    print(f"demo family: {out['phase_s']!r} s; kernel entries over its parts "
+          f"{out['kernel_launches']} for {out['wavefront_costs_calls']} wavefront_costs calls")
+    others = {n: v for n, v in out["kernel_launches"].items() if n != "wavefront_relax" and v}
+    if others or out["kernel_launches"]["wavefront_relax"] != out["wavefront_costs_calls"]:
+        fail(f"phase 26: kernel entries {out['kernel_launches']} for "
+             f"{out['wavefront_costs_calls']} wavefront_costs calls")
     return out
 
 
@@ -7628,7 +8120,12 @@ def main() -> int:
     print(json.dumps({"breadth": breadth_phase(card, device, counted, rates,
                                                pose_graph["serving"])}))
 
-    # 26. the kernels line
+    # 26. the headless demo family, the playground, dataflow, the speed
+    # comparison and the embedded demo (B2 on every wavefront_costs call)
+    family = family_phase(card, device, counted)
+    print(json.dumps({"family": family}))
+
+    # 27. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -7730,6 +8227,13 @@ def main() -> int:
         "launches_control": control["kernel_launches"]["wavefront_relax"],
         "path_control": "phase 23's value-guided MPPI (bench_mppi_value): one launch per "
                         "wavefront_costs call of its 48x48 terminal-value grid",
+        "launches_family": family["kernel_launches"]["wavefront_relax"],
+        "path_family": "phase 26: one launch per wavefront_costs call (headless_grid_planners' "
+                       "two plan_grid calls, headless_mppi_terminal_value's grid, the "
+                       "playground's 12 grid plans, dataflow's planner a tick, the speed "
+                       "comparison's A* a run)",
+        "family_calls": {p: family[p]["part_wavefront_costs_calls"]
+                         for p in ("headless", "playground", "dataflow", "speed", "embedded")},
         "max_abs_err": b2_err,
         "ms": relax_ms,
         "plain_ms": relax_plain_ms,
@@ -7755,7 +8259,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 27. the result
+    # 28. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -13,9 +13,12 @@ the device, and none goes through a matmul, so TF32 cannot touch them.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from rust_robotics_tpu_torch._device import _float_on
+from rust_robotics_tpu_torch._graphs import Graphed
 
 # a fixpoint loop reads its lanes' done flags once every this many steps
 READ_EVERY = 8
@@ -141,6 +144,17 @@ def set_last(x, i, value):
     return torch.cat([x[..., :i], value[..., None].to(x.dtype), x[..., i + 1:]], -1)
 
 
+def _masked_block(step, x, done, iterations, tol):
+    """`iterations` masked steps with no read: a lane's flag is set by the
+    step that converges it (which still applies) and freezes it after."""
+    for _ in range(iterations):
+        xn = step(x)
+        conv = torch.amax(torch.abs(xn - x), dim=(-2, -1)) < tol
+        x = torch.where(done[..., None, None], x, xn)
+        done = done | conv
+    return x, done
+
+
 def masked_fixpoint(step, x0, iterations, tol):
     """x ← step(x) over leading batch dims until max|step(x) − x| < tol
     or `iterations`; each lane stops at its own flag (the step that sets
@@ -148,14 +162,42 @@ def masked_fixpoint(step, x0, iterations, tol):
     once every READ_EVERY iterations."""
     x = x0
     done = torch.zeros(x0.shape[:-2], dtype=torch.bool, device=x0.device)
-    for it in range(iterations):
-        xn = step(x)
-        conv = torch.amax(torch.abs(xn - x), dim=(-2, -1)) < tol
-        x = torch.where(done[..., None, None], x, xn)
-        done = done | conv
-        if (it + 1) % READ_EVERY == 0 and bool(done.all()):
-            break
-    return x
+    for _ in range(iterations // READ_EVERY):
+        x, done = _masked_block(step, x, done, READ_EVERY, tol)
+        if bool(done.all()):
+            return x
+    return _masked_block(step, x, done, iterations % READ_EVERY, tol)[0]
+
+
+# the CUDA graphs of graphed_fixpoint's blocks, least recently used first
+_BLOCKS = collections.OrderedDict()
+BLOCKS_KEPT = 8
+
+
+def graphed_fixpoint(make_step, inputs, x0, iterations, tol):
+    """masked_fixpoint(make_step(*inputs), x0, iterations, tol). On CUDA
+    tensors each block of READ_EVERY iterations is one replay of a CUDA
+    graph of that block (the same kernels in the same order, so bitwise
+    the eager loop); the graphs of the last BLOCKS_KEPT keys (make_step,
+    tol, and the shapes, dtypes and devices of inputs and x0) are kept."""
+    if not x0.is_cuda:
+        return masked_fixpoint(make_step(*inputs), x0, iterations, tol)
+    key = (make_step, tol, *((t.shape, t.dtype, t.device) for t in (*inputs, x0)))
+    done = torch.zeros(x0.shape[:-2], dtype=torch.bool, device=x0.device)
+    block = _BLOCKS.pop(key, None)
+    if block is None:
+        block = Graphed(lambda *a: _masked_block(make_step(*a[:-2]), a[-2], a[-1], READ_EVERY,
+                                                 tol), *inputs, x0, done)
+    _BLOCKS[key] = block
+    while len(_BLOCKS) > BLOCKS_KEPT:
+        _BLOCKS.popitem(last=False)
+    x = x0
+    for _ in range(iterations // READ_EVERY):
+        x, done = block(*inputs, x, done)
+        if bool(done.all()):
+            return x.clone()
+    return _masked_block(make_step(*inputs), x.clone(), done.clone(), iterations % READ_EVERY,
+                         tol)[0]
 
 
 def as_float(x, dtype=None, device=None):

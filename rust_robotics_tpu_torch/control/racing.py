@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from rust_robotics_tpu_torch._device import resolve_device
+from rust_robotics_tpu_torch._graphs import Graphed
 from rust_robotics_tpu_torch._numeric import filled, true_div
 from rust_robotics_tpu_torch.control._small import at, rsum, set_last, sqrt_sum
 from rust_robotics_tpu_torch.control.mppi import MPPIConfig, mppi_plan
@@ -293,7 +294,8 @@ def simulate_gate_race(generator, gates, params: PowertrainParams, start=(0.0, 0
     itself. ChargeBudget: penalize load when the SOC falls below
     `charge_reserve` with `charge_weight`. Step i's MPPI noise is
     `draws[i]` (standard normals [steps, K, H, 4]) or drawn from
-    `generator`. On `device` (default cuda) in `dtype` (default torch's).
+    `generator`. On `device` (default cuda) in `dtype` (default torch's);
+    on the card with `draws`, each step replays a CUDA graph of the step.
 
     Returns report dict(gates_passed, lap_fraction, laps_completed,
     mean_speed, max_speed, saturation_fraction, final_soc, min_soc,
@@ -327,9 +329,10 @@ def simulate_gate_race(generator, gates, params: PowertrainParams, start=(0.0, 0
     traj = [state]
     passed = torch.zeros((), dtype=torch.int64, device=dev)
     sat_steps = torch.zeros((), dtype=torch.int64, device=dev)
-    for i in range(steps):
+
+    def step(state, u_nom, passed, sat_steps, d):
         u_nom, first, _ = mppi_plan(generator, plan_dyn, stage, term_g, state, u_nom, mcfg,
-                                    draws=None if draws is None else draws[i])
+                                    draws=d)
         new = powertrain_step(params, state, first, dt)
         idx, hit = advance(state[0:3], new[0:3], state[13])
         if not closed:
@@ -338,9 +341,16 @@ def simulate_gate_race(generator, gates, params: PowertrainParams, start=(0.0, 0
         passed = passed + hit.to(passed.dtype)
         eff = effective_max_rotor(params, state)
         sat_steps = sat_steps + (torch.amax(first) >= eff - 1e-6).to(sat_steps.dtype)
-        state = new
-        traj.append(state)
-        u_nom = torch.cat([u_nom[1:], u_nom[-1:]])
+        return new, torch.cat([u_nom[1:], u_nom[-1:]]), passed, sat_steps
+
+    if draws is not None and dev.type == "cuda" and steps:
+        # a step reads nothing back: on the card each is one replay of a
+        # CUDA graph of it (the same kernels as the eager step)
+        step = Graphed(step, state, u_nom, passed, sat_steps, draws[0])
+    for i in range(steps):
+        state, u_nom, passed, sat_steps = step(state, u_nom, passed, sat_steps,
+                                               None if draws is None else draws[i])
+        traj.append(state.clone())
     traj = torch.stack(traj).cpu().numpy()
     passed, sat_steps = int(passed), int(sat_steps)
     speeds = np.linalg.norm(traj[:, 3:6], axis=1)

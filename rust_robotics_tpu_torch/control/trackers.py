@@ -28,8 +28,8 @@ import torch
 from rust_robotics_tpu_torch._device import resolve_device
 from rust_robotics_tpu_torch._numeric import norm2, true_div
 from rust_robotics_tpu_torch.control._small import (
+    graphed_fixpoint,
     inv_small,
-    masked_fixpoint,
     mm,
     mt,
     mv,
@@ -198,9 +198,7 @@ class LQRSteerConfig:
     dare_tolerance: float = 0.01
 
 
-def solve_dare(a, b, q, r, iterations=150, tol=0.01):
-    """Discrete algebraic Riccati by fixed-point iteration (the reference's
-    solve_dare loop), over leading batch dims."""
+def _dare_step(a, b, q, r):
     at, bt = mt(a), mt(b)
 
     def step(x):
@@ -208,8 +206,15 @@ def solve_dare(a, b, q, r, iterations=150, tol=0.01):
         gain = mm(mm(mm(mm(mm(atx, b), inv_small(r + mm(mm(bt, x), b))), bt), x), a)
         return mm(atx, a) - gain + q
 
-    return masked_fixpoint(step, q.expand(torch.broadcast_shapes(a.shape, q.shape)), iterations,
-                           tol)
+    return step
+
+
+def solve_dare(a, b, q, r, iterations=150, tol=0.01):
+    """Discrete algebraic Riccati by fixed-point iteration (the reference's
+    solve_dare loop), over leading batch dims; on CUDA tensors its blocks
+    replay a CUDA graph (`_small.graphed_fixpoint`)."""
+    x0 = q.expand(torch.broadcast_shapes(a.shape, q.shape))
+    return graphed_fixpoint(_dare_step, (a, b, q, r), x0, iterations, tol)
 
 
 def path_curvatures(points, mask):

@@ -34,6 +34,14 @@ def _index(values, idx):
     return values.index_select(0, idx.reshape(-1)).reshape(idx.shape + values.shape[1:])
 
 
+def _knot(values, idx):
+    """A spline's knots or coefficients [N] (or [B..., N]) at idx [M] (or
+    [B..., M]): `_index`, or a gather along the last axis for a batch."""
+    if values.ndim > 1:
+        return torch.gather(values, -1, idx)
+    return _index(values, idx)
+
+
 # ---------------------------------------------------------------------------
 # Natural cubic spline (cubic_spline_planner.rs:18-129)
 # ---------------------------------------------------------------------------
@@ -51,42 +59,46 @@ class CubicSpline1D:
     @staticmethod
     def fit(t, y, dtype=None, device=None):
         """Natural spline coefficients (cubic_spline_planner.rs:28-61): the
-        tridiagonal system for c with free ends, solved by LU."""
+        tridiagonal system for c with free ends, solved by LU. t, y [..., N]:
+        leading dims are independent splines."""
         t = as_float(t, dtype, device)
         y = as_float(y, t.dtype, t.device)
-        n = t.shape[0]
-        h = torch.diff(t)
-        ones = torch.ones(1, dtype=t.dtype, device=t.device)
-        main = torch.cat([ones, 2.0 * (h[:-1] + h[1:]), ones])
-        upper = torch.cat([torch.zeros_like(ones), h[1:]])
-        lower = torch.cat([h[:-1], torch.zeros_like(ones)])
+        n = t.shape[-1]
+        h = torch.diff(t, dim=-1)
+        ones = torch.ones(t.shape[:-1] + (1,), dtype=t.dtype, device=t.device)
+        main = torch.cat([ones, 2.0 * (h[..., :-1] + h[..., 1:]), ones], -1)
+        upper = torch.cat([torch.zeros_like(ones), h[..., 1:]], -1)
+        lower = torch.cat([h[..., :-1], torch.zeros_like(ones)], -1)
         mat = torch.diag_embed(main) + torch.diag_embed(upper, 1) + torch.diag_embed(lower, -1)
-        inner = 3.0 * (y[2:] - y[1:-1]) / h[1:] - 3.0 * (y[1:-1] - y[:-2]) / h[:-1]
+        inner = (3.0 * (y[..., 2:] - y[..., 1:-1]) / h[..., 1:]
+                 - 3.0 * (y[..., 1:-1] - y[..., :-2]) / h[..., :-1])
         zero = torch.zeros_like(ones)
-        rhs = torch.cat([zero, inner, zero]) if n > 2 else torch.zeros_like(t)
-        c = torch.linalg.solve_ex(mat, rhs[:, None])[0][:, 0]
-        b = (y[1:] - y[:-1]) / h - true_div(h * (c[1:] + 2.0 * c[:-1]), 3.0)
-        d = (c[1:] - c[:-1]) / (3.0 * h)
+        rhs = torch.cat([zero, inner, zero], -1) if n > 2 else torch.zeros_like(t)
+        c = torch.linalg.solve_ex(mat, rhs[..., None])[0][..., 0]
+        b = (y[..., 1:] - y[..., :-1]) / h - true_div(h * (c[..., 1:] + 2.0 * c[..., :-1]), 3.0)
+        d = (c[..., 1:] - c[..., :-1]) / (3.0 * h)
         return CubicSpline1D(t, y, b, c, d)
 
     def _seg(self, q):
         q = torch.as_tensor(q, dtype=self.t.dtype, device=self.t.device)
+        if self.t.ndim > 1 and q.ndim < self.t.ndim:
+            q = q.expand(self.t.shape[:-1] + q.shape[-1:])
         i = torch.clamp(torch.searchsorted(self.t, q.contiguous(), right=True) - 1, 0,
-                        self.t.shape[0] - 2)
-        return i, q - _index(self.t, i)
+                        self.t.shape[-1] - 2)
+        return i, q - _knot(self.t, i)
 
     def calc(self, q):
         i, dt = self._seg(q)
-        return (_index(self.a, i) + _index(self.b, i) * dt + _index(self.c, i) * dt**2
-                + _index(self.d, i) * dt**3)
+        return (_knot(self.a, i) + _knot(self.b, i) * dt + _knot(self.c, i) * dt**2
+                + _knot(self.d, i) * dt**3)
 
     def calc_d(self, q):
         i, dt = self._seg(q)
-        return _index(self.b, i) + 2.0 * _index(self.c, i) * dt + 3.0 * _index(self.d, i) * dt**2
+        return _knot(self.b, i) + 2.0 * _knot(self.c, i) * dt + 3.0 * _knot(self.d, i) * dt**2
 
     def calc_dd(self, q):
         i, dt = self._seg(q)
-        return 2.0 * _index(self.c, i) + 6.0 * _index(self.d, i) * dt
+        return 2.0 * _knot(self.c, i) + 6.0 * _knot(self.d, i) * dt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,13 +113,14 @@ class Spline2D:
     def fit(x, y, dtype=None, device=None):
         x = as_float(x, dtype, device)
         y = as_float(y, x.dtype, x.device)
-        ds = hypot(torch.diff(x), torch.diff(y))
-        s = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device), torch.cumsum(ds, 0)])
+        ds = hypot(torch.diff(x, dim=-1), torch.diff(y, dim=-1))
+        s = torch.cat([torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device),
+                       torch.cumsum(ds, -1)], -1)
         return Spline2D(s, CubicSpline1D.fit(s, x), CubicSpline1D.fit(s, y))
 
     @property
     def length(self):
-        return self.s[-1]
+        return self.s[..., -1]
 
     def calc_position(self, q):
         return self.sx.calc(q), self.sy.calc(q)
@@ -124,11 +137,13 @@ class Spline2D:
 def calc_spline_course(x, y, ds=0.1, num_points=None, dtype=None, device=None):
     """Sampled course (cubic_spline_planner.rs:189): (x, y, yaw, curvature,
     s). `num_points` fixes the sample count (default int(length/ds) + 1,
-    one read of the length)."""
+    one read of the length). Leading dims of x, y [..., N] are courses;
+    they need `num_points`."""
     sp = Spline2D.fit(x, y, dtype, device)
     if num_points is None:
         num_points = int(float(sp.length) / ds) + 1
-    s = torch.minimum(torch.arange(num_points, device=sp.s.device).to(sp.s.dtype) * ds, sp.length)
+    s = torch.minimum(torch.arange(num_points, device=sp.s.device).to(sp.s.dtype) * ds,
+                      sp.length[..., None])
     px, py = sp.calc_position(s)
     return px, py, sp.calc_yaw(s), sp.calc_curvature(s), s
 

@@ -71,7 +71,15 @@ def extract_path(costs, free, start_idx, max_len: int = 1024, connectivity: int 
 
     The optimal successor of cell c is argmin_d (step_cost_d + D[c+d]); a
     loop of `max_len - 1` masked steps emits a padded index path + mask.
-    Returns (indices [L, 2] int32, mask [L] bool, path_cost).
+    Each cell's successor and whether the walk moves there (reachable, not
+    a goal, strictly descending) are a function of the cell alone, so they
+    are tabulated once over the grid and the walk only looks them up. A
+    walk that starts or steps off the grid reads the field as JAX's gather
+    does (a negative index counts from the end, then each axis is clamped)
+    and takes the step computed in full, as JAX's walk does; one read of
+    the device picks that walk. start_idx [..., 2]: leading dims are walks
+    over the one field in lock-step, each lane bitwise its solo walk.
+    Returns (indices [..., L, 2] int32, mask [..., L] bool, path_cost [...]).
     """
     motions = _motions(connectivity, diag_cost)
     f = costs.dtype
@@ -81,35 +89,65 @@ def extract_path(costs, free, start_idx, max_len: int = 1024, connectivity: int 
     d = torch.where(torch.isinf(costs), big, costs).reshape(-1)
     # m[x,y]: the step (x,y) -> (x+dx,y+dy) is allowed (the same rule)
     masks = torch.stack(_incoming_masks(free, motions, corner_cutting)).reshape(len(motions), -1)
-    deltas = torch.tensor([(dx, dy) for dx, dy, _ in motions], dtype=torch.int64, device=dev)
     step_costs = torch.tensor([c for _, _, c in motions], dtype=f, device=dev)
+    deltas = torch.tensor([(dx, dy) for dx, dy, _ in motions], dtype=torch.int64, device=dev)
 
-    def flat(p):  # [..., 2] -> [...] flat cell index, clipped like a JAX gather
-        return p[..., 0].clamp(0, w - 1) * h + p[..., 1].clamp(0, h - 1)
+    def gathered(x, y):  # the flat cell JAX's gather reads at (x, y)
+        x = torch.where(x < 0, x + w, x).clamp(0, w - 1)
+        return x * h + torch.where(y < 0, y + h, y).clamp(0, h - 1)
 
-    start = torch.as_tensor(start_idx, device=dev).to(torch.int64).reshape(2)
-    pos = start
-    done = torch.zeros(1, dtype=torch.bool, device=dev)
-    positions, moved = [start], [torch.ones(1, dtype=torch.bool, device=dev)]
-    for _ in range(max_len - 1):
-        here_at = flat(pos).reshape(1)
+    def choose(cell_xy, here_at):
+        """Each walk's candidate steps from raw cells [..., 2] (neighbours
+        clipped like JAX's), the first cheapest allowed one and whether the
+        walk moves there: (best step [...], moves [...])."""
+        nbrs = cell_xy[..., None, :] + deltas  # [..., D, 2]
+        d_nbrs = d[nbrs[..., 0].clamp(0, w - 1) * h + nbrs[..., 1].clamp(0, h - 1)]
+        cand = torch.where(masks[:, here_at].movedim(0, -1), step_costs + d_nbrs, big)
+        best = torch.argmin(cand, dim=-1, keepdim=True)  # the first minimum, as jnp.argmin
         here = d[here_at]
-        at_goal = here <= 0.0
-        reachable = here < big
-        nbrs = pos + deltas  # [D, 2]
-        d_nbrs = d[flat(nbrs)]
-        valid = masks[:, here_at].reshape(-1)
-        cand = torch.where(valid, step_costs + d_nbrs, big)
-        best = torch.argmin(cand).reshape(1)  # the first minimum, as jnp.argmin
-        descends = d_nbrs[best] < here
-        move = ~done & ~at_goal & reachable & descends
-        pos = torch.where(move, nbrs[best].reshape(2), pos)
-        done = done | at_goal | ~move
-        positions.append(pos)
-        moved.append(move)
-    idx = torch.stack(positions).to(torch.int32)
-    mask = torch.cat(moved)
-    return idx, mask, costs.reshape(-1)[flat(start)]
+        moves = (here > 0.0) & (here < big) & (torch.gather(d_nbrs, -1, best)[..., 0] < here)
+        return best[..., 0], moves
+
+    start = torch.as_tensor(start_idx, device=dev).to(torch.int64)
+    lead = start.shape[:-1]
+    start = start.reshape(-1, 2)  # [N, 2] lanes
+    cells = torch.arange(w * h, device=dev)
+    best, moves = choose(torch.stack([cells // h, cells % h], -1), cells)  # the tables
+    succ_xy = torch.stack([cells // h, cells % h], -1) + deltas[best]
+    on_grid = lambda xy: (xy >= 0).all(-1) & (xy[..., 0] < w) & (xy[..., 1] < h)  # noqa: E731
+    # the table walk holds while every start is on the grid and no move leaves it
+    tabled = bool(on_grid(start).all() & ~(moves & ~on_grid(succ_xy)).any())
+
+    done = torch.zeros(start.shape[0], dtype=torch.bool, device=dev)
+    moved = [torch.ones(start.shape[0], dtype=torch.bool, device=dev)]
+    if tabled:
+        succ = succ_xy[:, 0] * h + succ_xy[:, 1]
+        pos = start[:, 0] * h + start[:, 1]
+        positions = [pos]
+        for _ in range(max_len - 1):
+            move = ~done & moves[pos]
+            pos = torch.where(move, succ[pos], pos)
+            done = done | ~move
+            positions.append(pos)
+            moved.append(move)
+        flat = torch.stack(positions, dim=-1)
+        idx = torch.stack([flat // h, flat % h], dim=-1)
+    else:
+        pos = start
+        positions = [pos]
+        for _ in range(max_len - 1):
+            step, moves_here = choose(pos, gathered(pos[:, 0], pos[:, 1]))
+            move = ~done & moves_here
+            pos = torch.where(move[:, None], pos + deltas[step], pos)
+            done = done | ~move
+            positions.append(pos)
+            moved.append(move)
+        idx = torch.stack(positions, dim=-2)
+    idx = idx.to(torch.int32)
+    mask = torch.stack(moved, dim=-1)
+    cost = costs.reshape(-1)[gathered(start[:, 0], start[:, 1])]
+    return idx.reshape(lead + idx.shape[-2:]), mask.reshape(lead + mask.shape[-1:]), \
+        cost.reshape(lead)
 
 
 def plan_grid(grid, start_xy, goal_xy, connectivity=8, corner_cutting=False, max_len=2048,

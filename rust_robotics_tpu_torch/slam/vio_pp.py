@@ -219,13 +219,16 @@ class WindowedVIOResult:
 
 
 def run_vio_pipeline_windowed(dataset, tracks, window_frames=3, pipelined=True,
-                              devices=None, device=None, dtype=torch.float32, **kw):
+                              devices=None, device=None, dtype=torch.float32, max_windows=None,
+                              **kw):
     """Windowed VIO replay; pipelined=True streams windows through the
     GPipe schedule (one device per stage, cycled from `devices`, default
-    `device`), False runs window-major. Both produce identical output."""
+    `device`), False runs window-major. Both produce identical output.
+    `max_windows` replays the flight's first windows only."""
     device = resolve_device(device)
     stages, windows, _, _ = make_stages(dataset, tracks, window_frames, device=device,
                                         dtype=dtype, **kw)
+    windows = windows[:max_windows]
     record = []
     if pipelined:
         outs = run_pipelined(stages, windows, devices=devices or [device], record=record)

@@ -65,7 +65,42 @@ def test_rule_scan_sees_what_it_must():
                                   "checkpoint", "roofline")} | {
         f"viz/{m}.py" for m in ("__init__", "raster")} | {
         f"experiments/{m}.py" for m in ("__init__", "path_tracking", "drone_quality",
-                                        "ukf_ckf_accuracy", "point_cloud_sampling")}
+                                        "ukf_ckf_accuracy", "point_cloud_sampling")} | {
+        f"demos/{m}.py" for m in ("headless_family", "playground", "dataflow",
+                                  "speed_comparison", "embedded_demo")}
+
+
+def _string_constants(tree):
+    """The string constants of a module but its docstrings."""
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree) if isinstance(node, ast.Constant)
+            and isinstance(node.value, str) and id(node) not in docs]
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """No module of the port names a path under rust_robotics_tpu/ in its
+    code, and its own files sit in its own tree: the playground page is
+    the port's copy, which its generator reads from beside itself."""
+    for path in PORT_FILES[:-1]:
+        for value in _string_constants(ast.parse(path.read_text(), filename=str(path))):
+            parts = value.replace("\\", "/").split("/")
+            assert "rust_robotics_tpu" not in parts, f"{path.relative_to(ROOT)}: {value!r}"
+    assert _string_constants(ast.parse('"""doc"""\nx = "rust_robotics_tpu/demos"\n')) == [
+        "rust_robotics_tpu/demos"]
+    data = [p for p in (ROOT / "rust_robotics_tpu_torch").rglob("*")
+            if p.is_file() and p.suffix in (".html", ".json", ".yaml", ".txt")]
+    assert [p.relative_to(ROOT).as_posix() for p in data] == [
+        "rust_robotics_tpu_torch/demos/playground_page.html"]
+    for path in data:
+        assert "rust_robotics_tpu/" not in path.read_text(), path
+    from rust_robotics_tpu_torch.demos import playground
+
+    src = ast.parse(pathlib.Path(playground.__file__).read_text())
+    assert "playground_page.html" in _string_constants(src)
+    assert "docs/playground" not in " ".join(_string_constants(src))
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
@@ -337,6 +372,36 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
         assert call(device="cpu").device.type == "cpu", name
+
+
+def test_demo_family_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
+    """The headless family, the playground, dataflow and the speed
+    comparison make their tensors on the card unless given device="cpu";
+    without a card they raise."""
+    from rust_robotics_tpu_torch.demos import dataflow, headless_family, playground
+    from rust_robotics_tpu_torch.demos import speed_comparison
+
+    calls = {
+        "headless_conformal_sipp": lambda **kw: headless_family.headless_conformal_sipp(**kw),
+        "headless_mppi_double_integrator": lambda **kw: (
+            headless_family.headless_mppi_double_integrator(1, **kw)),
+        "run_headless": lambda **kw: headless_family.run_headless(
+            "headless_rigid_body_mip_planning", **kw),
+        "arena_rollouts": lambda **kw: playground.arena_rollouts("stanley", steps=1, **kw),
+        "main": lambda **kw: playground.main(str(tmp_path / "site"), **kw),
+        "run_path_planning_dataflow": lambda **kw: dataflow.run_path_planning_dataflow(1, **kw),
+        "build_ekf_dataflow": lambda **kw: dataflow.build_ekf_dataflow(**kw)[0].run(1),
+        "speed_workloads": lambda **kw: speed_comparison.speed_workloads(2, **kw)[
+            "cubic_spline"][0](),
+    }
+    for name, call in calls.items():
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    # on the CPU when asked (main's tabs are held in test_torch_playground_dataflow.py)
+    for name, call in calls.items():
+        if name != "main":
+            assert call(device="cpu") is not None, name
 
 
 def test_distributed_entry_points_need_nccl_unless_asked_for_the_cpu():
