@@ -142,7 +142,9 @@ any failure exits non-zero before the final line.
     sub-pixel flows (median flow error <= 0.25 px), 4 pairs against the
     CPU, `triangulate_tracks` of the 2000 landmarks over 201 views; (e) one
     batched preintegration, one `lk_track` and one stage-D fusion step
-    under sync debug mode "error"; the f32 histogram update and
+    under sync debug mode "error", and the CUDA graph of stage D's LM step
+    (`solve_device`'s replay) bitwise the eager step on two windows, one
+    capture for both; the f32 histogram update and
     `shi_tomasi_response` equal with cuDNN's TF32 flag on and off; then one
     JSON line `{"vio": {...}}`;
 19. the distributed programs (no kernel on their path) on a one-rank NCCL
@@ -222,12 +224,13 @@ any failure exits non-zero before the final line.
     other entry never: (a) pure pursuit, Stanley, rear-wheel feedback (1024
     vehicles x 200 steps) and LQR steer (x 100 steps, a DARE per vehicle) on
     bench_meta_control's 401-point path, the three nonlinear laws over 1024
-    lanes, the CBF filter (1024 robots x 150 steps), ADMM formation,
+    lanes, the CBF filter (1024 robots x 75 steps), ADMM formation,
     consensus and horizon consensus; (b) `mpc_control` for 1024 vehicles,
-    iLQR and DDP on 256 pendulums, `lqr_regulator`, C/GMRES (10 of its
-    test's 1200 steps, f64), `plan_landing` (f64); (c) `rrt_star_arm_plan`
-    (7 joints, 192 and 512 nodes), 3-D IK on 1024 targets; (d) bench_mppi's
-    loop, one plan of 1024 robots x 1024 samples x H 30 among 16 obstacles,
+    iLQR and DDP on 256 pendulums (8 iterations), `lqr_regulator`, C/GMRES
+    (5 of its test's 1200 steps, f64), `plan_landing` (f64); (c)
+    `rrt_star_arm_plan` (7 joints, 192 nodes), 3-D IK on 1024 targets; (d)
+    bench_mppi's loop, one plan of 1024 robots x 1024 samples x H 30 among
+    16 obstacles,
     bench_mppi_value (B2) value-guided against vanilla, person following
     and racing, `simulate_gate_race` at its defaults, `simulate_push` as
     bench_pusher_slider and the two-contact couple; each part's gate (the
@@ -240,16 +243,17 @@ any failure exits non-zero before the final line.
     clock and a short call of it under the profiler, no kernel entry
     launching: (a) bench_frenet's cycle, `calc_spline_course` on its 5
     waypoints, Dubins and Reeds-Shepp on 1024 pose pairs, η³ path and
-    trajectory samples; (b) bench_rrt_star's four runs (seeds 0 and 1, RRT
-    and RRT*, 300 nodes) and a forest of 1024 RRT* trees of 300 nodes
+    trajectory samples; (b) bench_rrt_star's seed-0 runs (RRT and RRT*, 300
+    nodes; phase 27 runs all four) and a forest of 1024 RRT* trees of 300 nodes
     (lanes bitwise their solo runs); (c) informed RRT*, RRT-connect,
     bidirectional RRT (300 nodes), FMT* and RRG at 256 samples, BIT* (4 x
     96), the Sobol RRT, `shortcut_path`; (d) the Dubins RRT/RRT* and the
-    Reeds-Shepp RRT* on 16 trees of the tests' 96 nodes, closed-loop RRT*
-    (600 steps), LQR-RRT* at 200 nodes; (e) the elastic band, DMP, PSO with
-    64 particles, `lqr_plan`, Bug2 and tangent Bug (host); (f)
-    `hybrid_astar_costs` on 128² x 16 headings, the lattice lookup table,
-    the clothoid, CHOMP, bipedal; each part's gate the JAX test's of the
+    Reeds-Shepp RRT* on 16 trees of 64 of the tests' 96 nodes,
+    closed-loop RRT* (300 of 600 steps), LQR-RRT* at 200 nodes; (e) the
+    elastic band, DMP, PSO with 64 particles, `lqr_plan`, Bug2 and tangent
+    Bug (host); (f) `hybrid_astar_costs` on 128² x 16 headings, the
+    lattice lookup table, the clothoid, CHOMP, bipedal; each part's gate the
+    JAX test's of the
     same function, f64 cuda = CPU at a reduced size (1e-9, discrete
     outputs exactly); (g) the solver paths bitwise with TF32 allowed; then
     one JSON line `{"kinematic_planning": {...}}`;
@@ -260,7 +264,8 @@ any failure exits non-zero before the final line.
     short call, named, where the part makes ~70k launches or more), no
     kernel entry launching: (a) the meta controller (pure pursuit, the LQR
     speed-steer fallback) on 1024 vehicles x 200 steps on
-    bench_meta_control's path, `run_controller_arena()` at its 600 steps,
+    bench_meta_control's path, `run_controller_arena()` at 300 of its 600
+    steps (phase 27 runs its bench's 500),
     the quintic flight and the minimum-snap solve (f64) on the JAX tests'
     waypoints; (b) the rigid-body lattice and RRT (600 nodes) at
     `RigidBodyConfig()` on the JAX test's scene, BranchOut's plans,
@@ -268,9 +273,9 @@ any failure exits non-zero before the final line.
     serving row: `run_batched_compaction_benchmark()` (256 x 200, rounds of
     6, at most 8, tolerance 1e-6) beside the lock-step
     `run_batched_benchmark` at the same shape; (d) the experiment suites
-    at their defaults (UKF/CKF 10 families x 32 x 120, path tracking 3 x 3
-    x 3 x 500, drone 3 seeds, point-cloud sampling's six problems; the
-    UKF/CKF suite in f64); (e) the
+    at their defaults but for depth (UKF/CKF 10 families x 32 x 60 of 120
+    steps, path tracking 3 x 3 x 3 x 500, drone 3 seeds, point-cloud
+    sampling's six problems; the UKF/CKF suite in f64); (e) the
     roofline of the run's EKF and resampling rates, one trace, a
     checkpoint round trip on cuda, `assert_deterministic` on two planners,
     frames drawn; each part's gate the JAX test's of the same function,
@@ -290,8 +295,24 @@ any failure exits non-zero before the final line.
     (d) `run_speed_comparison()` at its defaults (20 runs, batch 32), its
     rows printed with the card; (e) the embedded demo's PASS line; then one
     JSON line `{"family": {...}}`;
-27. one JSON line `{"kernels": [...]}`;
-28. the last line, `{"ok": true, "device": {...}}`.
+27. the tools, each part once under sync debug mode "warn" on the host
+    clock (a short call of the longest under the profiler), B2 once per
+    `wavefront_costs` call and no other kernel entry launching: (a) the
+    pinned registry in f64, the benches outside tests/test_bench_gate.py's
+    SLOW set first, then the SLOW ones while SL_BENCH_BUDGET_S lasts:
+    every deterministic bench's CSV equal to docs/assets/ through
+    `compare_csv` (1e-6), every drawing bench on its own draws equal to
+    its CPU run (run in two other processes meanwhile; 1e-9, integers and
+    words exactly, the rounding-bound three 1e-2); (b) the 25 renders into
+    a temporary directory, GIFs through the native writer, each file passing
+    tests/test_render_family.py's check (the EuRoC one skips without the
+    reference's fixture); (c) `build_gallery` on two renders; (d) the
+    native parsers against the pure-Python ones and the native GIF stream
+    against PIL's decoding; (e) `run_scaling_report((1,))` and
+    `run_chain_weak_scaling((1,))` on one NCCL rank, printed with the card;
+    then one JSON line `{"tools": {...}}`;
+28. one JSON line `{"kernels": [...]}`;
+29. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -382,6 +403,10 @@ from rust_robotics_tpu_torch.demos import headless_family as hfam
 from rust_robotics_tpu_torch.demos import playground as pground
 from rust_robotics_tpu_torch.demos import pose_graph_bench
 from rust_robotics_tpu_torch.demos import speed_comparison as speed
+from rust_robotics_tpu_torch.demos import benchmarks as bmk
+from rust_robotics_tpu_torch.demos import gallery
+from rust_robotics_tpu_torch.demos import render as rnd
+from rust_robotics_tpu_torch.demos import scaling_report as scaling
 from rust_robotics_tpu_torch.planning import wavefront as pwavefront
 from rust_robotics_tpu_torch.nlls import banded, tridiag
 from rust_robotics_tpu_torch.planning.grid import grid_from_raster
@@ -3076,7 +3101,37 @@ def vio_no_read_part(device, ds, tracks):
         return step(state)
 
     no_read_in("windowed VIO stage D, one fusion LM step", fusion_step)
+    stage_d_graph_check(stages, windows)
     return True
+
+
+def stage_d_graph_check(stages, windows):
+    """`solve_device`'s CUDA graph of an LM step (nlls/solver.py::
+    _graphed_step) against the eager step on the first two windows' stage-D
+    problems: every field of the state after each iteration bitwise equal,
+    over 8 iterations on the first window and 4 on the second, which
+    replays the first one's graph (one capture for both)."""
+    graphs = []
+    for j, win in enumerate(windows[:2]):
+        for st in stages[:3]:
+            win = st.fn(st.init_carry, win)[1] if st.chain else st.fn(win)
+        problem, config = vio_pp.fuse_problem(None, win)
+        first, eager_step = device_lm_start(problem, config)
+        graph_step = nlls_solver._graphed_step(problem, config, first)
+        graphs.append(graph_step.graph)
+        eager, graphed = first, first
+        for k in range(2 * nlls_solver.DONE_READ_EVERY if j == 0 else
+                       nlls_solver.DONE_READ_EVERY):
+            eager, graphed = eager_step(eager), graph_step(graphed)
+            fields = [*eager.values, *eager[1:]], [*graphed.values, *graphed[1:]]
+            if not all(bitwise_equal(a, b) for a, b in zip(*fields)):
+                fail(f"stage D window {j}: the graphed LM step differs from the eager one at "
+                     f"iteration {k}")
+    print(f"stage D: the graphed LM step bitwise equal to the eager step over "
+          f"{2 * nlls_solver.DONE_READ_EVERY} + {nlls_solver.DONE_READ_EVERY} iterations on 2 "
+          f"windows, the second replaying the first one's graph: {graphs[1] is graphs[0]}")
+    if graphs[1] is not graphs[0]:
+        fail("stage D: a second graph captured for a problem of the same structure")
 
 
 def tf32_part(device):
@@ -4795,11 +4850,12 @@ CTL_ATOL = 1e-9
 CTL_TRACK_STEPS = 200  # bench_meta_control's loop on its 401-point path
 CTL_LQR_STEPS = 100  # the LQR steer fleet: a DARE a vehicle a step
 CTL_XTRACK_RMSE = 0.5  # tests/test_trackers.py's limit (0.4-0.5)
-CTL_CBF_STEPS = 150  # bench_cbf_safety_filter
-CTL_ILQR_BATCH, CTL_ILQR_ITERATIONS = 256, 15
-CTL_CGMRES_STEPS, CTL_CGMRES_CPU_STEPS = 10, 2
-CTL_RRT = ((192, dict(step_size=0.5, rewire_radius=1.2, edge_checks=6, path_len=32)),
-           (512, dict()))  # bench_arm_rrt_star's, then the defaults
+CTL_CBF_STEPS = 75  # of bench_cbf_safety_filter's 150; phase 27 runs the bench
+CTL_ILQR_BATCH, CTL_ILQR_ITERATIONS = 256, 8
+CTL_CGMRES_STEPS, CTL_CGMRES_CPU_STEPS = 5, 2
+# bench_arm_rrt_star's (phase 27's registry runs the bench itself in f64; the
+# defaults' 512 nodes were cut for its room)
+CTL_RRT = ((192, dict(step_size=0.5, rewire_radius=1.2, edge_checks=6, path_len=32)),)
 CTL_IK_ITERATIONS = 100
 CTL_MPPI_FLEET = (1024, 1024, 30, 16)  # robots, samples, horizon, obstacles
 CTL_RACE = dict(steps=120, horizon=18, num_samples=192)  # simulate_gate_race's defaults
@@ -5296,9 +5352,9 @@ def ctl_trajopt_part(card, device, counted):
           and float(mags.max()) <= rcfg.max_thrust + 1e-6 and float(xs[:, 1].min()) > -1.0)
     _gate("plan_landing f64 lands softly within the thrust bound (test_rocket_lands_softly, "
           "x64)", ok, f"final {final.tolist()}, max thrust {float(mags.max())!r}")
-    small = crocket.RocketConfig(outer_iterations=1, inner_iterations=50)
+    small = crocket.RocketConfig(outer_iterations=1, inner_iterations=20)
     out["rocket"] = {**stats, "f64_max_diff": ctl_same(
-        "plan_landing (50 steps) f64 cuda = CPU",
+        "plan_landing (20 steps) f64 cuda = CPU",
         crocket.plan_landing([20.0, 60.0, -3.0, -8.0], [0.0, 0.0], small, dtype=f64,
                              device=device)[1],
         crocket.plan_landing([20.0, 60.0, -3.0, -8.0], [0.0, 0.0], small, dtype=f64,
@@ -5679,12 +5735,14 @@ def control_phase(card, device, counted):
 # eta3, the RRT family and its variants, the kinematic RRTs, the reactive
 # planners, hybrid A*, the lattice, CHOMP, the bipedal planner; no kernel)
 KIN_FOREST = 1024
+KIN_RRT_SEEDS = (0,)  # bench_rrt_star's seeds run here; phase 27 runs the bench's four plans
 KIN_ATOL = 1e-9
 KIN_PAIRS = 1024  # Dubins and Reeds-Shepp pose pairs
 KIN_RRT = dict(expand_dis=1.0, max_nodes=300, connect_radius=2.5, goal_threshold=1.0)
 KIN_COURSE = ([[5.0, 5.0], [3.0, 6.0], [7.0, 4.0]], [1.0, 0.8, 0.8])  # bench_rrt_star's
 KIN_KCOURSE = ([[4.5, 4.5], [2.0, 6.5]], [1.2, 0.9])  # tests/test_rrt_kinematic.py's
 KIN_KLANES = 16  # the kinematic RRTs' small forest (a lane per seed)
+KIN_KNODES = 64  # their nodes: 64 of tests/test_rrt_kinematic.py's 96 (room for phase 27)
 KIN_HYBRID = (128, 16)  # map side, headings
 # Each part is profiled at the size it is timed, but those whose call
 # launches ~70k kernels or more (the kinematic RRTs, the closed loop,
@@ -5696,7 +5754,7 @@ KIN_PROFILE_FULL = os.environ.get("KIN_PROFILE_FULL") == "1"
 # the RRT family's trees (~20k-220k launches at 256-300 nodes) profile a
 # tree of this many nodes (cut for phase 26: their full-size profiles cost
 # ~50 s of phase 24)
-KIN_PROFILE_NODES = 60
+KIN_PROFILE_NODES = 20
 KIN_KERNEL_LAUNCHES = {}
 
 
@@ -5875,13 +5933,14 @@ def kin_path_clear(pts, mask, obs, rad, checks=20):
 
 
 def kin_rrt_part(card, device, counted):
-    """(b) bench_rrt_star's four runs and a forest of 1024 RRT* trees."""
+    """(b) bench_rrt_star's runs of KIN_RRT_SEEDS and a forest of 1024 RRT*
+    trees."""
     out = {}
     f32, f64 = torch.float32, torch.float64
     n = KIN_RRT["max_nodes"]
     runs = {}
     short_cfg = prrt.RRTConfig(**{**KIN_RRT, "max_nodes": KIN_PROFILE_NODES})
-    for seed in (0, 1):
+    for seed in KIN_RRT_SEEDS:
         for star in (False, True):
             d = kin_draws((n - 1, 3), f32, device, SEED + 270 + seed)
             (tree, best, cost), stats = kin_part(
@@ -6058,18 +6117,19 @@ def kin_kinematic(name, draws, dtype, device, nodes=96):
 
 def kin_kinematic_part(card, device, counted):
     """(d) the Dubins and Reeds-Shepp RRT/RRT* at the tests' configuration
-    (16 lanes of 96 nodes), closed-loop RRT*, LQR-RRT* at 200 nodes."""
+    (16 lanes of KIN_KNODES of their 96 nodes), closed-loop RRT*, LQR-RRT* at
+    200 nodes."""
     out = {}
     f32, f64 = torch.float32, torch.float64
     goal = torch.tensor([9.0, 9.0, math.pi / 2], dtype=f32, device=device)
     obs, rad = (np.asarray(v) for v in KIN_KCOURSE)
-    d = kin_draws((KIN_KLANES, 95, 4), f32, device, SEED + 290)
+    d = kin_draws((KIN_KLANES, KIN_KNODES - 1, 4), f32, device, SEED + 290)
     for name in ("rrt_dubins", "rrt_star_dubins", "rrt_star_reeds_shepp"):
         (tree, best, cost), stats = kin_part(
-            f"{name}: {KIN_KLANES} trees x 96 nodes f32 on {card}",
-            lambda name=name: kin_kinematic(name, d, f32, device), counted,
-            short=(f"{KIN_KLANES} trees x 6 nodes",
-                   lambda name=name: kin_kinematic(name, d[:, :5], f32, device, nodes=6)))
+            f"{name}: {KIN_KLANES} trees x {KIN_KNODES} nodes f32 on {card}",
+            lambda name=name: kin_kinematic(name, d, f32, device, nodes=KIN_KNODES), counted,
+            short=(f"{KIN_KLANES} trees x 3 nodes",
+                   lambda name=name: kin_kinematic(name, d[:, :2], f32, device, nodes=3)))
         found = cost < 1e17
         poses, mask = pkin.extract_pose_path(tree, best, goal, 0.8,
                                              reeds_shepp=name.endswith("shepp"))
@@ -6089,7 +6149,7 @@ def kin_kinematic_part(card, device, counted):
         lanes = (0, KIN_KLANES - 1) if name == "rrt_star_dubins" else (KIN_KLANES - 1,)
         ctl_lanes(name, (tree.poses, tree.parents, cost),
                   lambda i, name=name: (lambda t: (t[0].poses, t[0].parents, t[2]))(
-                      kin_kinematic(name, d[i], f32, device)), lanes=lanes)
+                      kin_kinematic(name, d[i], f32, device, nodes=KIN_KNODES)), lanes=lanes)
         out[name] = {**stats, "found_share": share, "best_cost": float(cost.min())}
     d64 = kin_draws((2, 23, 4), f64, "cpu", SEED + 293)
     g = kin_kinematic("rrt_star_dubins", d64.to(device), f64, device, nodes=24)
@@ -6106,9 +6166,9 @@ def kin_kinematic_part(card, device, counted):
             dtype=f32, device=device)
 
     (traj, tree, cost, report), stats = kin_part(
-        f"closed_loop_rrt_star_plan 96 nodes x 600 steps f32 on {card}", lambda: closed(600),
-        counted, short=("6 nodes x 30 steps", lambda: closed(30, 6, pkin.KinematicRRTConfig(
-            max_nodes=6, curvature=0.8, connect_radius=5.0))))
+        f"closed_loop_rrt_star_plan 96 nodes x 300 steps f32 on {card}", lambda: closed(300),
+        counted, short=("3 nodes x 15 steps", lambda: closed(15, 3, pkin.KinematicRRTConfig(
+            max_nodes=3, curvature=0.8, connect_radius=5.0))))
     v = traj[:, 3]
     ok = (float(cost) < 1e17 and bool(report["tracked_collision_free"])
           and float(report["min_goal_distance"]) < 2.0 and bool(torch.isfinite(traj).all())
@@ -6128,7 +6188,7 @@ def kin_kinematic_part(card, device, counted):
 
     (tree, best, cost), stats = kin_part(
         f"lqr_rrt_star_plan 200 nodes f32 on {card}", lambda: lqr(lcfg, f32, device), counted,
-        short=("24 nodes", lambda: lqr(pkin.LQRRRTConfig(max_nodes=24), f32, device)))
+        short=("12 nodes", lambda: lqr(pkin.LQRRRTConfig(max_nodes=12), f32, device)))
     nodes = tree["nodes"].cpu().double().numpy()
     parents = tree["parents"].cpu().numpy()
     chain_ok, cur, seen = True, int(best), 0
@@ -6267,7 +6327,9 @@ def kin_grid_part(card, device, counted):
     lut = lambda dt, dev: plattice.generate_lookup_table(  # noqa: E731
         [4.0, 6.0], [-1.0, 0.0, 1.0], [-0.3, 0.0, 0.3], dtype=dt, device=dev)
     (params, errs, _), stats = kin_part(
-        f"generate_lookup_table 18 targets f32 on {card}", lambda: lut(f32, device), counted)
+        f"generate_lookup_table 18 targets f32 on {card}", lambda: lut(f32, device), counted,
+        short=("2 targets", lambda: plattice.generate_lookup_table(
+            [4.0], [0.0], [0.0, 0.3], dtype=f32, device=device)))
     med = float(errs.median())
     _gate("generate_lookup_table converges (test_lookup_table_generation; f32 median < 1e-3)",
           med < 1e-3 and bool((params[:, 0] > 0).all()), f"median error {med!r}")
@@ -6308,7 +6370,8 @@ def kin_grid_part(card, device, counted):
     steps = [[0.0, 0.2, 0.0]] + [[0.3, 0.2, 0.0]] * 6 + [[0.0, 0.2, 0.0]]
     plan, stats = kin_part(
         f"bipedal_plan 8 steps f32 on {card}",
-        lambda: pbipedal.bipedal_plan(steps, dtype=f32, device=device), counted)
+        lambda: pbipedal.bipedal_plan(steps, dtype=f32, device=device), counted,
+        short=("3 steps", lambda: pbipedal.bipedal_plan(steps[:3], dtype=f32, device=device)))
     refs, mods = plan["reference_footsteps"].cpu(), plan["modified_footsteps"].cpu()
     com = plan["com_trajectory"].cpu()
     ok = (bool(torch.isfinite(com).all()) and float(refs[-1, 0]) > float(refs[1, 0])
@@ -6389,6 +6452,8 @@ BRD_START, BRD_GOAL = (1.0, 1.0, 0.0), (9.0, 1.0, 0.0)
 BRD_SCENES = ("simple_overtake", "wide_overtake", "forced_yield")
 BRD_COMPACT_SMALL = dict(size=100, batch=6, chunk_iters=5, max_rounds=5)
 BRD_ARENA_F64_STEPS = 20
+BRD_ARENA_STEPS = 300  # of run_controller_arena's 600; phase 27's registry runs its bench's 500
+BRD_UKF_STEPS = 60  # the UKF/CKF suite's steps (its default 120)
 BRD_KERNEL_LAUNCHES = {}
 
 
@@ -6423,8 +6488,8 @@ def brd_meta(state, pts, mask, steps):
 
 def brd_controllers_part(card, device, counted):
     """(a) The meta controller over a fleet on bench_meta_control's path, the
-    controller arena at its 600 steps, the quintic and minimum-snap
-    flights."""
+    controller arena at BRD_ARENA_STEPS of its 600 steps, the quintic and
+    minimum-snap flights."""
     out = {}
     f32, f64 = torch.float32, torch.float64
     rng = np.random.default_rng(SEED + 250)
@@ -6456,9 +6521,9 @@ def brd_controllers_part(card, device, counted):
     brd_state = {"states": traj[-1], "use": use, "ema": ema}
 
     (res, (header, rows)), stats = brd_part(
-        f"run_controller_arena (600 steps, three controllers) f32 on {card}",
-        lambda: carena.run_controller_arena(device=device), counted,
-        short=("2 steps", lambda: carena.run_controller_arena(steps=2, device=device)))
+        f"run_controller_arena ({BRD_ARENA_STEPS} steps, three controllers) f32 on {card}",
+        lambda: carena.run_controller_arena(steps=BRD_ARENA_STEPS, device=device), counted,
+        short=("1 step", lambda: carena.run_controller_arena(steps=1, device=device)))
     ok = all(m["cross_track_rmse"] < 1.0 and m["progress"] > 20.0 for m in res.values())
     _gate("controller arena: every controller's cross-track RMSE < 1 and progress > 20 m "
           "(tests/test_aux.py's gates)", ok, f"{res}")
@@ -6474,7 +6539,9 @@ def brd_controllers_part(card, device, counted):
     wps = torch.tensor(BRD_WPS, dtype=f32, device=device)
     (ps, refs), stats = brd_part(f"quintic segments + PD quadrotor (300 steps) f32 on {card}",
                                  lambda: caerial.simulate_quadrotor(
-                                     caerial.quintic_3d_segments(wps, 2.0), 2.0), counted)
+                                     caerial.quintic_3d_segments(wps, 2.0), 2.0), counted,
+                                 short=("one segment, 100 steps", lambda: caerial.simulate_quadrotor(
+                                     caerial.quintic_3d_segments(wps[:2], 2.0), 2.0)))
     err = float(torch.linalg.vector_norm(ps - refs, dim=-1).max())
     end = float(torch.linalg.vector_norm(ps[-1] - wps[-1]))
     _gate("quadrotor: tracking error < 0.3 m, the flight ends within 0.2 m of the last waypoint "
@@ -6661,17 +6728,19 @@ def brd_cell_draws(case, bucket, slots, max_iter, seed):
 
 
 def brd_experiments_part(card, device, counted):
-    """(d) The experiment suites at their defaults: UKF against CKF (10
-    families x 32 scenarios x 120 steps, f64), path tracking (3 controllers x 3
-    courses x 3 seeds x 500 steps), drone trajectories (3 seeds), point-cloud
+    """(d) The experiment suites at their defaults but for depth: UKF
+    against CKF (10 families x 32 scenarios x BRD_UKF_STEPS steps, f64), path
+    tracking (3 controllers x 3 courses x 3 seeds x 500 steps), drone
+    trajectories (3 seeds), point-cloud
     sampling (the six problems, 10 slots a cell)."""
     out = {}
     f32, f64 = torch.float32, torch.float64
     # f64: the UKF's sigma weights at α = 1e-3 cancel in f32, where JAX's
     # own suite gives NaN RMSEs (11 of 32 nominal scenarios; ROADMAP C13)
     ukf, stats = brd_part(
-        f"run_ukf_ckf_accuracy() (10 families x 32 scenarios x 120 steps) f64 on {card}",
-        lambda: eukf.run_ukf_ckf_accuracy(dtype=f64, device=device), counted,
+        f"run_ukf_ckf_accuracy() (10 families x 32 scenarios x {BRD_UKF_STEPS} steps) f64 on "
+        f"{card}", lambda: eukf.run_ukf_ckf_accuracy(steps=BRD_UKF_STEPS, dtype=f64,
+                                                      device=device), counted,
         short=("one family, 20 steps", lambda: eukf.simulate_family_rmse(
             eukf.SCENARIO_FAMILIES["nominal"], 20,
             generator=torch.Generator(device=device).manual_seed(0), dtype=f64, device=device)))
@@ -7000,20 +7069,23 @@ def _fam_expect():
 @contextlib.contextmanager
 def fam_count_wavefront():
     """Counts the `wavefront_costs` calls made on cuda tensors while the
-    block runs into FAM_WAVEFRONT_CALLS: every caller of this phase's path
-    (the demos, the playground, dataflow, the speed comparison, and
-    `plan_grid`) looks the function up in `planning/wavefront.py` when it
-    runs."""
+    block runs into FAM_WAVEFRONT_CALLS: the callers of phases 26 and 27
+    (the demos, the playground, dataflow, the speed comparison, the
+    benches, the renders and `plan_grid`) look the function up in
+    `planning/wavefront.py` when they run, or in the modules of
+    WAVEFRONT_CALLERS, which bind it at import."""
     def counted(free, goals, *args, **kwargs):
         if torch.as_tensor(free).is_cuda:
             FAM_WAVEFRONT_CALLS[0] += 1
         return wavefront_costs(free, goals, *args, **kwargs)
 
-    pwavefront.wavefront_costs = counted
+    for module in (pwavefront, *WAVEFRONT_CALLERS):
+        module.wavefront_costs = counted
     try:
         yield
     finally:
-        pwavefront.wavefront_costs = wavefront_costs
+        for module in (pwavefront, *WAVEFRONT_CALLERS):
+            module.wavefront_costs = wavefront_costs
 
 
 def fam_part(label, fn, counted, short=None):
@@ -7299,6 +7371,326 @@ def family_phase(card, device, counted):
     if others or out["kernel_launches"]["wavefront_relax"] != out["wavefront_costs_calls"]:
         fail(f"phase 26: kernel entries {out['kernel_launches']} for "
              f"{out['wavefront_costs_calls']} wavefront_costs calls")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 27. the pinned benchmark registry, the render family and the gallery, the
+# native host runtime, the scaling report (B2 on every wavefront_costs call)
+
+# tests/test_bench_gate.py's SLOW set, cheapest first by their host time on
+# an NVIDIA H100 80GB HBM3 at 700 W (0.17-2.63 s each, PERF.md §6): the
+# registry runs every bench outside it first, then these while its host
+# time is under SL_BENCH_BUDGET_S (phase 27's budget is 75 s; the renders,
+# gallery, native checks and scaling rows take ~24 s of it)
+SL_BENCH_SLOW = (
+    "localizers-benchmark", "racing-quadrotor-benchmark", "adap-rpf-metrics-benchmark",
+    "racing-powertrain-benchmark", "branchout-closed-loop-benchmark",
+    "racing-mppi-3d-benchmark", "racing-powertrain-endurance-benchmark",
+    "dwa-navigation-benchmark", "racing-powertrain-aware-benchmark",
+    "racing-powertrain-budget-benchmark", "mission-recovery-benchmark",
+    "pusher-slider-benchmark", "admm-horizon-consensus-benchmark", "slam-node-benchmark")
+SL_BENCH_BUDGET_S = 42.0
+SL_BENCH_RTOL = 1e-9  # a stochastic bench's cuda = CPU, f64, on its own draws
+# the drawing benches whose floats are rounding: ICP's final error mean is
+# the residual at f64's floor (~1e-8 m, the root of an expanded squared
+# distance; 1.25e-8 on the card against 1.59e-8 on the CPU), and the
+# value-guided MPPI's 70 steps and the powertrain-aware race amplify a
+# last-bit difference ~10x a step (JAX's own jitted run misses its CSV):
+# integers and words exactly, floats within SL_BENCH_ROUNDING_RTOL
+SL_BENCH_ROUNDING = frozenset({"icp-benchmark", "mppi-value-benchmark",
+                               "racing-powertrain-aware-benchmark"})
+SL_BENCH_ROUNDING_RTOL = 1e-2
+SL_CPU_PROCESSES, SL_CPU_THREADS = 2, 3  # the CPU runs: processes, torch threads each
+SL_GALLERY = ("render_svg_path_planning", "render_svg_dubins")  # test_gallery_embedded.py:48
+SL_ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "assets")
+# the functional columns of the stochastic benches with a gate in the JAX
+# tests (test_mppi_value.py: value-guided beats vanilla; test_icp.py:
+# converged; test_arm.py: RRT* found): (row, column, test)
+SL_BENCH_GATES = {
+    "mppi-value-benchmark": (0, "beats_vanilla", lambda v: v == "1"),
+    "icp-benchmark": (0, "converged", lambda v: v == "true"),
+    "arm-rrt-star-benchmark": (0, "found", lambda v: v == "true"),
+}
+
+
+def _csv_cells_close(got, want, rtol):
+    """(ok, max relative difference): two benches' (header, rows) with the
+    same header and shape, integers and words equal, floats within rtol."""
+    (gh, gr), (wh, wr) = got, want
+    if gh != wh or [len(r) for r in gr] != [len(r) for r in wr]:
+        return False, math.inf
+    worst, ok = 0.0, True
+    for g_row, w_row in zip(gr, wr):
+        for g, w in zip(g_row, w_row):
+            try:
+                gf, wf = float(g), float(w)
+            except ValueError:
+                ok &= g == w
+                continue
+            if re.fullmatch(r"-?\d+", w):
+                ok &= g == w
+                continue
+            d = abs(gf - wf) / max(abs(wf), 1.0) if math.isfinite(wf) else (
+                0.0 if gf == wf else math.inf)
+            worst = max(worst, d)
+            ok &= d <= rtol
+    return ok, worst
+
+
+def sl_bench_order():
+    """The registry's order: every bench outside SL_BENCH_SLOW, then those."""
+    return sorted(set(bmk.PINNED) - set(SL_BENCH_SLOW)) + list(SL_BENCH_SLOW)
+
+
+def sl_cpu_bench_rows(path, names):
+    """The CPU f64 runs of the benches `names` (of `DRAWS`) on their own
+    draws, with each run's host seconds, into the JSON file `path`: phase
+    27 runs it in other processes while the card runs the registry,
+    `python3 chip_smoke.py --bench-cpu PATH NAME...`."""
+    torch.set_num_threads(SL_CPU_THREADS)
+    out = {}
+    for name in names:
+        start = time.perf_counter()
+        header, rows = bmk.run_benchmark(name, device="cpu")
+        out[name] = {"header": header, "rows": rows, "cpu_s": time.perf_counter() - start}
+        with open(path + ".tmp", "w") as fh:
+            json.dump(out, fh)
+        os.replace(path + ".tmp", path)
+
+
+def sl_registry_part(card, device, counted):
+    """(a) The pinned registry on the card, f64, in `sl_bench_order()`, the
+    SLOW benches while the registry's host time is under SL_BENCH_BUDGET_S.
+    A deterministic bench's CSV against docs/assets/ through `compare_csv`
+    (headers and rows exact, numerics 1e-6, wall-clock columns ignored); a
+    bench of `DRAWS` on its own draws against its CPU run (integers and
+    words exact, floats within SL_BENCH_RTOL, SL_BENCH_ROUNDING's within
+    SL_BENCH_ROUNDING_RTOL; the CPU runs in SL_CPU_PROCESSES other
+    processes meanwhile, `sl_cpu_bench_rows`) and its JAX test's gate
+    where SL_BENCH_GATES has one."""
+    from rust_robotics_tpu_torch.utils.bench_gate import compare_csv
+
+    out, cut, drawn = {}, [], {}
+    start = time.perf_counter()
+    order = sl_bench_order()
+    drawing = [n for n in order if n in bmk.DRAWS]
+    with tempfile.TemporaryDirectory(prefix="bench_cpu_") as tmp:
+        cpu_paths = [os.path.join(tmp, f"cpu{i}.json") for i in range(SL_CPU_PROCESSES)]
+        cpu_procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--bench-cpu", path,
+             *drawing[i::SL_CPU_PROCESSES]]) for i, path in enumerate(cpu_paths)]
+
+        def cpu_done():
+            done = {}
+            for path in cpu_paths:
+                if os.path.exists(path):
+                    with open(path) as fh:
+                        done.update(json.load(fh))
+            return done
+
+        try:
+            for name in order:
+                if name in SL_BENCH_SLOW and time.perf_counter() - start > SL_BENCH_BUDGET_S:
+                    cut.append(name)
+                    continue
+                short = None
+                if name == "mppi-benchmark":  # the registry's profiled call: two MPPI steps
+                    short = ("2 MPPI steps", lambda: bmk.run_benchmark(
+                        name, device=device, draws=bmk.DRAWS[name][0](
+                            torch.Generator().manual_seed(0))[:2]))
+                got, stats = fam_part(f"{name} f64 on {card}", lambda name=name: bmk.run_benchmark(
+                    name, device=device), counted, short)
+                out[name] = {**stats, "rows": got[1]}
+                if name in bmk.DRAWS:
+                    drawn[name] = got
+                    if name in SL_BENCH_GATES:
+                        r, col, holds = SL_BENCH_GATES[name]
+                        v = got[1][r][got[0].index(col)]
+                        _gate(f"{name}: {col} (the JAX test's gate)", holds(v), v)
+                    continue
+                with open(os.path.join(SL_ASSETS, f"{name}.csv")) as fh:
+                    problems = compare_csv(fh.read(), bmk.csv_text(*got))
+                _gate(f"{name}: the CSV equals docs/assets/{name}.csv (compare_csv, 1e-6)",
+                      not problems, problems or "equal")
+            out["cuda_s"] = time.perf_counter() - start
+            # the CPU runs of the benches not run here are not waited for
+            wait_start = time.perf_counter()
+            while (not all(n in cpu_done() for n in drawn)
+                   and any(p.poll() is None for p in cpu_procs)):
+                time.sleep(0.2)
+            out["cpu_wait_s"] = time.perf_counter() - wait_start
+            cpu = cpu_done()
+        finally:
+            for p in cpu_procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+    differ = []
+    for name, got in drawn.items():
+        want = (cpu[name]["header"], cpu[name]["rows"])
+        rtol = SL_BENCH_ROUNDING_RTOL if name in SL_BENCH_ROUNDING else SL_BENCH_RTOL
+        same, worst = _csv_cells_close(got, want, rtol)
+        out[name].update(cpu_s=cpu[name]["cpu_s"], cuda_cpu_max_rel=worst, cpu_rows=want[1])
+        print(f"{name}: f64 cuda = CPU on its own draws (integers and words exact, floats "
+              f"within {rtol}): max rel diff {worst!r}; cuda {got[1]} CPU {want[1]}")
+        if not same:
+            differ.append(name)
+    if differ:
+        fail(f"the registry's drawing benches {differ}: cuda differs from the CPU")
+    out["cut_for_time"] = cut
+    out["registry_s"] = time.perf_counter() - start
+    print(f"registry: {len(bmk.PINNED) - len(cut)} of {len(bmk.PINNED)} benches in "
+          f"{out['registry_s']!r} s on {card} (waited {out['cpu_wait_s']!r} s for the CPU "
+          f"runs); cut for time: {cut}")
+    return out
+
+
+def _media_ok(path):
+    """tests/test_render_family.py:_run's check of one written file."""
+    if not os.path.exists(path) or os.path.getsize(path) <= 200:
+        return False
+    with open(path, "rb") as fh:
+        head = fh.read(100)
+    return head[:3] == b"GIF" if path.endswith(".gif") else b"<svg" in head
+
+
+def sl_render_part(card, device, counted):
+    """(b) Every render of RENDERS on the card into a temporary directory
+    (GIFs through the native writer), each file passing
+    tests/test_render_family.py's check; render_svg_euroc_vio skips where
+    the reference's fixture is absent."""
+    from rust_robotics_tpu_torch import native
+
+    _gate("native runtime built (GIFs through NativeGifWriter)", native.available(),
+          native.available())
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="renders_") as tmp:
+        for name, fn in rnd.RENDERS.items():
+            path = os.path.join(tmp, name + (".gif" if "gif" in name else ".svg"))
+            short = (("the render", lambda: fn(path, device=device))
+                     if name == "render_svg_path_planning" else None)
+            ret, stats = fam_part(f"{name} on {card}", lambda fn=fn, path=path: fn(
+                path, device=device), counted, short)
+            if ret is None and not os.path.exists(path):
+                print(f"{name}: skipped, source data unavailable")
+                out[name] = {**stats, "skipped": "source data unavailable"}
+                continue
+            _gate(f"{name}: the file passes test_render_family.py's check", _media_ok(path),
+                  os.path.getsize(path) if os.path.exists(path) else "missing")
+            out[name] = {**stats, "bytes": os.path.getsize(path)}
+    return out
+
+
+def sl_gallery_part(card, device, counted):
+    """(c) `build_gallery` on SL_GALLERY in a temporary directory."""
+    with tempfile.TemporaryDirectory(prefix="gallery_") as tmp:
+        index, stats = fam_part(f"build_gallery {SL_GALLERY} on {card}",
+                                lambda: gallery.build_gallery(tmp, names=list(SL_GALLERY),
+                                                              device=device), counted)
+        with open(index) as fh:
+            page = fh.read()
+        media = sorted(os.listdir(os.path.join(tmp, "media")))
+    _gate("gallery: every tile rendered, no FAILED tile",
+          "FAILED" not in page and all(n in page for n in SL_GALLERY) and len(media) == 2, media)
+    return {**stats, "media": media}
+
+
+SL_MAP = "type octile\nheight 4\nwidth 5\nmap\n.....\n..@..\n.TT.G\nSW..O\n"
+SL_SCEN = ("version 1\n0\ta.map\t5\t4\t0\t0\t4\t0\t4.0\n"
+           "1 a.map 5 4 1 1 3 3 2.828427\n")
+SL_G2O = ("VERTEX_SE2 0 0.0 0.0 0.0\nVERTEX_SE2 1 1.0 0.5 0.1\n"
+          "EDGE_SE2 0 1 1.0 0.5 0.1 100 0 0 100 0 25\n"
+          "VERTEX_SE3:QUAT 7 1 2 3 0 0 0 1\n"
+          "EDGE_SE3:QUAT 7 7 0.1 0 0 0 0 0 1 1 0 0 0 0 0 2 0 0 0 0 3 0 0 0 4 0 0 5 0 6\n")
+
+
+def sl_native_part(card):
+    """(d) The native parsers on map, scenario and g2o text equal to the
+    pure-Python ones; the native GIF stream decoded by PIL equal to the
+    frames through the encoder's palette."""
+    from PIL import Image
+
+    from rust_robotics_tpu_torch import native
+    from rust_robotics_tpu_torch.data import moving_ai
+    from rust_robotics_tpu_torch.slam import g2o
+
+    py_map, nat_map = moving_ai._parse_map_py(SL_MAP), moving_ai.parse_map(SL_MAP)
+    same_map = (nat_map.width, nat_map.height) == (py_map.width, py_map.height) and \
+        np.array_equal(nat_map.tiles, py_map.tiles)
+    same_scen = moving_ai.parse_scenarios(SL_SCEN) == moving_ai._parse_scenarios_py(SL_SCEN)
+    py_g, nat_g = g2o._parse_g2o_py(SL_G2O), g2o.parse_g2o(SL_G2O)
+    same_g2o = g2o.write_g2o(nat_g) == g2o.write_g2o(py_g) and all(
+        np.array_equal(nat_g.edges_se3[0][i], py_g.edges_se3[0][i]) for i in range(2, 5))
+    rng = np.random.default_rng(SEED + 27)
+    frames = [rng.integers(0, 256, size=(24, 32, 3), dtype=np.uint8) for _ in range(3)]
+    with tempfile.TemporaryDirectory(prefix="gif_") as tmp:
+        path = os.path.join(tmp, "native.gif")
+        writer = native.NativeGifWriter(path, 32, 24)
+        for fr in frames:
+            writer.add_frame(fr, delay_cs=7)
+        count = writer.close()
+        with Image.open(path) as im:
+            decoded = []
+            for i in range(im.n_frames):
+                im.seek(i)
+                decoded.append(np.asarray(im.convert("RGB")))
+    same_gif = count == 3 and all(np.array_equal(d, native.quantize_rgb_native(f))
+                                  for d, f in zip(decoded, frames))
+    out = {"map": same_map, "scenarios": same_scen, "g2o": same_g2o, "gif": same_gif}
+    _gate(f"native runtime on {card}'s host: parsers = pure Python, GIF = PIL's decoding",
+          all(out.values()), out)
+    return out
+
+
+def sl_scaling_part(card):
+    """(e) The scaling report and the chain weak-scaling sweep on one NCCL
+    rank."""
+    t0 = time.perf_counter()
+    train = scaling.run_scaling_report((1,))
+    chain = scaling.run_chain_weak_scaling((1,), poses_per_device=2048)
+    rows = {"train": train, "chain": chain, "host_s": time.perf_counter() - t0}
+    print(f"scaling report on one NCCL rank of {card}: {json.dumps(rows)}")
+    _gate("scaling rows: one each, finite, efficiency 1", len(train) == len(chain) == 1 and all(
+        math.isfinite(r[k]) for r, k in ((train[0], "loss"), (chain[0], "rmse")))
+        and train[0]["efficiency"] == chain[0]["efficiency"] == 1.0, rows)
+    return rows
+
+
+def slice_phase(card, device, counted):
+    """The pinned registry, the renders, the gallery, the native runtime and
+    the scaling report (phase 27): B2 once per cuda `wavefront_costs` call,
+    every other kernel entry never."""
+    out = {"card": card}
+    FAM_KERNEL_LAUNCHES.clear()
+    FAM_WAVEFRONT_CALLS[0] = 0
+    start = time.perf_counter()
+    with fam_count_wavefront():
+        for name, part in (("registry", sl_registry_part), ("renders", sl_render_part),
+                           ("gallery", sl_gallery_part)):
+            t0 = time.perf_counter()
+            calls = FAM_WAVEFRONT_CALLS[0]
+            out[name] = part(card, device, counted)
+            out[name]["part_s"] = time.perf_counter() - t0
+            out[name]["part_wavefront_costs_calls"] = FAM_WAVEFRONT_CALLS[0] - calls
+            print(f"phase 27, part {name}: {out[name]['part_s']!r} s; "
+                  f"{out[name]['part_wavefront_costs_calls']} wavefront_costs calls on {card}")
+    out["native"] = sl_native_part(card)
+    for k in counted:
+        k.launches = 0
+    out["scaling"] = sl_scaling_part(card)
+    out["scaling"]["kernel_launches"] = {k.__name__: k.launches for k in counted}
+    out["phase_s"] = time.perf_counter() - start
+    out["kernel_launches"] = dict(FAM_KERNEL_LAUNCHES)
+    out["wavefront_costs_calls"] = FAM_WAVEFRONT_CALLS[0]
+    print(f"phase 27: {out['phase_s']!r} s; kernel entries over its parts "
+          f"{out['kernel_launches']} for {out['wavefront_costs_calls']} wavefront_costs calls")
+    others = {n: v for n, v in out["kernel_launches"].items() if n != "wavefront_relax" and v}
+    if (others or out["kernel_launches"]["wavefront_relax"] != out["wavefront_costs_calls"]
+            or any(out["scaling"]["kernel_launches"].values())):
+        fail(f"phase 27: kernel entries {out['kernel_launches']} for "
+             f"{out['wavefront_costs_calls']} wavefront_costs calls; scaling "
+             f"{out['scaling']['kernel_launches']}")
     return out
 
 
@@ -8125,7 +8517,12 @@ def main() -> int:
     family = family_phase(card, device, counted)
     print(json.dumps({"family": family}))
 
-    # 27. the kernels line
+    # 27. the pinned benchmark registry, the renders and the gallery, the
+    # native runtime, the scaling report (B2 on every wavefront_costs call)
+    tools = slice_phase(card, device, counted)
+    print(json.dumps({"tools": tools}))
+
+    # 28. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -8234,6 +8631,13 @@ def main() -> int:
                        "comparison's A* a run)",
         "family_calls": {p: family[p]["part_wavefront_costs_calls"]
                          for p in ("headless", "playground", "dataflow", "speed", "embedded")},
+        "launches_tools": tools["kernel_launches"]["wavefront_relax"],
+        "path_tools": "phase 27: one launch per wavefront_costs call (the benches' grid "
+                      "planners, coverage and value-guided MPPI grid, the renders' path "
+                      "planning, any-angle, frontier and value grid, the gallery's path "
+                      "planning)",
+        "tools_calls": {p: tools[p]["part_wavefront_costs_calls"]
+                        for p in ("registry", "renders", "gallery")},
         "max_abs_err": b2_err,
         "ms": relax_ms,
         "plain_ms": relax_plain_ms,
@@ -8259,11 +8663,14 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 28. the result
+    # 29. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--bench-cpu"]:
+        sl_cpu_bench_rows(sys.argv[2], sys.argv[3:])
+        sys.exit(0)
     sys.exit(main())

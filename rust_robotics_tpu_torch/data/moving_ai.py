@@ -1,10 +1,11 @@
 """MovingAI Lab benchmark format loaders (`.map` / `.scen`).
 
-The port of rust_robotics_tpu/data/moving_ai.py, host Python as the JAX
-package's is. The JAX package parses with its native C++ runtime when that
-is built; the port's native runtime is not ported yet, so the port always
-runs the pure-Python parsers (the JAX package's fallback, whose output its
-tests pin equal to the native one's).
+The port of rust_robotics_tpu/data/moving_ai.py, host code as the JAX
+package's is. `parse_map` and `parse_scenarios` run the port's native C++
+runtime (`rust_robotics_tpu_torch/native`) where it is built, and the
+pure-Python parsers (`_parse_map_py`, `_parse_scenarios_py`, the reference
+semantics) where it is not; tests/test_torch_native_scaling.py holds the
+two equal.
 
 Reference: crates/rust_robotics_planning/src/moving_ai.rs — octile `.map`
 parse (:21-100), passable tiles {'.', 'G', 'S', 'W'} (:108), conversion to
@@ -74,7 +75,17 @@ class MovingAiScenario:
 
 
 def parse_map(text: str) -> MovingAiMap:
-    """Parse a `.map` (pure Python)."""
+    """Parse a `.map`: natively where the host runtime is built, else in
+    pure Python; the two give the same map."""
+    from rust_robotics_tpu_torch import native
+
+    if native.available():
+        width, height, _passable, tiles = native.parse_map_native(text)
+        return MovingAiMap(width=width, height=height, tiles=tiles)
+    return _parse_map_py(text)
+
+
+def _parse_map_py(text: str) -> MovingAiMap:
     lines = [ln.rstrip() for ln in text.splitlines() if ln.strip()]
     if lines[0].strip() != "type octile":
         raise ValueError(f"unsupported MovingAI map type {lines[0]!r}")
@@ -100,7 +111,25 @@ def load_map(path) -> MovingAiMap:
 
 
 def parse_scenarios(text: str) -> list[MovingAiScenario]:
-    """Parse a `.scen` (pure Python)."""
+    """Parse a `.scen`: natively where the host runtime is built, else in
+    pure Python; the two give the same rows."""
+    from rust_robotics_tpu_torch import native
+
+    if native.available():
+        ints, opt, names = native.parse_scenarios_native(text)
+        return [
+            MovingAiScenario(
+                bucket=int(r[0]), map_name=names[i], width=int(r[1]),
+                height=int(r[2]), start_x=int(r[3]), start_y=int(r[4]),
+                goal_x=int(r[5]), goal_y=int(r[6]),
+                optimal_length=float(opt[i]),
+            )
+            for i, r in enumerate(ints)
+        ]
+    return _parse_scenarios_py(text)
+
+
+def _parse_scenarios_py(text: str) -> list[MovingAiScenario]:
     out = []
     for ln in text.splitlines():
         ln = ln.strip()

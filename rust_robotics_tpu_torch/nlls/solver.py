@@ -43,16 +43,21 @@ elimination of the trailing group (sparse.rs:160)).
   PCG runs its full budget of masked steps, whose iterates equal the
   stopping loop's. An iteration reads nothing back; the loop reads `done`
   once every `DONE_READ_EVERY` iterations to stop early, and the summary
-  comes back in one read at the end.
+  comes back in one read at the end. On the card each iteration is one
+  replay of a CUDA graph of the step (`_graphed_step`: the same kernels in
+  the same order, so bitwise the eager step), with the problem's tensors
+  as the graph's inputs, so one graph serves every problem of one shape.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import NamedTuple
 
 import torch
 
+from rust_robotics_tpu_torch._graphs import Graphed
 from rust_robotics_tpu_torch.nlls.problem import FactorBlock, Problem
 from rust_robotics_tpu_torch.nlls.tridiag import TERMINATION_NAMES, full_fp32_matmul
 from rust_robotics_tpu_torch.ops.cholesky import cholesky_solve_blocked
@@ -568,59 +573,116 @@ def device_lm_start(problem: Problem, config: SolverConfig = SolverConfig()):
     device = values[0].device
     if config.linear_solver not in ("dense", "matfree_pcg"):
         raise ValueError(f"solve_device supports dense|matfree_pcg, got {config.linear_solver!r}")
-    matfree = config.linear_solver == "matfree_pcg"
-    lm = config.method == "lm"
-    one = torch.ones((), dtype=torch.int32, device=device)
-
-    def lin_and_solve(vals, damping):
-        if matfree:
-            cache, grad, _, fixed, diag = _linearize_matfree(problem, vals, dtype)
-            delta, iters = _solve_matfree_pcg(problem, cache, grad, fixed, diag, damping, lm,
-                                              config.pcg_max_iterations, config.pcg_tolerance,
-                                              pcg=_pcg_masked)
-        else:
-            h, grad, _, _ = _linearize_dense(problem, vals, dtype)
-            hd = _add_damping(h, damping) if lm else h
-            # solve_ex: no error check, so no read-back; a singular system
-            # gives a non-finite step, which ends the solve as a failure
-            delta = torch.linalg.solve_ex(hd, -grad)[0]
-            iters = one
-        return grad, delta, iters
-
-    @full_fp32_matmul()
-    def step(s: DeviceLMState) -> DeviceLMState:
-        live = ~s.done
-        grad, delta, lin_iters = lin_and_solve(s.values, s.damping)
-        grad_conv = torch.max(torch.abs(grad)) <= config.gradient_tolerance
-        bad = ~torch.all(torch.isfinite(delta))
-        step_conv = torch.linalg.norm(delta) <= config.step_tolerance
-        trial = _apply_increment(problem, s.values, delta)
-        trial_cost = problem_cost(problem, trial)
-        better = trial_cost < s.cost if lm else torch.ones_like(live)
-        accept = live & ~grad_conv & ~step_conv & ~bad & better
-        cost_conv = accept & (torch.abs(s.cost - trial_cost) <= config.cost_tolerance)
-        damping = torch.where(accept, torch.clamp(s.damping * 0.3, min=1e-15),
-                              torch.clamp(s.damping * 10.0, max=1e15))
-        damping = torch.where(grad_conv | step_conv | bad | s.done, s.damping, damping)
-        term = torch.where(grad_conv, 1, torch.where(bad, 4, torch.where(
-            step_conv, 2, torch.where(cost_conv, 3, 0)))).to(torch.int32)
-        return DeviceLMState(
-            tuple(torch.where(accept, t, v) for t, v in zip(trial, s.values)),
-            damping,
-            torch.where(accept, trial_cost, s.cost),
-            s.it + live.to(torch.int32),
-            s.accepted + accept.to(torch.int32),
-            s.linear + torch.where(live, lin_iters, 0).to(torch.int32),
-            torch.where(live, term, s.term),
-            s.done | grad_conv | step_conv | cost_conv | bad)
-
     zero = torch.zeros((), dtype=torch.int32, device=device)
     cost = torch.as_tensor(problem_cost(problem, values), dtype=dtype, device=device)
     state = DeviceLMState(values, torch.full((), config.initial_damping, dtype=dtype,
                                              device=device),
                           cost, zero, zero, zero, zero,
                           torch.zeros((), dtype=torch.bool, device=device))
-    return state, step
+    return state, lambda s: _lm_step(problem, config, s)
+
+
+@full_fp32_matmul()
+def _lm_step(problem: Problem, config: SolverConfig, s: DeviceLMState) -> DeviceLMState:
+    """One iteration of the device-resident LM on `problem` from state `s`."""
+    dtype = s.cost.dtype
+    matfree = config.linear_solver == "matfree_pcg"
+    lm = config.method == "lm"
+    live = ~s.done
+    if matfree:
+        cache, grad, _, fixed, diag = _linearize_matfree(problem, s.values, dtype)
+        delta, lin_iters = _solve_matfree_pcg(problem, cache, grad, fixed, diag, s.damping, lm,
+                                              config.pcg_max_iterations, config.pcg_tolerance,
+                                              pcg=_pcg_masked)
+    else:
+        h, grad, _, _ = _linearize_dense(problem, s.values, dtype)
+        hd = _add_damping(h, s.damping) if lm else h
+        # solve_ex: no error check, so no read-back; a singular system
+        # gives a non-finite step, which ends the solve as a failure
+        delta = torch.linalg.solve_ex(hd, -grad)[0]
+        lin_iters = torch.ones((), dtype=torch.int32, device=s.cost.device)
+    grad_conv = torch.max(torch.abs(grad)) <= config.gradient_tolerance
+    bad = ~torch.all(torch.isfinite(delta))
+    step_conv = torch.linalg.norm(delta) <= config.step_tolerance
+    trial = _apply_increment(problem, s.values, delta)
+    trial_cost = problem_cost(problem, trial)
+    better = trial_cost < s.cost if lm else torch.ones_like(live)
+    accept = live & ~grad_conv & ~step_conv & ~bad & better
+    cost_conv = accept & (torch.abs(s.cost - trial_cost) <= config.cost_tolerance)
+    damping = torch.where(accept, torch.clamp(s.damping * 0.3, min=1e-15),
+                          torch.clamp(s.damping * 10.0, max=1e15))
+    damping = torch.where(grad_conv | step_conv | bad | s.done, s.damping, damping)
+    term = torch.where(grad_conv, 1, torch.where(bad, 4, torch.where(
+        step_conv, 2, torch.where(cost_conv, 3, 0)))).to(torch.int32)
+    return DeviceLMState(
+        tuple(torch.where(accept, t, v) for t, v in zip(trial, s.values)),
+        damping,
+        torch.where(accept, trial_cost, s.cost),
+        s.it + live.to(torch.int32),
+        s.accepted + accept.to(torch.int32),
+        s.linear + torch.where(live, lin_iters, 0).to(torch.int32),
+        torch.where(live, term, s.term),
+        s.done | grad_conv | step_conv | cost_conv | bad)
+
+
+# the CUDA graphs of `_lm_step`, least recently used first
+_STEPS = collections.OrderedDict()
+STEPS_KEPT = 4
+
+
+def _meta(t):
+    return None if t is None else (t.shape, t.dtype, t.device)
+
+
+def _graphed_step(problem: Problem, config: SolverConfig, state: DeviceLMState):
+    """`_lm_step(problem, config, ·)` as one replay of a CUDA graph. The
+    graph's inputs are the state and the problem's tensors (each group's
+    fixed mask; each factor's indices, measurement and information), so
+    the graph of one key serves every problem of that structure: the
+    config, the groups' and factors' functions and names, and the shapes,
+    dtypes and devices of their tensors. The last STEPS_KEPT keys' graphs
+    are kept. Returns step(state) -> state, whose result is the graph's
+    output, rewritten by the next replay; `step.graph` is the `Graphed`."""
+    groups = [dataclasses.replace(g, fixed_mask=g.fixed()) for g in problem.groups]
+    data = [g.fixed_mask for g in groups]
+    for f in problem.factors:
+        data += [t for t in (f.indices, f.measurement, f.information) if t is not None]
+    key = (config,
+           *((g.name, g.retract, g.tangent_dim, _meta(g.values), _meta(g.fixed_mask))
+             for g in groups),
+           *((f.name, f.residual, tuple(f.groups), f.robust, _meta(f.indices),
+              _meta(f.measurement), _meta(f.information)) for f in problem.factors))
+    n_values = len(state.values)
+
+    def rebuild(tensors):
+        """The problem with `tensors` (laid out as `data`) as its data."""
+        it = iter(tensors)
+        gs = tuple(dataclasses.replace(g, fixed_mask=next(it)) for g in groups)
+        fs = tuple(dataclasses.replace(
+            f, indices=next(it),
+            measurement=None if f.measurement is None else next(it),
+            information=None if f.information is None else next(it))
+            for f in problem.factors)
+        return Problem(gs, fs)
+
+    def flat_step(*args):
+        s = DeviceLMState(tuple(args[:n_values]), *args[n_values:n_values + 7])
+        out = _lm_step(rebuild(args[n_values + 7:]), config, s)
+        return (*out.values, *out[1:])
+
+    graph = _STEPS.pop(key, None)
+    if graph is None:
+        graph = Graphed(flat_step, *state.values, *state[1:], *data)
+    _STEPS[key] = graph
+    while len(_STEPS) > STEPS_KEPT:
+        _STEPS.popitem(last=False)
+
+    def step(s: DeviceLMState) -> DeviceLMState:
+        out = graph(*s.values, *s[1:], *data)
+        return DeviceLMState(tuple(out[:n_values]), *out[n_values:])
+
+    step.graph = graph
+    return step
 
 
 def solve_device(problem: Problem, config: SolverConfig = SolverConfig()):
@@ -641,6 +703,8 @@ def solve_device(problem: Problem, config: SolverConfig = SolverConfig()):
         c = float(problem_cost(problem, values))
         return problem, SolverSummary(c, c, 0, 0, "gradient_converged", 0)
     first, step = device_lm_start(problem, config)
+    if first.cost.is_cuda:
+        step = _graphed_step(problem, config, first)
     state = first
     for k in range(config.max_iterations):
         if k and k % DONE_READ_EVERY == 0 and bool(state.done):
@@ -650,5 +714,7 @@ def solve_device(problem: Problem, config: SolverConfig = SolverConfig()):
                            state.accepted.double(), state.linear.double(),
                            state.term.double()]).cpu().tolist()
     cost0, cost, it, accepted, linear, term = summary
-    return problem.with_values(state.values), SolverSummary(
+    # a graph's outputs are rewritten by its next replay: keep copies
+    values = tuple(v.clone() for v in state.values) if first.cost.is_cuda else state.values
+    return problem.with_values(values), SolverSummary(
         cost0, cost, int(it), int(accepted), TERMINATION_NAMES[int(term)], int(linear))

@@ -4,7 +4,8 @@ Each source becomes a shared library with a plain C interface, loaded with
 ctypes; no source includes PyTorch's headers, so a build takes seconds. The
 libraries go to `rust_robotics_tpu_torch/_build/`, named by a hash of the
 sources and flags, so an unchanged source is not rebuilt. `build` starts one
-nvcc per source, all at once.
+nvcc per source, all at once. `build_host` builds a C++ host source (the
+native runtime, `native/host_runtime.cpp`) with g++ the same way.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ NVCC_FLAGS = (
 # The shared memory one block may use on sm_90 (227 KB, after
 # cudaFuncSetAttribute), the build's one target: what a kernel may hold there.
 SHARED_BYTES_PER_BLOCK = 232448
+
+# g++ flags of the host runtime (the JAX package's native/__init__.py:52-55).
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fvisibility=hidden")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -110,3 +114,30 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             fn.restype = restype
         _loaded[name] = lib
     return lib
+
+
+def build_host(source: Path) -> Path:
+    """The shared library of the C++ host source `source`, built by g++
+    into `_build/` unless a library of the same source and flags is there.
+    Raises with the compiler's output if the build fails."""
+    source = Path(source)
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    digest.update(source.read_bytes())
+    out = BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found on PATH; cannot build the host runtime")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        proc = subprocess.run([cxx, *HOST_FLAGS, str(source), "-o", str(tmp)],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"host build of {source.name} failed (exit "
+                               f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return out

@@ -24,10 +24,11 @@ import torch.distributed as dist
 from rust_robotics_tpu_torch.parallel import mesh as pmesh
 
 
-def _join(init_method: str, num_processes: int, process_id: int):
-    """Join the gloo group of `num_processes` ranks as rank `process_id`."""
+def _join(init_method: str, num_processes: int, process_id: int, device_type: str = "cpu"):
+    """Join the group of `num_processes` ranks as rank `process_id`: gloo
+    on the CPU, NCCL with `device_type="cuda"` (a rank a card)."""
     store, _, _ = next(dist.rendezvous(init_method, process_id, num_processes))
-    pmesh.init_process_group(process_id, num_processes, store, device_type="cpu")
+    pmesh.init_process_group(process_id, num_processes, store, device_type=device_type)
 
 
 def run_worker(init_method: str, num_processes: int, process_id: int, batch_per_proc: int = 4,

@@ -4,11 +4,11 @@ The port of rust_robotics_tpu/slam/g2o.py. Reference: slam/src/g2o.rs —
 parses and writes VERTEX_SE2, EDGE_SE2, VERTEX_SE3:QUAT and EDGE_SE3:QUAT
 with upper-triangular information serialisation (:48, :137, :219-250).
 
-This is the port's own copy of the pure-Python path (numpy on the host;
-the graph goes to the device through `se2_arrays` and `convert.py`). The
-JAX package's `parse_g2o` prefers a native C++ parser in its `native/`
-host runtime when one is built; that runtime is not ported yet (ROADMAP
-A17), and the two parsers give the same graph.
+Host code (numpy; the graph goes to the device through `se2_arrays` and
+`convert.py`). `parse_g2o` runs the port's native C++ parser
+(`rust_robotics_tpu_torch/native`) where it is built, as the JAX
+package's does, and the pure-Python path (`_parse_g2o_py`, the reference
+semantics) where it is not; the two give the same graph.
 """
 
 from __future__ import annotations
@@ -43,7 +43,33 @@ def _upper_values(m):
 
 
 def parse_g2o(text: str) -> G2oGraph:
-    """Parse g2o text; a malformed record raises ValueError with its line."""
+    """Parse g2o text, natively where the host runtime is built; a
+    malformed record raises ValueError."""
+    from rust_robotics_tpu_torch import native
+
+    if native.available():
+        r = native.parse_g2o_native(text)
+        return G2oGraph(
+            vertices_se2={int(i): p for i, p in zip(r["v2_ids"], r["v2_pose"])},
+            edges_se2=[
+                (int(ij[0]), int(ij[1]), m, info)
+                for ij, m, info in zip(r["e2_idx"], r["e2_meas"], r["e2_info"])
+            ],
+            vertices_se3={
+                int(i): (p[:3].copy(), p[3:].copy())
+                for i, p in zip(r["v3_ids"], r["v3_pose"])
+            },
+            edges_se3=[
+                (int(ij[0]), int(ij[1]), m[:3].copy(), m[3:].copy(), info)
+                for ij, m, info in zip(r["e3_idx"], r["e3_meas"], r["e3_info"])
+            ],
+        )
+    return _parse_g2o_py(text)
+
+
+def _parse_g2o_py(text: str) -> G2oGraph:
+    """The pure-Python parser; a malformed record raises ValueError with
+    its line."""
     g = G2oGraph({}, [], {}, [])
     for ln_no, ln in enumerate(text.splitlines(), 1):
         parts = ln.split()

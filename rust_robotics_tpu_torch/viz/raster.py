@@ -9,10 +9,10 @@ draw_path_xy / draw_points_xy / draw_ellipse / draw_robot / draw_grid, and
 SVG export helpers.
 
 Rendering is presentation, not compute: the rasterizer is host-side NumPy
-(vectorized line/ellipse stamping), and GIF and PNG encoding use PIL,
-imported by the function that encodes. The JAX package's recorder streams
-through its native C++ encoder where one is built; the port has no native
-encoder yet, so it always takes the buffered PIL path.
+(vectorized line/ellipse stamping). `GifRecorder` streams through the
+port's native C++ encoder (`rust_robotics_tpu_torch/native`) where it is
+built, as the JAX package's does, and buffers frames for PIL where it is
+not; PNG encoding uses PIL, imported by the function that encodes.
 """
 
 from __future__ import annotations
@@ -126,25 +126,44 @@ class Frame:
 
 
 class GifRecorder:
-    """Animated-GIF writer (gif_recorder.rs GifRecorder): frames are
-    palette-quantized and buffered, and `finish` encodes them with PIL."""
+    """Streaming animated-GIF writer (gif_recorder.rs GifRecorder).
+
+    Uses the native C++ encoder where it is built — frames hit the file as
+    they arrive, as in the reference's dependency-free recorder — and
+    otherwise palette-quantizes and buffers frames for PIL to encode in
+    `finish`."""
 
     def __init__(self, path, cfg: CanvasConfig):
+        from rust_robotics_tpu_torch import native
+
         self.path = str(path)
         self.cfg = cfg
         self._frames = []
         self._durations = []
+        self._native = None
+        if native.available():
+            self._native = native.NativeGifWriter(self.path, cfg.width,
+                                                  cfg.height)
 
     def add_frame(self, frame: Frame):
         self.add_frame_with_delay(frame, self.cfg.delay_cs)
 
     def add_frame_with_delay(self, frame: Frame, delay_cs: int):
+        if self._native is not None:
+            self._native.add_frame(frame.rgb, delay_cs)
+            return
         from PIL import Image
 
         self._frames.append(Image.fromarray(frame.rgb).quantize(colors=64))
         self._durations.append(delay_cs * 10)  # cs -> ms
 
     def finish(self):
+        if self._native is not None:
+            frames = self._native.close()
+            self._native = None
+            if frames == 0:
+                raise ValueError("no frames recorded")
+            return self.path
         if not self._frames:
             raise ValueError("no frames recorded")
         self._frames[0].save(

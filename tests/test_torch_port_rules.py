@@ -67,7 +67,8 @@ def test_rule_scan_sees_what_it_must():
         f"experiments/{m}.py" for m in ("__init__", "path_tracking", "drone_quality",
                                         "ukf_ckf_accuracy", "point_cloud_sampling")} | {
         f"demos/{m}.py" for m in ("headless_family", "playground", "dataflow",
-                                  "speed_comparison", "embedded_demo")}
+                                  "speed_comparison", "embedded_demo", "benchmarks",
+                                  "scaling_report", "render", "gallery")} | {"native/__init__.py"}
 
 
 def _string_constants(tree):
@@ -428,3 +429,37 @@ def test_distributed_entry_points_need_nccl_unless_asked_for_the_cpu():
         assert pmesh.mesh_device(mesh).type == "cpu"
     finally:
         dist.destroy_process_group()
+
+
+def test_slice_14_entry_points_need_a_card_unless_asked_for_the_cpu(tmp_path):
+    """The pinned registry, every render, the gallery and the scaling
+    report run on the card by default: without one they raise; with
+    device="cpu" (device_type="cpu") they run. `run_all` and `gallery.main`
+    have no default output directory."""
+    import inspect
+
+    from rust_robotics_tpu_torch.demos import benchmarks, gallery, render, scaling_report
+
+    assets = str(ROOT / "docs" / "assets")
+    calls = {
+        "run_benchmark": lambda **kw: benchmarks.run_benchmark("racing-motor-benchmark", **kw),
+        "check_gate": lambda **kw: benchmarks.check_gate(
+            assets, names=["racing-motor-benchmark"], **kw),
+        "build_gallery": lambda **kw: gallery.build_gallery(
+            str(tmp_path / "g"), names=["render_svg_dubins"], **kw),
+        **{name: lambda name=name, **kw: render.RENDERS[name](str(tmp_path / name), **kw)
+           for name in render.RENDERS},
+    }
+    if not torch.cuda.is_available():
+        for name, call in calls.items():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        for call in (scaling_report.run_scaling_report, scaling_report.run_chain_weak_scaling):
+            with pytest.raises(RuntimeError, match="device_type='cpu'"):
+                call((1,))
+    header, rows = calls["run_benchmark"](device="cpu")
+    assert header[0] == "steps" and rows[0][0] == "100"
+    assert calls["check_gate"](device="cpu") == (True, [])
+    assert calls["render_svg_dubins"](device="cpu") is not None
+    for fn, arg in ((benchmarks.run_all, "outdir"), (gallery.main, "outdir")):
+        assert inspect.signature(fn).parameters[arg].default is inspect.Parameter.empty
