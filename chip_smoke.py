@@ -42,7 +42,11 @@ any failure exits non-zero before the final line.
     on the CPU;
 11. the resampling kernel (B3) against its twin: B=8192 x P=1024 and
     B=2048 x P=4096 in f32, a ragged B=4099 in f64, all mass on one
-    particle, and the P=1280 ValueError;
+    particle, and the P=1280 ValueError; then each branch of its launch
+    plan (rows not 16-byte aligned at P=1001 f32, P=1000 f64, f64 rows
+    too large for a block at D=8 P=4096, CDFs flat across runs of
+    zero-weight particles, B=1) and ptxas's registers, shared memory and
+    spills of its six instances (a spill fails);
 12. the particle-filter main path at full width: a fleet of B=8192 filters
     x P=1024 particles (and B=2048 x P=4096) for 20 steps of predict,
     range update, `resample_if_needed_fused` and estimate, counted; then 3
@@ -66,8 +70,9 @@ any failure exits non-zero before the final line.
     each grid call (one B2 launch), one PF step and one BA iteration
     (device busy and idle share, top device consumers), and of one B4
     factorisation, which must be one kernel launch; B3's own device time at
-    bench.py's pinned shape (B=256, P=1024) from the profiler, beside the
-    CUDA events around its wrapper; ptxas's registers and spills of B2's
+    bench.py's pinned shape (B=256, P=1024) from the profiler, with its
+    inputs warm in L2 and cold (a 64 MB buffer zeroed between calls), beside
+    the CUDA events around its wrapper; ptxas's registers and spills of B2's
     bodies (the register body must not spill);
 15. bench.py's four pose-graph workloads (bench.py:113-117; no kernel on
     their path), f32 on cuda, LM at most 25 iterations, tolerance 1e-8: the
@@ -591,6 +596,23 @@ RESAMPLE_IDX_OFF_LIMIT = 1e-3  # share of draws whose index may differ (f32)
 # may lie: the two f32 prefix sums of up to 4096 terms differ by their
 # summation order, a few units of 2^-24 times sqrt(P)
 RESAMPLE_CDF_ATOL = 1e-5
+# B3's branches (ops/resample.py::_launch_plan) beyond the shapes above:
+# (branch, B, P, D, dtype, f64 indices exact, zero-weight runs). Rows that
+# are not 16-byte aligned (cp.async staging); P=1000 in f64, held to the f32
+# boundary rule because the twin's `/ P` on cuda multiplies by the
+# reciprocal (ROADMAP C9); f64 rows too large for a block (states gathered
+# from global memory); CDFs flat across runs of zero-weight particles, which
+# the walking search crosses; one row.
+RESAMPLE_BRANCHES = (
+    ("copied", 512, 1001, RESAMPLE_D, torch.float32, False, False),
+    ("staged", 512, 1000, RESAMPLE_D, torch.float64, False, False),
+    ("direct", 128, 4096, 8, torch.float64, True, False),
+    ("staged", 2048, 1024, RESAMPLE_D, torch.float32, False, True),
+    ("staged", 512, 1024, RESAMPLE_D, torch.float64, True, True),
+    ("staged", 1, 1024, RESAMPLE_D, torch.float32, False, False),
+)
+RESAMPLE_ZERO_RUNS = (4, 16, 300)  # zero-weight runs a row; their least and largest length
+RESAMPLE_FLUSH_BYTES = 64 << 20  # zeroed between cold calls: more than the 50 MB L2
 
 # demos/benchmarks.py:245-271 (bench_particle_filter), for a fleet of filters
 PF_LANDMARKS = ((10.0, 0.0), (10.0, 10.0), (0.0, 15.0), (-5.0, 20.0))
@@ -888,13 +910,20 @@ def wavefront_bound(updates, cells, ndirs, peaks):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def resample_inputs(rng, b, p, d, dtype, device):
+def resample_inputs(rng, b, p, d, dtype, device, zero_runs=False):
     """bench.py:190-196 from a numpy seed: weights uniform + 1e-6, one
-    uniform per row, normal states [B, D, P]."""
+    uniform per row, normal states [B, D, P]; with `zero_runs`, each row's
+    weights then set to 0 over RESAMPLE_ZERO_RUNS' runs."""
     npdt = np.float32 if dtype == torch.float32 else np.float64
     w = rng.uniform(size=(b, p)).astype(npdt) + npdt(1e-6)
     u = rng.uniform(size=(b,)).astype(npdt)
     s = rng.standard_normal((b, d, p), dtype=npdt)
+    if zero_runs:
+        count, shortest, longest = RESAMPLE_ZERO_RUNS
+        for row in w:
+            for n in rng.integers(shortest, longest + 1, size=count):
+                start = rng.integers(0, p - n + 1)
+                row[start:start + n] = 0
     return tuple(torch.from_numpy(a).to(device) for a in (w, u, s))
 
 
@@ -945,6 +974,54 @@ def check_resample(label, args, exact_idx):
           f"largest |CDF boundary - position| crossed {gap!r}")
     return {"neff_rtol": neff_err, "max_abs_err": float((got_n - want_n).abs().max()),
             "idx_differ_share": share, "idx_max_abs_diff": worst, "cdf_gap_crossed": gap}
+
+
+def resample_branch_checks(device):
+    """B3 on each branch of its launch plan (RESAMPLE_BRANCHES): the plan
+    must pick the branch named, and `check_resample`'s gates hold. Returns
+    {label: check_resample's result and the plan}."""
+    from rust_robotics_tpu_torch.ops.resample import COPIED, DIRECT, STAGED, _launch_plan
+
+    modes = {"staged": STAGED, "copied": COPIED, "direct": DIRECT}
+    rng = np.random.default_rng(SEED + 5)
+    out = {}
+    for branch, b, p, d, dtype, exact, flat in RESAMPLE_BRANCHES:
+        args = resample_inputs(rng, b, p, d, dtype, device, zero_runs=flat)
+        plan = _launch_plan(p, d, dtype, not (args[0].data_ptr() | args[2].data_ptr()) & 15)
+        label = (f"resample {branch}{' flat CDF' if flat else ''} "
+                 f"{'f32' if dtype == torch.float32 else 'f64'} B={b} P={p} D={d}")
+        if plan.mode != modes[branch]:
+            fail(f"{label}: the launch plan took another branch: {plan}")
+        out[label] = {**check_resample(label, args, exact), "plan": plan._asdict()}
+    return out
+
+
+def resample_ptxas():
+    """ptxas's registers, shared memory and spills of B3's six instances
+    (f32 and f64 x staged, copied, direct); fails on a spill."""
+    branches = {"0": "staged", "1": "copied", "2": "direct"}
+    report = {}
+    for entry, res in ptxas_report("resample").items():
+        found = re.search(r"resample_kernelI([fd])Li(\d)E", entry)
+        if found:
+            report[f"{'f32' if found[1] == 'f' else 'f64'} {branches[found[2]]}"] = res
+    print(f"ptxas resample: {report}")
+    if len(report) != 6:
+        fail(f"ptxas reported {len(report)} of B3's six instances")
+    spilled = {k: v for k, v in report.items() if v.get("spill_stores") or v.get("spill_loads")}
+    if spilled:
+        fail(f"B3's kernel spills: {spilled}")
+    return report
+
+
+def resample_cold_ms(args, flush):
+    """B3's own device time (`kernel_device_ms`) with its inputs out of L2:
+    `flush` is zeroed before each call; only the kernel's events count."""
+    def cold():
+        flush.zero_()
+        systematic_resample_gather(*args)
+
+    return kernel_device_ms(cold, "resample_kernel")
 
 
 def resample_bound(b, p, d, dtype, peaks):
@@ -8244,6 +8321,10 @@ def main() -> int:
     else:
         fail("resample at P=1280 did not raise ValueError")
     del args, w, states
+    start = time.perf_counter()
+    b3_branches = resample_branch_checks(device)
+    b3_ptxas = resample_ptxas()
+    b3_added_s = time.perf_counter() - start
 
     # 12. the particle-filter main path at full width, counted
     pf_launches = {}
@@ -8433,12 +8514,19 @@ def main() -> int:
                                   torch.float32, device)
     b3_pinned_profiler = kernel_device_ms(lambda: systematic_resample_gather(*pinned_args),
                                           "resample_kernel")
+    start = time.perf_counter()
+    flush = torch.empty(RESAMPLE_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    b3_pinned_cold = resample_cold_ms(pinned_args, flush)
+    b3_added_s += time.perf_counter() - start
     print(f"resample pinned B={pb} P={pp} D={RESAMPLE_D} f32 on {card}: the kernel's own device "
           f"time (profiler) min {b3_pinned_profiler['min_ms']!r} ms, mean "
-          f"{b3_pinned_profiler['mean_ms']!r} ms over {b3_pinned_profiler['launches']} launches; "
+          f"{b3_pinned_profiler['mean_ms']!r} ms over {b3_pinned_profiler['launches']} launches "
+          f"(inputs warm in L2); cold (a {RESAMPLE_FLUSH_BYTES >> 20} MB buffer zeroed between "
+          f"calls) min {b3_pinned_cold['min_ms']!r} ms, mean {b3_pinned_cold['mean_ms']!r} ms; "
           f"CUDA events around the wrapper {b3_times['pinned']['ms']!r} ms; bound "
           f"{b3_times['pinned']['bound_ms']!r} ms")
-    del pinned_args
+    print(f"resample: the branch checks, ptxas report and cold pinned timing took {b3_added_s!r} s")
+    del pinned_args, flush
     b4_events = device_breakdown("B4, one factorisation of the BA's retained system (n = 1200, f32)",
                                  lambda: cholesky_blocked(ba_state["s"]))["names"]
     print(f"B4 kernel launches per factorisation (profiler): {len(b4_events)} {b4_events}")
@@ -8547,7 +8635,11 @@ def main() -> int:
         **({"pinned": {"shape": {"B": RESAMPLE_SHAPES["pinned"][0], "P": 1024},
                        "events_ms": b3_times["pinned"]["ms"],
                        "profiler_kernel_ms": b3_pinned_profiler,
+                       "profiler_kernel_cold_ms": b3_pinned_cold,
                        "bound_ms": b3_times["pinned"]["bound_ms"]}} if rp == 1024 else {}),
+        "branches": b3_branches,
+        "ptxas": b3_ptxas,
+        "checks_added_s": b3_added_s,
         "card": card,
     } for key, rp, replaces in (
         ("saturated", 1024, "rust_robotics_tpu/ops/resample_pallas.py:109"),
@@ -8669,7 +8761,42 @@ def main() -> int:
     return 0
 
 
+def resample_times():
+    """`python3 chip_smoke.py --resample-times`: B3 alone at bench.py's three
+    f32 shapes, to compare two trees on one card (run it from each tree's
+    root, in turns; it calls only the entry, so it measures any tree's
+    kernel): CUDA events around the wrapper (min over 5 bursts of 20 calls),
+    then the kernel's own device time by the profiler (min and mean of 20
+    launches), at the pinned shape also with its inputs cold. Prints the
+    card and one JSON line."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {smi}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false; this script needs a CUDA card")
+    device = torch.device("cuda", 0)
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    print(f"build: {_build.build(['resample'])}")
+    rng = np.random.default_rng(SEED + 2)
+    inputs = {key: resample_inputs(rng, rb, rp, RESAMPLE_D, torch.float32, device)
+              for key, (rb, rp) in RESAMPLE_SHAPES.items()}
+    out = {}
+    for key, args in inputs.items():  # events first: the profiler slows what follows it
+        out[key] = {"events_ms": time_ms(lambda: systematic_resample_gather(*args), 20, 5),
+                    "bound_ms": resample_bound(*RESAMPLE_SHAPES[key], RESAMPLE_D, torch.float32,
+                                               peaks)[0][0]}
+    for key, args in inputs.items():
+        out[key]["kernel"] = kernel_device_ms(lambda: systematic_resample_gather(*args),
+                                              "resample_kernel")
+    flush = torch.empty(RESAMPLE_FLUSH_BYTES, dtype=torch.uint8, device=device)
+    out["pinned"]["kernel_cold"] = resample_cold_ms(inputs["pinned"], flush)
+    print(json.dumps({"resample_times": out, "card": smi, "root": os.getcwd()}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resample-times"]:
+        sys.exit(resample_times())
     if sys.argv[1:2] == ["--bench-cpu"]:
         sl_cpu_bench_rows(sys.argv[2], sys.argv[3:])
         sys.exit(0)

@@ -6,11 +6,16 @@ resamples B independent particle filters: weights [B, P] (unnormalised),
 one stratified uniform per row u [B], states [B, D, P] -> (new states
 [B, D, P], parent indices [B, P] int32, N_eff [B]).
 
-- On CUDA tensors it launches the hand-written kernel `csrc/resample.cu`
-  (one block per row: block reductions, a block scan for the CDF, a binary
-  search per output slot, a direct gather), or raises. The JAX package's
-  two Pallas kernels (P <= 1024, and P > 1024 in 512-wide tiles) become
-  this one kernel.
+- On CUDA tensors it launches the hand-written kernel `csrc/resample.cu`,
+  or raises: one block per row stages the row's weights and states into
+  shared memory (TMA bulk copies, or cp.async where rows are not 16-byte
+  aligned) and builds the CDF by a register scan while the states land;
+  each particle then marks the first slot past its CDF value, a running
+  maximum over the marks gives every slot's index, and the states are
+  gathered from shared memory. Rows too large for a block's shared memory
+  gather from global memory. `_launch_plan` picks the block size and the
+  branch. The JAX package's two Pallas kernels (P <= 1024, and P > 1024 in
+  512-wide tiles) become this one kernel.
 - On CPU tensors it runs `systematic_resample_gather_plain`, the twin:
   sum, N_eff, cumsum, searchsorted and gather in plain PyTorch.
 - `resample_reference` is the same function through the particle filter's
@@ -24,6 +29,8 @@ of 512, or it raises `ValueError`, so both packages take the same inputs.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,35 +38,89 @@ from rust_robotics_tpu_torch.ops import _build
 
 _TILE_P = 512  # the JAX entry's tile: P > 1024 must be a multiple of it
 
-_P = ctypes.c_void_p
-_SIGNATURE = ([_P] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P], ctypes.c_int)
+_I = ctypes.c_int
+_SIGNATURE = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [_I] * 8 + [ctypes.c_void_p], _I)
 _KERNELS = {torch.float32: "resample_f32", torch.float64: "resample_f64"}
+_SIGNATURES = {name: _SIGNATURE for name in _KERNELS.values()}
+
+# The kernel's branches (csrc/resample.cu `Mode`)
+STAGED, COPIED, DIRECT = 0, 1, 2
+MAX_THREADS = 512  # a block at most: two rows of P = 4096 share an SM
+RUN = 4  # elements a thread owns at least: one 16-byte vector of f32
+# static shared memory beside the dynamic part: two mbarriers and three
+# arrays of 32 warp totals (656 B in f64), rounded up
+STATIC_SHARED_BYTES = 1024
+
+
+class LaunchPlan(NamedTuple):
+    threads: int  # per block, a multiple of 32
+    run: int  # contiguous elements and output slots a thread owns
+    mode: int  # STAGED, COPIED or DIRECT
+    shared_bytes: int  # dynamic shared memory a block
+    vector_stores: bool  # 16-byte stores of idx
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(p, d, dtype, aligned=True):
+    """The kernel's launch for rows of P particles with D state channels of
+    `dtype`, one block a row; `aligned`: the weights' and states' pointers
+    are 16-byte aligned. Raises ValueError where a row's weights exceed a
+    block's shared memory.
+
+    - threads: P/4 rounded up to a warp, at most 512, so a thread owns a
+      run of 4 (P <= 2048) or more (8 at P = 4096, where two blocks of 96 KB
+      share an SM), a multiple of 4;
+    - STAGED (TMA bulk copies) where the weights, the int32 marks and the
+      states fit in shared memory and every row starts 16-byte aligned,
+      COPIED (cp.async of 4 or 8 bytes) where they fit but do not align
+      (P = 1001 f32), DIRECT (the marks in the idx output, the states
+      gathered from global memory) where they do not fit (f64 at D=8,
+      P=4096: 304 KB);
+    - 16-byte stores of idx where rows are 16-byte aligned."""
+    size = torch.empty((), dtype=dtype).element_size()
+    weight_bytes = -(-p * size // 16) * 16
+    room = _build.SHARED_BYTES_PER_BLOCK - STATIC_SHARED_BYTES
+    if weight_bytes > room:
+        raise ValueError(f"P={p} {dtype} weights exceed one block's shared memory")
+    threads = min(MAX_THREADS, max(-(-p // (32 * RUN)), 1) * 32)
+    run = max(-(-p // (threads * RUN)), 1) * RUN
+    rows_align = aligned and p * size % 16 == 0
+    staged_bytes = weight_bytes + -(-p * 4 // 16) * 16 + d * p * size  # weights, marks, states
+    if staged_bytes > room:
+        return LaunchPlan(threads, run, DIRECT, weight_bytes, rows_align)
+    return LaunchPlan(threads, run, STAGED if rows_align else COPIED, staged_bytes, rows_align)
+
+
+@functools.cache
+def _launcher(dtype):
+    return getattr(_build.load("resample", _SIGNATURES), _KERNELS[dtype])
 
 
 def _check(weights, u, states):
     """Validate the operands; returns (B, P, D)."""
-    tensors = {"weights": weights, "u": u, "states": states}
-    for name, x in tensors.items():
+    tensors = (("weights", weights), ("u", u), ("states", states))
+    for name, x in tensors:
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(x).__name__}")
     if weights.ndim != 2:
         raise ValueError(f"weights must be [B, P], got {tuple(weights.shape)}")
     b, p = weights.shape
-    if tuple(u.shape) != (b,):
+    if u.shape != (b,):
         raise ValueError(f"u must be [{b}], got {tuple(u.shape)}")
     if states.ndim != 3 or states.shape[0] != b or states.shape[2] != p:
         raise ValueError(f"states must be [{b}, D, {p}], got {tuple(states.shape)}")
     if p > 1024 and p % _TILE_P:
         raise ValueError(f"tiled resample needs P % {_TILE_P} == 0, got {p}")
-    if len({x.dtype for x in tensors.values()}) != 1:
-        raise TypeError(f"mixed dtypes: { {k: x.dtype for k, x in tensors.items()} }")
-    if weights.dtype not in _KERNELS:
-        raise TypeError(f"dtype must be float32 or float64, got {weights.dtype}")
-    if len({x.device for x in tensors.values()}) != 1:
-        raise ValueError(f"mixed devices: { {k: str(x.device) for k, x in tensors.items()} }")
-    for name, x in tensors.items():
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    dtype, device = weights.dtype, weights.device
+    if u.dtype != dtype or states.dtype != dtype:
+        raise TypeError(f"mixed dtypes: { {k: x.dtype for k, x in tensors} }")
+    if dtype not in _KERNELS:
+        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    if u.device != device or states.device != device:
+        raise ValueError(f"mixed devices: { {k: str(x.device) for k, x in tensors} }")
+    if not (weights.is_contiguous() and u.is_contiguous() and states.is_contiguous()):
+        name = next(k for k, x in tensors if not x.is_contiguous())
+        raise ValueError(f"{name} must be contiguous")
     return b, p, states.shape[1]
 
 
@@ -71,23 +132,22 @@ def systematic_resample_gather(weights, u, states):
     Returns (new_states [B, D, P], parent_idx [B, P] int32, neff [B]).
     """
     b, p, d = _check(weights, u, states)
-    if weights.device.type == "cpu":
+    device = weights.device
+    if device.type == "cpu":
         return systematic_resample_gather_plain(weights, u, states)
-    if weights.device.type != "cuda":
-        raise ValueError(f"systematic_resample_gather runs on cuda or cpu, not {weights.device}")
-    if p * weights.element_size() > _build.SHARED_BYTES_PER_BLOCK:  # the row's CDF
-        raise ValueError(f"P={p} {weights.dtype} weights exceed one block's shared memory")
+    if device.type != "cuda":
+        raise ValueError(f"systematic_resample_gather runs on cuda or cpu, not {device}")
+    w_ptr, s_ptr = weights.data_ptr(), states.data_ptr()
+    plan = _launch_plan(p, d, weights.dtype, not (w_ptr | s_ptr) & 15)
     out = torch.empty_like(states)
-    idx = torch.empty((b, p), dtype=torch.int32, device=weights.device)
-    neff = torch.empty((b,), dtype=weights.dtype, device=weights.device)
+    idx = torch.empty((b, p), dtype=torch.int32, device=device)
+    neff = torch.empty((b,), dtype=weights.dtype, device=device)
     if b == 0 or p == 0:
         return out, idx, neff
-    lib = _build.load("resample", {name: _SIGNATURE for name in _KERNELS.values()})
-    kernel = getattr(lib, _KERNELS[weights.dtype])
-    with torch.cuda.device(weights.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(weights.data_ptr(), u.data_ptr(), states.data_ptr(), out.data_ptr(),
-                     idx.data_ptr(), neff.data_ptr(), b, p, d, stream)
+    err = _launcher(weights.dtype)(
+        w_ptr, u.data_ptr(), s_ptr, out.data_ptr(), idx.data_ptr(), neff.data_ptr(), b, p, d,
+        plan.threads, plan.run, plan.mode, plan.shared_bytes, plan.vector_stores, device.index,
+        torch._C._cuda_getCurrentRawStream(device.index))  # current_stream() builds a Stream
     if err != 0:
         raise RuntimeError(f"resample kernel launch failed with CUDA error {err}")
     systematic_resample_gather.launches += 1

@@ -115,19 +115,88 @@ def test_inputs_are_checked_as_the_jax_entry_checks_them():
         trs.systematic_resample_gather(w.to("meta"), u.to("meta"), s.to("meta"))
 
 
+CHIP_SHAPES = ((256, 1024), (8192, 1024), (2048, 4096))  # chip_smoke.py's f32 shapes, D=4
+
+
+@pytest.mark.parametrize("b,p", CHIP_SHAPES)
+def test_launch_plan_stages_the_chip_shapes_by_tma(b, p):
+    plan = trs._launch_plan(p, 4, torch.float32)
+    assert plan.mode == trs.STAGED and plan.vector_stores
+    assert plan.threads * plan.run >= p and plan.run % trs.RUN == 0
+    assert plan.shared_bytes == (1 + 1 + 4) * p * 4  # weights, marks, four state channels
+    assert plan.threads == (256 if p == 1024 else 512)
+
+
+@pytest.mark.parametrize("p,aligned", [(1001, True), (257, True), (1024, False)])
+def test_launch_plan_copies_rows_that_are_not_16_byte_aligned(p, aligned):
+    plan = trs._launch_plan(p, 4, torch.float32, aligned)
+    assert plan.mode == trs.COPIED and not plan.vector_stores
+    assert plan.threads * plan.run >= p
+
+
+def test_launch_plan_gathers_rows_too_large_for_a_block_from_global_memory():
+    plan = trs._launch_plan(4096, 8, torch.float64)  # 9 x 32 KB + 16 KB of marks
+    assert plan.mode == trs.DIRECT and plan.vector_stores
+    assert plan.shared_bytes == 4096 * 8  # the CDF alone
+    assert trs._launch_plan(1000, 4, torch.float64).mode == trs.STAGED  # 8000 B rows align
+
+
+def test_no_launch_plan_exceeds_a_blocks_shared_memory():
+    sizes = [*range(1, 1025), *range(1536, 58113, 512)]
+    for dtype in (torch.float32, torch.float64):
+        size = 4 if dtype == torch.float32 else 8
+        for p in sizes:
+            if p * size > trs._build.SHARED_BYTES_PER_BLOCK - trs.STATIC_SHARED_BYTES:
+                with pytest.raises(ValueError, match="shared memory"):
+                    trs._launch_plan(p, 1, dtype)
+                continue
+            for d in (0, 1, 4, 8):
+                plan = trs._launch_plan(p, d, dtype)
+                assert plan.shared_bytes + trs.STATIC_SHARED_BYTES <= 232448
+                assert plan.threads % 32 == 0 and 32 <= plan.threads <= trs.MAX_THREADS
+                assert plan.threads * plan.run >= p and plan.run % trs.RUN == 0
+
+
+# (b, p, d, dtype, zero-weight runs, f64 indices exact, offset by one
+# element): one case a branch of `_launch_plan` (staged by TMA, copied by
+# cp.async where rows or pointers are not 16-byte aligned, states gathered
+# from global memory) and CDFs flat across runs of zero weights. P=1000 in f64 is
+# held to the f32 rule: the twin's `/ P` on cuda multiplies by the
+# reciprocal (ROADMAP C9), so a position may move by an ulp.
+CUDA_CASES = {
+    "staged f64": (257, 1024, 4, np.float64, False, True, False),
+    "staged f32 P=4096": (64, 4096, 4, np.float32, False, False, False),
+    "staged f64 P=1000": (33, 1000, 4, np.float64, False, False, False),
+    "copied f32 P=1001": (33, 1001, 4, np.float32, False, False, False),
+    "copied f32 offset views": (64, 1024, 4, np.float32, False, False, True),
+    "direct f64 D=8 P=4096": (16, 4096, 8, np.float64, False, True, False),
+    "flat CDF f32": (128, 1024, 4, np.float32, True, False, False),
+    "flat CDF f64": (128, 1024, 4, np.float64, True, True, False),
+}
+
+
 @pytest.mark.cuda
-def test_kernel_matches_twin_on_cuda():
+@pytest.mark.parametrize("case", list(CUDA_CASES))
+def test_kernel_matches_twin_on_cuda(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode (chip_smoke.py runs it)")
-    for b, p, dtype in ((257, 1024, np.float64), (64, 4096, np.float32)):
-        args = torch_args(*make_case(b, p, 4, dtype, skew=3.0, seed=4))
-        want_s, want_i, want_n = trs.systematic_resample_gather_plain(*args)
-        before = trs.systematic_resample_gather.launches
-        got_s, got_i, got_n = trs.systematic_resample_gather(*(a.cuda() for a in args))
-        torch.cuda.synchronize()
-        assert trs.systematic_resample_gather.launches == before + 1
-        off = got_i.cpu() != want_i
-        assert off.double().mean() <= 1e-3
-        np.testing.assert_array_equal(got_s.cpu().numpy(), gathered(args[2].numpy(),
-                                                                    got_i.cpu().numpy()))
-        np.testing.assert_allclose(got_n.cpu().numpy(), want_n.numpy(), rtol=1e-5)
+    b, p, d, dtype, zero_runs, exact, offset = CUDA_CASES[case]
+    w, u, s = make_case(b, p, d, dtype, skew=3.0, seed=4)
+    if zero_runs:
+        for row, start in zip(w, np.random.default_rng(5).integers(0, p - 300, size=b)):
+            row[start:start + 300] = 0
+    args = torch_args(w, u, s)
+    cuda_args = tuple(a.cuda() for a in args)
+    if offset:  # contiguous views one element into their buffers
+        cuda_args = tuple(torch.cat([a.new_zeros(1), a.flatten()])[1:].view(a.shape)
+                          for a in cuda_args)
+        assert cuda_args[0].data_ptr() % 16 and cuda_args[0].is_contiguous()
+    want_s, want_i, want_n = trs.systematic_resample_gather_plain(*cuda_args)
+    before = trs.systematic_resample_gather.launches
+    got_s, got_i, got_n = trs.systematic_resample_gather(*cuda_args)
+    torch.cuda.synchronize()
+    assert trs.systematic_resample_gather.launches == before + 1
+    off = got_i != want_i
+    assert (not exact or not off.any()) and off.double().mean() <= 1e-3
+    np.testing.assert_array_equal(got_s.cpu().numpy(), gathered(s, got_i.cpu().numpy()))
+    np.testing.assert_allclose(got_n.cpu().numpy(), want_n.cpu().numpy(), rtol=1e-5)
