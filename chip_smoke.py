@@ -77,14 +77,14 @@ any failure exits non-zero before the final line.
 15. bench.py's four pose-graph workloads (bench.py:113-117; no kernel on
     their path), f32 on cuda, LM at most 25 iterations, tolerance 1e-8: the
     10k chain through `chain_direct` (RMSE < 5e-3, one warm time,
-    iterations, the same solve in f64 on cuda and on the CPU within
+    iterations, its first 3 LM steps in f64 on cuda and on the CPU within
     PG_F64_ATOL, one LM step under sync debug mode "error", the device
     reads of a whole solve counted under "warn", one step's profile and
     launches); the 100k chain (the auto rule's nested solve, by counter;
     RMSE < 5e-3); 256 distinct 200-pose graphs in lock-step (worst RMSE,
     graphs/s, three lanes equal to their solo solves); the 100x100 grid
-    with 50 closures through `banded_direct` (the plan, RMSE < 2.2e-3, at
-    least 3 iterations, one step's profile) and `direct`'s routes on the
+    with 50 closures through `banded_direct` (the plan, 5 LM iterations
+    once, RMSE < 2.2e-3, one step's profile) and `direct`'s routes on the
     grid and a 2000-pose chain, by counter (2 LM iterations); then one JSON line
     `{"pose_graph": {...}}`;
 16. the SLAM back end (no kernel on its path): (a) the anchored 10k SE(3)
@@ -175,7 +175,7 @@ any failure exits non-zero before the final line.
     and its launches and idle share), and the f64 1000-pose chain within
     1e-8 of `solve_chain_lm`; (b) program 7, `solve_general_graph_sharded`
     on the dryrun's 9x8 grid in f64 (within 1e-9 of `solve_general_graph`)
-    and on the 100x100 grid in f32, both solves cut to 3 LM iterations
+    and on the 100x100 grid in f32, both solves cut to 2 LM iterations
     (within 5e-4; s an iteration each); (c) program 8, the sharded IFT of
     (a)'s solution re-solved in f64 against `chain_implicit_vjp` (loss rel
     1e-12, gradients 1e-7 of max|g|), the f32 call timed; then one JSON
@@ -316,8 +316,21 @@ any failure exits non-zero before the final line.
     against PIL's decoding; (e) `run_scaling_report((1,))` and
     `run_chain_weak_scaling((1,))` on one NCCL rank, printed with the card;
     then one JSON line `{"tools": {...}}`;
-28. one JSON line `{"kernels": [...]}`;
-29. the last line, `{"ok": true, "device": {...}}`.
+28. the SPIKE-chunked chain (no kernel on its path), each part once under
+    sync debug mode "warn" on the host clock: (a) bench.py's chain at
+    300,000 poses (2,999 closures) in f32 through
+    `optimize_pose_graph_2d(chain_direct)`, where the auto rule takes 4
+    chunks of 75,000 rows, to its end (RMSE < 5e-3; the Woodbury edge chunks
+    and reads an iteration; one step profiled); (b) the same chain in f64,
+    2 LM steps on the chunked ladder and on the plain one (equal counts,
+    poses within 1e-5; each route's warm s a step); (c) `solve_chain_lm
+    (chunks=8)` on the 500-pose chain, 25 iterations, f64 cuda against the
+    CPU (1e-9); (d) phase 16's anchored 10k SE(3) chain with chunks=4 (RMSE
+    < 1e-4, within 2e-4 of the unchunked run); (e) the chain LM's CUDA graph
+    bitwise its eager step on the plain, nested, chunked, LU and lock-step
+    routes; then one JSON line `{"spike_chunked": {...}}`;
+29. one JSON line `{"kernels": [...]}`;
+30. the last line, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -561,6 +574,7 @@ from rust_robotics_tpu_torch.slam.imu import optimize_imu_trajectory, preintegra
 from rust_robotics_tpu_torch.slam.vio import run_vio_pipeline
 from rust_robotics_tpu_torch.slam.vio_pp import make_stages, run_vio_pipeline_windowed
 from rust_robotics_tpu_torch.slam.pose_graph import (
+    _auto_chunks,
     anchored_measurements,
     build_pose_graph_2d,
     optimize_pose_graph_2d,
@@ -598,14 +612,14 @@ RESAMPLE_IDX_OFF_LIMIT = 1e-3  # share of draws whose index may differ (f32)
 RESAMPLE_CDF_ATOL = 1e-5
 # B3's branches (ops/resample.py::_launch_plan) beyond the shapes above:
 # (branch, B, P, D, dtype, f64 indices exact, zero-weight runs). Rows that
-# are not 16-byte aligned (cp.async staging); P=1000 in f64, held to the f32
-# boundary rule because the twin's `/ P` on cuda multiplies by the
-# reciprocal (ROADMAP C9); f64 rows too large for a block (states gathered
+# are not 16-byte aligned (cp.async staging); P=1000 in f64, indices exact
+# (the twin divides by P through `_numeric.true_div`, as the kernel does);
+# f64 rows too large for a block (states gathered
 # from global memory); CDFs flat across runs of zero-weight particles, which
 # the walking search crosses; one row.
 RESAMPLE_BRANCHES = (
     ("copied", 512, 1001, RESAMPLE_D, torch.float32, False, False),
-    ("staged", 512, 1000, RESAMPLE_D, torch.float64, False, False),
+    ("staged", 512, 1000, RESAMPLE_D, torch.float64, True, False),
     ("direct", 128, 4096, 8, torch.float64, True, False),
     ("staged", 2048, 1024, RESAMPLE_D, torch.float32, False, True),
     ("staged", 512, 1024, RESAMPLE_D, torch.float64, True, True),
@@ -678,7 +692,13 @@ PG_GRID_RMSE, PG_GRID_MIN_ITERATIONS = 2.2e-3, 3  # tests/test_banded.py:153-168
 # take the same steps, and each step's solve carries a rounding error of
 # ~kappa·eps of the step, kappa ~ n^2 = 1e8 for a 10k chain: 1e8 · 1.1e-16 ·
 # 0.05 (a first step) ~ 6e-10 a step, < 2e-8 over 25 steps; 1e-6 leaves 50x.
-PG_F64_ATOL = 1e-6
+# The check runs PG_F64_ITERATIONS of the solve's 11 steps (the CPU solve,
+# ~10 s, was cut to make room for phase 28; PERF.md §4).
+PG_F64_ATOL, PG_F64_ITERATIONS = 1e-6, 3
+# the grid's timed solve: PG_GRID_ITERATIONS LM iterations, once (cold). Its
+# warm-up solve and 20 of its 25 iterations (~39 s) were cut to make room for
+# phase 28 (PERF.md §4); phase 20 reaches RMSE 1.7e-4 in 3.
+PG_GRID_ITERATIONS = 5
 PG_ROUTE_ITERATIONS = 2  # LM iterations of `direct`'s route check (its counters are the gate)
 # a serving lane against its solo solve, f32 poses: both solve the same
 # 200-pose graph in f32 and each ends within a few ulps of the truth (an
@@ -719,8 +739,10 @@ SD_TIMED = ("dense",)
 SD_CONFIG = dict(method="lm", max_iterations=25, gradient_tolerance=1e-10, step_tolerance=1e-10,
                  cost_tolerance=1e-14, pcg_max_iterations=200, pcg_tolerance=1e-10)
 # matfree_pcg's LM (~18k launches an iteration) stops at the iteration cap:
-# 10 iterations, not 25, to make room for phase 26 in phases 16 and 19 (PERF.md §4)
+# 10 iterations, not 25, to make room for phase 26 in phases 16 and 19, and 5
+# in phase 16's check to make room for phase 28 (PERF.md §4)
 SD_MATFREE = dict(SD_CONFIG, max_iterations=10)
+SD_MATFREE_CHECK = dict(SD_MATFREE, max_iterations=5)
 # ICP: bench_icp's workload (demos/benchmarks.py:228-242: 120 points in
 # [0, 10)^2, a 0.3 rad turn, shift (1, -0.5)), then a fleet of 256 pairs of
 # 1000 points in [0, 10)^2, turns in +-0.1 rad, 0.1 m shifts, f32.
@@ -1109,25 +1131,31 @@ def device_trace(label, fn, cpu=True, enough=bool):
          f"{TRACE_ATTEMPTS} traces")
 
 
-def device_breakdown(label, fn, top=6):
+def device_breakdown(label, fn, top=6, full=True):
     """Where one call's time goes: its host-clock time, then under
     torch.profiler the device's busy time, the span from its first to its
     last device event, the idle share of that span, and the `top` device
     consumers by self time. Returns {names: every device event's name,
-    host_ms, busy_ms, span_ms, idle}."""
+    host_ms, busy_ms, span_ms, idle}. full=False, for a call of tens of
+    thousands of launches: one untimed call, then one traced call of the
+    device's activities alone, with no host-clock call (host_ms None) and
+    no consumers, which cost seconds there."""
+    host_ms = None
     fn()
     torch.cuda.synchronize()
-    start = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - start) * 1e3
-    prof, events = device_trace(label, fn)
+    if full:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - start) * 1e3
+    prof, events = device_trace(label, fn, cpu=full)
     names = [e.name for e in events]
     busy_ms = sum(e.time_range.end - e.time_range.start for e in events) / 1e3
     span_ms = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events)) / 1e3
     print(f"{label}: host clock {host_ms!r} ms; under the profiler device busy {busy_ms!r} ms of "
           f"a {span_ms!r} ms span ({1 - busy_ms / span_ms:.3f} idle), {len(events)} device events")
-    consumers = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
+    consumers = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total,
+                       reverse=True) if full else []
     for e in consumers[:top]:
         print(f"  {e.self_device_time_total / 1e3!r} ms in {e.count} x {e.key[:90]}")
     return {"names": names, "host_ms": host_ms, "busy_ms": busy_ms, "span_ms": span_ms,
@@ -1505,7 +1533,7 @@ def pose_graph_phase(card, device):
     f64 = {}
     for where in (device, "cpu"):
         start = time.perf_counter()
-        poses, s64 = optimize_pose_graph_2d(initial, ef, et, meas, info, PG_ITERATIONS,
+        poses, s64 = optimize_pose_graph_2d(initial, ef, et, meas, info, PG_F64_ITERATIONS,
                                             PG_TOLERANCE, "chain_direct", device=where,
                                             dtype=torch.float64)
         f64[str(where)] = poses.cpu().numpy()
@@ -1602,12 +1630,14 @@ def pose_graph_phase(card, device):
           f"{plan.supernode}, {plan.num_super} supernodes, bandwidth {plan.bandwidth}, "
           f"{int(plan.in_band.sum())} edges in band, {int((~plan.in_band).sum())} demoted to the "
           f"Woodbury correction")
-    # one warm timed solve after the cold one: the second warm solve, a
-    # repeat for its time (~15 s), was cut to make room for phase 26 (PERF.md §4)
-    seconds, err, summary = pose_graph_bench.run_grid_benchmark(
-        *PG_GRID, PG_ITERATIONS, PG_TOLERANCE, device=device, runs=1)
+    # one cold timed solve of PG_GRID_ITERATIONS (its repeats were cut to make
+    # room for phases 26 and 28; PERF.md §4)
+    seconds, (poses, summary) = timed(lambda: optimize_pose_graph_2d(
+        initial, ef, et, meas, info, PG_GRID_ITERATIONS, PG_TOLERANCE, "banded_direct",
+        device=device))
+    err = pose_graph_bench.rmse(poses.cpu().numpy(), truth)
     print(f"pose graph grid f32 banded_direct on {card}: RMSE {err!r} (gate {PG_GRID_RMSE}); "
-          f"warm {seconds!r} s host clock; {summary.iterations} LM iterations, "
+          f"cold {seconds!r} s host clock; {summary.iterations} LM iterations, "
           f"{seconds / summary.iterations!r} s each; {summary}")
     if not (err < PG_GRID_RMSE and summary.iterations >= PG_GRID_MIN_ITERATIONS):
         fail(f"grid: RMSE {err!r}, {summary.iterations} iterations")
@@ -1618,8 +1648,10 @@ def pose_graph_phase(card, device):
         fixed, tdim=3)
     state, step = banded.banded_lm_start(values_b, *args, supernode=plan.supernode,
                                          num_super=plan.num_super, **PG_LM)
+    # the device alone: the host clock and consumers of its ~33k launches,
+    # a few s, were cut to make room for phase 28 (PERF.md §4)
     prof = device_breakdown(f"pose graph grid, one banded LM step (f32) on {card}",
-                            lambda: step(state))
+                            lambda: step(state), full=False)
     del state, step, values_b, args
     routes = {}
     for label, graph in (("grid", (truth, initial, ef, et, meas, info)),
@@ -1650,6 +1682,10 @@ def pose_graph_phase(card, device):
     return out
 
 
+# phase 16's anchored 10k poses, the unchunked reference of phase 28's (d)
+SE3_ANCHORED = {}
+
+
 def se3_part(card, device):
     """(a) The anchored 10k SE(3) chain in f32 and the plain 1k chain in f64."""
     truth_t, tm, init_t, ef, et, meas, info = pose_graph_bench.synthesize_se3_chain(SE3_CHAIN)
@@ -1667,6 +1703,7 @@ def se3_part(card, device):
     # one warm solve: the second, a repeat for its time (~7 s), was cut to
     # make room for phase 26 (PERF.md §4)
     warm_s, (poses, summary) = timed(anchored)
+    SE3_ANCHORED["poses"] = poses
     err = pose_graph_bench.se3_position_rmse(poses, tm)
     print(f"SE(3) {SE3_CHAIN} chain f32 anchored chain_direct on {card}: RMSE {err!r} (gate "
           f"{SE3_RMSE_F32}; JAX measured 3.4e-5); warm {warm_s!r} s host clock, "
@@ -1810,7 +1847,7 @@ def solve_device_part(card, device):
     out = {}
     for solver in ("dense", "matfree_pcg"):
         cfg = SolverConfig(linear_solver=solver,
-                           **(SD_MATFREE if solver == "matfree_pcg" else SD_CONFIG))
+                           **(SD_MATFREE_CHECK if solver == "matfree_pcg" else SD_CONFIG))
         prob = problem(torch.float64)
         host, hs = nlls_solver.solve(prob, cfg)
         sites = {}
@@ -1834,8 +1871,9 @@ def solve_device_part(card, device):
         no_read_in(f"solve_device {solver}, one LM iteration", lambda: step(state))
         prob32 = problem(torch.float32)
         state, step = nlls_solver.device_lm_start(prob32, cfg)
+        # matfree_pcg's ~18k launches profiled on the device alone (phase 28's room)
         prof = device_breakdown(f"solve_device {solver} {SD_CHAIN} chain, one LM iteration (f32) "
-                                f"on {card}", lambda: step(state))
+                                f"on {card}", lambda: step(state), full=solver == "dense")
         out[solver] = {"f64": {"solve_device": vars(ds), "solve": vars(hs), "max_abs_diff": diff,
                                "device_reads_per_solve": reads},
                        "launches_per_iteration": len(prof["names"]),
@@ -3581,10 +3619,10 @@ SPIKE_POSE_ATOL, SPIKE_F64_ATOL = 2e-3, 1e-8
 # (b) program 7: the dryrun's 9x8 grid with 4 closures, f64, its LM settings,
 # within SPIKE_GRID_SMALL_ATOL of `solve_general_graph`; bench.py's 100x100
 # grid with 50 closures (PG_GRID), f32, both solves cut to
-# SPIKE_GRID_ITERATIONS LM iterations (phase 15 runs it whole), poses within
-# the dryrun's atol 5e-4.
+# SPIKE_GRID_ITERATIONS LM iterations (3 until phase 28 needed room; PERF.md
+# §4), poses within the dryrun's atol 5e-4.
 SPIKE_GRID_SMALL, SPIKE_GRID_SMALL_KW = (9, 8, 4), dict(max_iterations=12, tolerance=1e-9)
-SPIKE_GRID_SMALL_ATOL, SPIKE_GRID_ITERATIONS, SPIKE_GRID_ATOL = 1e-9, 3, 5e-4
+SPIKE_GRID_SMALL_ATOL, SPIKE_GRID_ITERATIONS, SPIKE_GRID_ATOL = 1e-9, 2, 5e-4
 # (c) program 8: the sharded IFT of (a)'s solution, re-solved in f64, against
 # `chain_implicit_vjp` on the card: the loss within rel 1e-12, the gradients
 # within IFT_CUDA_CPU_REL of max|g| (phase 16's limit for two orders of the
@@ -7771,6 +7809,201 @@ def slice_phase(card, device, counted):
     return out
 
 
+# The SPIKE-chunked chain (phase 28). (a) bench.py's chain at 300,000 poses
+# (loop stride 100: 2,999 closures), past the 262,144 poses above which the
+# auto rule chunks (`_auto_chunks`: 4 chunks of 75,000 rows), f32, LM as phase
+# 15's (PG_ITERATIONS, PG_TOLERANCE, RMSE < PG_CHAIN_RMSE; JAX's 1M row
+# measured 7.4e-4).
+SC_POSES, SC_CHUNKS = 300_000, 4
+# (b) the chunked ladder against the plain one (nested off) on the same
+# chain, f64, SC_COMPARE_ITERATIONS LM steps; poses within SC_F64_ATOL. As
+# PG_F64_ATOL's: each step's solve is off the exact one by ~kappa·eps of the
+# step, kappa ~ n^2 = 9e10 for a 300k chain: 9e10 · 1.1e-16 · 0.03 (a
+# first step corrects the 0.03 m perturbation) ~ 3e-7 a step and route, so
+# the two routes differ by < 1.2e-6 after 2 steps; 1e-5 leaves ~8x.
+SC_COMPARE_ITERATIONS, SC_F64_ATOL = 2, 1e-5
+# (c) tests/test_tridiag.py:64-90: `solve_chain_lm(chunks=8)` on the
+# 500-pose chain, 25 iterations, f64, cuda against the CPU: kappa ~ n^2 =
+# 2.5e5, 2.5e5 · 1.1e-16 · 0.03 ~ 8e-13 a step, < 2e-11 over 25 steps;
+# 1e-9 (the JAX test's gate on its own side is 1e-10) leaves 50x.
+SC_SMALL, SC_SMALL_CHUNKS, SC_CUDA_CPU_ATOL = 500, 8, 1e-9
+SC_SMALL_LM = dict(residual_fn=se2_edge_residual, retract_fn=se2_retract, tdim=3,
+                   max_iterations=25, gradient_tolerance=1e-10, step_tolerance=1e-10,
+                   cost_tolerance=1e-16)
+# (d) phase 16's anchored 10k SE(3) chain, f32, chunks=4: RMSE < SE3_RMSE_F32,
+# and its positions against the unchunked run's within 2 · SE3_RMSE_F32 (RMSE):
+# each run is within SE3_RMSE_F32 of the truth, so the two are within twice it.
+# (e) CUDA graph = eager, SC_GRAPH_STEPS LM steps of each route, bitwise.
+SC_GRAPH_STEPS = 2
+
+
+def sc_part(out, label, fn):
+    """One part of phase 28 under sync debug mode "warn" on the host clock:
+    out[label] = fn()'s dict with its seconds and device reads."""
+    (seconds, res), reads = reads_in(lambda: timed(fn))
+    out[label] = {**res, "part_s": seconds, "device_reads": reads}
+    print(f"phase 28, part {label}: {seconds!r} s; {reads} device reads")
+
+
+def sc_full_width(card, device):
+    """(a) The 300k chain f32 through `optimize_pose_graph_2d(chain_direct)`
+    with the auto rule, to its end; one step profiled."""
+    truth, initial, ef, et, meas, info = pose_graph_bench.synthesize_chain(SC_POSES)
+    chunks = _auto_chunks(SC_POSES, None)
+    loops = int((et - ef != 1).sum())
+    per_chunk = tridiag.woodbury_edge_chunk(SC_POSES, loops, 3, tridiag.WOODBURY_CHUNK_BYTES,
+                                            chunks)
+    if chunks != SC_CHUNKS:
+        fail(f"the auto rule gave {chunks} chunks at {SC_POSES} poses, not {SC_CHUNKS}")
+    sites = {}
+    steps = tridiag.lm_run.steps
+    (seconds, (poses, summary)), reads = reads_in(lambda: timed(lambda: optimize_pose_graph_2d(
+        initial, ef, et, meas, info, PG_ITERATIONS, PG_TOLERANCE, "chain_direct",
+        device=device)), sites)
+    steps = tridiag.lm_run.steps - steps
+    err = pose_graph_bench.rmse(poses.cpu().numpy(), truth)
+    print(f"spike-chunked {SC_POSES} chain f32 on {card}: {chunks} chunks of "
+          f"{-(-SC_POSES // chunks)} rows; {loops} closures in {-(-loops // per_chunk)} Woodbury "
+          f"edge chunks of {per_chunk} an iteration; RMSE {err!r} (gate {PG_CHAIN_RMSE}); "
+          f"{seconds!r} s host clock (the graph's capture included); {summary}; device reads "
+          f"{reads} ({reads / max(steps, 1)!r} an iteration; by site {sites})")
+    if not err < PG_CHAIN_RMSE:
+        fail(f"the {SC_POSES} chain: RMSE {err!r} >= {PG_CHAIN_RMSE}")
+    _, init_d, args = chain_problem_on(device, torch.float32, SC_POSES)
+    state, step = tridiag.chain_lm_start(init_d[None], *args, chunks=chunks, **PG_LM)
+    prof = device_breakdown(f"spike-chunked {SC_POSES} chain, one LM step (f32, a graph "
+                            f"replay) on {card}", lambda: step(state), full=False)
+    return {"seconds": seconds, "rmse": err, "iterations": summary.iterations,
+            "termination": summary.termination, "chunks": chunks, "rows_per_chunk":
+            -(-SC_POSES // chunks), "closures": loops, "woodbury_edge_chunks_per_iteration":
+            -(-loops // per_chunk), "reads_per_iteration": reads / max(steps, 1),
+            "read_sites": sites, "launches_per_iteration": len(prof["names"]),
+            "profile": {k: v for k, v in prof.items() if k != "names"}}
+
+
+def sc_chunked_against_plain(card, device):
+    """(b) The 300k chain in f64, SC_COMPARE_ITERATIONS LM steps through the
+    chunked ladder and the plain one: equal counts, poses within
+    SC_F64_ATOL; each route's start and warm s a step (the lesser of its
+    two). The steps run eagerly: at this size a step is device-bound (a
+    graph replay of (a)'s idles 0.012), so its capture would buy nothing
+    in two steps; (e) holds the graph to the eager step."""
+    _, init, args = chain_problem_on(device, torch.float64, SC_POSES)
+    out, ends = {}, {}
+    for route, kw in (("chunked", dict(chunks=SC_CHUNKS)), ("plain", dict(chunks=0,
+                                                                          nested=False))):
+        start_s, (state, step) = timed(lambda: tridiag.chain_lm_start(
+            init[None], *args, graphed=False, **PG_LM, **kw))
+        times = []
+        for _ in range(SC_COMPARE_ITERATIONS):
+            t, state = timed(lambda: step(state))
+            times.append(t)
+        ends[route] = tridiag.LMState(*(x.clone() for x in state))
+        out[route] = {"start_s": start_s, "warm_s_per_step": min(times),
+                      "iterations": int(ends[route].it), "accepted": int(ends[route].accepted)}
+        print(f"spike-chunked {SC_POSES} chain f64 {route} on {card}: start {start_s!r} s, "
+              f"eager steps {times} s; {out[route]}")
+        del state, step
+    diff = float((ends["chunked"].values - ends["plain"].values).abs().max())
+    out["max_abs_diff"] = diff
+    print(f"spike-chunked {SC_POSES} chain f64: chunked against plain after "
+          f"{SC_COMPARE_ITERATIONS} steps max|diff| {diff!r} (atol {SC_F64_ATOL}); faster on "
+          f"{card}: {min(('chunked', 'plain'), key=lambda r: out[r]['warm_s_per_step'])}")
+    counts = [(out[r]["iterations"], out[r]["accepted"]) for r in ("chunked", "plain")]
+    if counts[0] != counts[1] or not diff <= SC_F64_ATOL:
+        fail(f"chunked against plain: counts {counts}, max|diff| {diff!r} > {SC_F64_ATOL}")
+    return out
+
+
+def sc_cuda_against_cpu(card, device):
+    """(c) JAX's test, `solve_chain_lm(chunks=8)` on the 500-pose chain for
+    25 iterations, f64, cuda against the CPU."""
+    runs = {}
+    for where in (device, "cpu"):
+        _, init, args = chain_problem_on(where, torch.float64, SC_SMALL)
+        values, summ = tridiag.solve_chain_lm(init, *args, chunks=SC_SMALL_CHUNKS,
+                                              **SC_SMALL_LM)
+        runs[str(where)] = (values.cpu().numpy(), [int(x) for x in summ[2:]])
+    diff = float(np.abs(runs[str(device)][0] - runs["cpu"][0]).max())
+    print(f"spike-chunked {SC_SMALL} chain f64 chunks={SC_SMALL_CHUNKS} on {card} against the "
+          f"CPU: (iterations, accepted, termination) {runs[str(device)][1]} and "
+          f"{runs['cpu'][1]}, max|diff| {diff!r} (atol {SC_CUDA_CPU_ATOL})")
+    if runs[str(device)][1] != runs["cpu"][1] or not diff <= SC_CUDA_CPU_ATOL:
+        fail(f"the {SC_SMALL} chain chunks={SC_SMALL_CHUNKS}: cuda against the CPU "
+             f"{runs[str(device)][1]} {runs['cpu'][1]}, max|diff| {diff!r}")
+    return {"counts": runs["cpu"][1], "max_abs_diff": diff}
+
+
+def sc_anchored(card, device):
+    """(d) Phase 16's anchored 10k SE(3) chain, f32, with chunks=4."""
+    truth_t, tm, init_t, ef, et, meas, info = pose_graph_bench.synthesize_se3_chain(SE3_CHAIN)
+    kw = dict(max_iterations=SE3_ITERATIONS, tolerance=SE3_TOLERANCE,
+              linear_solver="chain_direct", anchored=True, device=device)
+    if "poses" not in SE3_ANCHORED:  # the phase run alone
+        SE3_ANCHORED["poses"] = optimize_pose_graph_3d(init_t, ef, et, meas, info,
+                                                       **kw)[0].cpu().numpy()
+    seconds, (poses, summary) = timed(lambda: optimize_pose_graph_3d(
+        init_t, ef, et, meas, info, chunks=SC_CHUNKS, **kw))
+    poses = poses.cpu().numpy()
+    err = pose_graph_bench.se3_position_rmse(poses, tm)
+    gap = pose_graph_bench.se3_position_rmse(
+        poses, lie_np.se3_exp(SE3_ANCHORED["poses"].astype(np.float64)))
+    print(f"SE(3) {SE3_CHAIN} chain f32 anchored chunks={SC_CHUNKS} on {card}: RMSE {err!r} "
+          f"(gate {SE3_RMSE_F32}); positions against the unchunked run {gap!r} (RMSE, gate "
+          f"{2 * SE3_RMSE_F32}); {seconds!r} s host clock (first call); last round {summary}")
+    if not (err < SE3_RMSE_F32 and gap < 2 * SE3_RMSE_F32):
+        fail(f"anchored SE(3) chunks={SC_CHUNKS}: RMSE {err!r}, against unchunked {gap!r}")
+    return {"rmse": err, "against_unchunked": gap, "seconds": seconds,
+            "last_round": vars(summary)}
+
+
+def sc_graph_gate(card, device):
+    """(e) The chain LM's CUDA graph bitwise the eager step, SC_GRAPH_STEPS
+    steps of each route: plain, nested and chunked on the 10k chain, the LU
+    capacitance (spd=False, the anchored path's), and 256 lanes of 200
+    poses (the serving row)."""
+    _, init, args = chain_problem_on(device, torch.float32, PG_CHAIN)
+    _, init_b, args_b = pose_graph_bench.batched_problem(*PG_SERVING, device)
+    routes = {"plain": (init[None], args, {}), "nested": (init[None], args, dict(nested=True)),
+              "chunked": (init[None], args, dict(chunks=SC_CHUNKS)),
+              "lu": (init[None], args, dict(spd=False)), "lanes": (init_b, args_b, {})}
+    out = {}
+    for route, (values, a, kw) in routes.items():
+        first, eager = tridiag.chain_lm_start(values, *a, graphed=False, **PG_LM, **kw)
+        _, graphed = tridiag.chain_lm_start(values, *a, graphed=True, **PG_LM, **kw)
+        if not hasattr(graphed, "graph"):
+            fail(f"the chain LM's {route} step is not a CUDA graph")
+        want = got = first
+        same = True
+        for _ in range(SC_GRAPH_STEPS):
+            want, got = eager(want), graphed(got)
+            same &= all(bitwise_equal(g, w) for g, w in zip(got, want))
+        out[route] = same
+        print(f"chain LM graph on {card}, {route}: {SC_GRAPH_STEPS} replays bitwise the eager "
+              f"steps: {same}")
+    if not all(out.values()):
+        fail(f"the chain LM's graph differs from its eager step: {out}")
+    return {"bitwise": out}
+
+
+def spike_chunked_phase(card, device):
+    """The SPIKE-chunked chain (phase 28), each part once under sync debug
+    mode "warn" on the host clock."""
+    out = {"card": card}
+    start = time.perf_counter()
+    tridiag._CHAIN_STEPS.clear()  # the earlier phases' graphs and their memory
+    torch.cuda.empty_cache()
+    for label, part in (("full_width_f32", sc_full_width),
+                        ("chunked_against_plain_f64", sc_chunked_against_plain),
+                        ("cuda_against_cpu_f64", sc_cuda_against_cpu),
+                        ("anchored_se3_f32", sc_anchored), ("graph_gate", sc_graph_gate)):
+        sc_part(out, label, lambda: part(card, device))
+    tridiag._CHAIN_STEPS.clear()
+    out["phase_s"] = time.perf_counter() - start
+    print(f"phase 28: {out['phase_s']!r} s on {card}")
+    return out
+
+
 _VIEW_OPS = {"empty", "empty_strided", "as_strided", "view", "_reshape_alias", "resize_",
              "detach", "lift_fresh", "alias", "_unsafe_view", "expand", "slice", "select", "t",
              "transpose", "permute", "unsqueeze", "squeeze", "item", "_local_scalar_dense",
@@ -8610,7 +8843,18 @@ def main() -> int:
     tools = slice_phase(card, device, counted)
     print(json.dumps({"tools": tools}))
 
-    # 28. the kernels line
+    # 28. the SPIKE-chunked chain: the 300k chain, chunked against plain, the
+    # 500-pose chain cuda against the CPU, the anchored SE(3) chain, the chain
+    # LM's graph against its eager step (no kernel on its path)
+    for fn in counted:
+        fn.launches = 0
+    spike_chunked = spike_chunked_phase(card, device)
+    spike_chunked["kernel_launches"] = {fn.__name__: fn.launches for fn in counted}
+    if any(spike_chunked["kernel_launches"].values()):
+        fail(f"phase 28 launched kernels: {spike_chunked['kernel_launches']}")
+    print(json.dumps({"spike_chunked": spike_chunked}))
+
+    # 29. the kernels line
     no_library = "none: no single PyTorch call computes it"
     resample_entries = [{
         "name": "resample",
@@ -8755,7 +8999,7 @@ def main() -> int:
         "card": card,
     }, *resample_entries, *cholesky_entries]}))
 
-    # 29. the result
+    # 30. the result
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

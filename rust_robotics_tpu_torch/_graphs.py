@@ -36,3 +36,21 @@ class Graphed:
             dst.copy_(src)
         self.graph.replay()
         return self.out
+
+
+def meta(t):
+    """A tensor's part of a graph's key: its shape, dtype and device (None
+    for None)."""
+    return None if t is None else (t.shape, t.dtype, t.device)
+
+
+def kept(cache, key, make, keep):
+    """cache[key] (an OrderedDict), made by make() where missing, as its
+    most recently used entry; the `keep` most recent entries stay."""
+    value = cache.pop(key, None)
+    if value is None:
+        value = make()
+    cache[key] = value
+    while len(cache) > keep:
+        cache.popitem(last=False)
+    return value

@@ -22,6 +22,8 @@ import math
 
 import torch
 
+from rust_robotics_tpu_torch._numeric import true_div
+
 _EPS = 1e-8
 _COS_NEAR_PI = math.cos(math.pi - 1e-4)
 
@@ -101,8 +103,8 @@ def so3_exp(phi):
     k = skew(phi)
     k2 = k @ k
     # sin(t)/t and (1-cos(t))/t^2 with Taylor fallbacks at t ~ 0
-    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / (theta * theta))
+    a = torch.where(small, 1.0 - true_div(theta2, 6.0), torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - true_div(theta2, 24.0), (1.0 - torch.cos(theta)) / (theta * theta))
     return _eye_like(phi, 3, k.shape) + a[..., None, None] * k + b[..., None, None] * k2
 
 
@@ -123,7 +125,7 @@ def so3_log(rot):
     # differentiable; those lanes take the Taylor scale anyway (and w ≈ 0)
     sin_theta = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
     theta = torch.atan2(sin_theta, cos_theta)
-    scale = torch.where(small, 0.5 + s2 / 12.0, theta / (2.0 * sin_theta))
+    scale = torch.where(small, 0.5 + true_div(s2, 12.0), theta / (2.0 * sin_theta))
     near_pi = cos_theta < _COS_NEAR_PI
     # Near pi the antisymmetric part vanishes; recover the axis from the
     # diagonal of the symmetric part.
@@ -159,10 +161,10 @@ def so3_left_jacobian(phi):
     small, theta = _safe_theta(theta2)
     k = skew(phi)
     k2 = k @ k
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / (theta * theta))
+    b = torch.where(small, 0.5 - true_div(theta2, 24.0), (1.0 - torch.cos(theta)) / (theta * theta))
     c = torch.where(
         small,
-        1.0 / 6.0 - theta2 / 120.0,
+        1.0 / 6.0 - true_div(theta2, 120.0),
         (theta - torch.sin(theta)) / (theta * theta * theta),
     )
     return _eye_like(phi, 3, k.shape) + b[..., None, None] * k + c[..., None, None] * k2
@@ -177,7 +179,7 @@ def so3_left_jacobian_inverse(phi):
     k2 = k @ k
     coeff = torch.where(
         small,
-        1.0 / 12.0 + theta2 / 720.0,
+        1.0 / 12.0 + true_div(theta2, 720.0),
         1.0 / (theta * theta) - (1.0 + torch.cos(theta)) / (2.0 * theta * torch.sin(theta)),
     )
     return _eye_like(phi, 3, k.shape) - 0.5 * k + coeff[..., None, None] * k2
@@ -192,8 +194,8 @@ def se2_exp(xi):
     vx, vy, w = xi[..., 0], xi[..., 1], xi[..., 2]
     s, c = torch.sin(w), torch.cos(w)
     # V = [[sin w / w, -(1-cos w)/w], [(1-cos w)/w, sin w / w]]
-    a = _safe_div(s, w, 1.0 - w * w / 6.0)
-    b = _safe_div(1.0 - c, w, w / 2.0 - w**3 / 24.0)
+    a = _safe_div(s, w, 1.0 - true_div(w * w, 6.0))
+    b = _safe_div(1.0 - c, w, w / 2.0 - true_div(w**3, 24.0))
     tx = a * vx - b * vy
     ty = b * vx + a * vy
     z = torch.zeros_like(w)
@@ -213,8 +215,8 @@ def se2_log(m):
     w = torch.atan2(m[..., 1, 0], m[..., 0, 0])
     tx, ty = m[..., 0, 2], m[..., 1, 2]
     s, c = torch.sin(w), torch.cos(w)
-    a = _safe_div(s, w, 1.0 - w * w / 6.0)
-    b = _safe_div(1.0 - c, w, w / 2.0 - w**3 / 24.0)
+    a = _safe_div(s, w, 1.0 - true_div(w * w, 6.0))
+    b = _safe_div(1.0 - c, w, w / 2.0 - true_div(w**3, 24.0))
     det = a * a + b * b
     inv_det = _safe_div(torch.ones_like(det), det, torch.ones_like(det), eps=1e-12)
     vx = inv_det * (a * tx + b * ty)
@@ -318,16 +320,28 @@ def se3_hat(xi):
     return torch.cat([top, bottom], dim=-2)
 
 
+def _products(a, b):
+    """a @ b ([..., m, k] @ [..., k, n], k small) as k products and k − 1
+    adds in order, each rounded on its own: the same bits on the CPU and on
+    CUDA, where a matmul's summation order and fused multiply-adds are the
+    library's."""
+    out = a[..., :, :1] * b[..., :1, :]
+    for i in range(1, a.shape[-1]):
+        out = out + a[..., :, i:i + 1] * b[..., i:i + 1, :]
+    return out
+
+
 def se3_expm1(xi, terms: int = 10):
     """E = exp(hat(xi)) − I via the Horner-evaluated series
     X·(I + X/2·(I + X/3·(…))). Exact to f32 for |xi| ≲ 0.3 at the default
-    term count."""
+    term count. The same bits on the CPU and on CUDA (`_products`, and a
+    true division where JAX divides)."""
     x = se3_hat(xi)
     eye = _eye_like(xi, 4, x.shape)
     s = eye
     for k in range(terms, 1, -1):
-        s = eye + (x @ s) / k
-    return x @ s
+        s = eye + true_div(_products(x, s), k)
+    return _products(x, s)
 
 
 def se3_compose_dev(e1, e2):

@@ -29,6 +29,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from rust_robotics_tpu_torch._numeric import true_div
 from rust_robotics_tpu_torch._device import resolve_device
 from rust_robotics_tpu_torch.core.types import GaussianBelief
 from rust_robotics_tpu_torch.filters.kalman import (
@@ -94,7 +95,7 @@ def histogram_predict(belief, du_xy, cfg: HistogramConfig):
     w, h = belief.shape[-2:]
     du_xy = torch.as_tensor(du_xy, dtype=belief.dtype, device=belief.device)
     # round half to even, as jnp.round
-    shift = torch.round(du_xy / cfg.resolution).to(torch.int64)
+    shift = torch.round(true_div(du_xy, cfg.resolution)).to(torch.int64)
     lead = torch.broadcast_shapes(belief.shape[:-2], shift.shape[:-1])
     belief = belief.expand(*lead, w, h)
     rows = torch.remainder(torch.arange(w, device=belief.device) - shift[..., 0, None], w)
@@ -123,7 +124,7 @@ def histogram_update_ranges(belief, observed_ranges, landmarks, cfg: HistogramCo
     cy = ys[None, :, None]
     lm = landmarks[..., None, None, :, :]  # [..., 1, 1, L, 2]
     d = torch.sqrt((cx - lm[..., 0]) ** 2 + (cy - lm[..., 1]) ** 2)  # [..., W, H, L]
-    ll = -0.5 * ((d - observed_ranges[..., None, None, :]) / cfg.range_sigma) ** 2
+    ll = -0.5 * true_div(d - observed_ranges[..., None, None, :], cfg.range_sigma) ** 2
     return _normalise(belief * torch.exp(torch.sum(ll, dim=-1)))
 
 

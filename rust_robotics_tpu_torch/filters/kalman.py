@@ -27,6 +27,7 @@ from typing import Any, Callable
 
 import torch
 
+from rust_robotics_tpu_torch._numeric import true_div
 from rust_robotics_tpu_torch._device import resolve_device
 from rust_robotics_tpu_torch.core.types import GaussianBelief
 from rust_robotics_tpu_torch.models.motion import unicycle_jacobian, unicycle_propagate
@@ -258,16 +259,16 @@ def ckf_step(belief, measurement, control, dt, q, r, model=None):
     pts_prop = model.propagate(pts, control[..., None, :], dt)
     x_pred = torch.mean(pts_prop, dim=-2)
     dx = pts_prop - x_pred[..., None, :]
-    p_pred = torch.einsum("...in,...im->...nm", dx, dx) / (2 * n) + q
+    p_pred = true_div(torch.einsum("...in,...im->...nm", dx, dx), 2 * n) + q
 
     # Update
     pts_u = cubature(x_pred, p_pred)
     z_pts = model.observe(pts_u)
     z_pred = torch.mean(z_pts, dim=-2)
     dz = z_pts - z_pred[..., None, :]
-    s = torch.einsum("...ik,...il->...kl", dz, dz) / (2 * n) + r
+    s = true_div(torch.einsum("...ik,...il->...kl", dz, dz), 2 * n) + r
     dxu = pts_u - x_pred[..., None, :]
-    pxz = torch.einsum("...in,...ik->...nk", dxu, dz) / (2 * n)
+    pxz = true_div(torch.einsum("...in,...ik->...nk", dxu, dz), 2 * n)
     k_gain = _sym_solve(s, pxz.mT).mT
     y = measurement - z_pred
     mean = x_pred + (k_gain @ y[..., None])[..., 0]

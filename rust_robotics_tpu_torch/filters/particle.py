@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from rust_robotics_tpu_torch._numeric import true_div
 from rust_robotics_tpu_torch.core.types import GaussianBelief
 from rust_robotics_tpu_torch.models.motion import unicycle_propagate
 
@@ -118,7 +119,7 @@ def inverse_cdf(weights, positions):
 
 def systematic_positions(u, p):
     """(i + u) / P for i < P: u [..., 1] -> positions [..., P]."""
-    return (torch.arange(p, dtype=u.dtype, device=u.device) + u) / p
+    return true_div(torch.arange(p, dtype=u.dtype, device=u.device) + u, p)
 
 
 def systematic_resample(generator, weights):
@@ -201,7 +202,7 @@ def kld_required_particles(states, active_mask, grid_res, kld_epsilon=0.05, kld_
     k = torch.clamp(distinct, min=2).to(states.dtype)
     km1 = k - 1.0
     term = 1.0 - 2.0 / (9.0 * km1) + torch.sqrt(2.0 / (9.0 * km1)) * kld_z
-    n = torch.ceil(km1 / (2.0 * kld_epsilon) * term**3).to(torch.int32)
+    n = torch.ceil(true_div(km1, 2.0 * kld_epsilon) * term**3).to(torch.int32)
     # k ≤ 1 occupied bin → the caller's min_particles floor applies
     # (monte_carlo_localization.rs:368-370 returns min_particles there)
     n = torch.where(distinct <= 1, torch.ones_like(n), n)

@@ -57,7 +57,7 @@ from typing import NamedTuple
 
 import torch
 
-from rust_robotics_tpu_torch._graphs import Graphed
+from rust_robotics_tpu_torch._graphs import Graphed, kept, meta
 from rust_robotics_tpu_torch.nlls.problem import FactorBlock, Problem
 from rust_robotics_tpu_torch.nlls.tridiag import TERMINATION_NAMES, full_fp32_matmul
 from rust_robotics_tpu_torch.ops.cholesky import cholesky_solve_blocked
@@ -630,10 +630,6 @@ _STEPS = collections.OrderedDict()
 STEPS_KEPT = 4
 
 
-def _meta(t):
-    return None if t is None else (t.shape, t.dtype, t.device)
-
-
 def _graphed_step(problem: Problem, config: SolverConfig, state: DeviceLMState):
     """`_lm_step(problem, config, ·)` as one replay of a CUDA graph. The
     graph's inputs are the state and the problem's tensors (each group's
@@ -648,10 +644,10 @@ def _graphed_step(problem: Problem, config: SolverConfig, state: DeviceLMState):
     for f in problem.factors:
         data += [t for t in (f.indices, f.measurement, f.information) if t is not None]
     key = (config,
-           *((g.name, g.retract, g.tangent_dim, _meta(g.values), _meta(g.fixed_mask))
+           *((g.name, g.retract, g.tangent_dim, meta(g.values), meta(g.fixed_mask))
              for g in groups),
-           *((f.name, f.residual, tuple(f.groups), f.robust, _meta(f.indices),
-              _meta(f.measurement), _meta(f.information)) for f in problem.factors))
+           *((f.name, f.residual, tuple(f.groups), f.robust, meta(f.indices),
+              meta(f.measurement), meta(f.information)) for f in problem.factors))
     n_values = len(state.values)
 
     def rebuild(tensors):
@@ -670,12 +666,8 @@ def _graphed_step(problem: Problem, config: SolverConfig, state: DeviceLMState):
         out = _lm_step(rebuild(args[n_values + 7:]), config, s)
         return (*out.values, *out[1:])
 
-    graph = _STEPS.pop(key, None)
-    if graph is None:
-        graph = Graphed(flat_step, *state.values, *state[1:], *data)
-    _STEPS[key] = graph
-    while len(_STEPS) > STEPS_KEPT:
-        _STEPS.popitem(last=False)
+    graph = kept(_STEPS, key, lambda: Graphed(flat_step, *state.values, *state[1:], *data),
+                 STEPS_KEPT)
 
     def step(s: DeviceLMState) -> DeviceLMState:
         out = graph(*s.values, *s[1:], *data)

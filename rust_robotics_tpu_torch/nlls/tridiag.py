@@ -40,13 +40,22 @@ plus a few loop closures, so its Gauss-Newton system is
 - The matmuls run at full float32 precision (TF32 off), as the JAX loop
   runs under `default_matmul_precision("float32")`.
 
-Left out: the SPIKE-chunked ladder (`chunked_tridiag_*`, `ChunkedFactor`;
-`chunks > 1` raises) and the host-stepped loop (`host_loop`), which
-answer an XLA compile ceiling and a TPU runtime fault (ROADMAP.md A10).
+- `chunks > 1` partitions the ladder SPIKE-wise (`chunked_tridiag_factor`
+  / `chunked_tridiag_apply`): C contiguous row chunks run the ladder as one
+  leading batch dimension, and a (2C·d)² interface system over the chunk
+  boundaries, factored once by LU, couples them. It is the math of
+  `parallel/sharded_tridiag.py` on one device.
+- On a CUDA device the chain LM's step is one replay of a CUDA graph
+  (`_graphed_chain_step`), captured once for each problem structure.
+
+Left out: the host-stepped loop (`host_loop`) and the SoA layouts with
+their `tail_threshold`, which answer a TPU runtime fault and XLA's layout
+on the TPU (ROADMAP.md A10).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 from typing import Callable, NamedTuple
 
@@ -54,6 +63,7 @@ import numpy as np
 import torch
 
 from rust_robotics_tpu_torch._device import resolve_device
+from rust_robotics_tpu_torch._graphs import Graphed, kept, meta
 from rust_robotics_tpu_torch.ops.smallmat import inv_spd_small
 
 # Memory budget for one Woodbury edge chunk's ladder solve (the sizing
@@ -224,6 +234,107 @@ def block_tridiag_solve(diag, upper, rhs):
     [..., n-1, d, d] (C_i couples rows i and i+1; the lower side is C_iᵀ),
     rhs [..., n, d, r]."""
     return block_tridiag_apply(block_tridiag_factor(diag, upper), rhs)
+
+
+class ChunkedFactor(NamedTuple):
+    """SPIKE-partitioned factorisation of T (`chunked_tridiag_factor`): the
+    chunks' ladders over a leading chunk axis, their left and right spikes
+    w = T_c⁻¹(e_first A_c) and v = T_c⁻¹(e_last C_c) [..., C, m, d, d], the
+    interface system's LU factors (lu [..., 2C·d, 2C·d], its row order perm
+    [..., 2C·d]) and the unpadded row count n."""
+
+    fac: CRFactor
+    w: torch.Tensor
+    v: torch.Tensor
+    lu: torch.Tensor
+    perm: torch.Tensor
+    n: int
+
+
+def _lu_factor(a):
+    """P·L·U = a [..., k, k] by `torch.linalg.lu_factor_ex`, one matrix at a
+    time, so that a graph's factor takes the same algorithm whatever the
+    batch around it (as `_cholesky_ex`). Returns (lu, perm): Pᵀ b is
+    b[perm]. Nothing is read back."""
+    flat = a.reshape(-1, *a.shape[-2:])
+    lu, piv = map(torch.stack, zip(*(torch.linalg.lu_factor_ex(m)[:2] for m in flat)))
+    perm = torch.lu_unpack(lu, piv, unpack_data=False)[0].argmax(-2)
+    return lu.reshape(a.shape), perm.reshape(a.shape[:-1])
+
+
+def _lu_solve(lu, perm, rhs):
+    """a⁻¹ rhs [..., k, r] from `_lu_factor`'s result by two triangular
+    solves (torch's `lu_solve` copies the pivots to the host for some
+    sizes on CUDA, a device read)."""
+    y = torch.take_along_dim(rhs, perm[..., None], -2)
+    y = torch.linalg.solve_triangular(lu, y, upper=False, unitriangular=True)
+    return torch.linalg.solve_triangular(lu, y, upper=True)
+
+
+def chunked_tridiag_factor(diag, upper, chunks):
+    """Factor T (diag [..., n, d, d], upper [..., n-1, d, d]) in `chunks`
+    contiguous row chunks of m = ⌈n/C⌉ rows (padded with identity diagonal
+    blocks and zero uppers): the chunks' ladders as one leading batch
+    dimension of `block_tridiag_factor`, both spikes of every chunk from one
+    2d-column ladder apply, and the interface system over the 2C chunk
+    boundary rows, factored by LU. Pair with `chunked_tridiag_apply`."""
+    n, d = diag.shape[-3], diag.shape[-1]
+    lead = diag.shape[:-3]
+    c_n = chunks
+    m = -(-n // c_n)
+    eye = torch.eye(d, dtype=diag.dtype, device=diag.device)
+    if c_n * m > n:
+        diag = torch.cat([diag, eye.expand(*lead, c_n * m - n, d, d)], -3)
+    # the uppers padded to C·m rows: row c·m + m − 1 couples chunk c's last
+    # row to chunk c + 1's first (zero past the end)
+    up = torch.cat([upper, _zeros_rows(diag, c_n * m - upper.shape[-3])], -3)
+    up = up.reshape(*lead, c_n, m, d, d)
+    bound = up[..., :, m - 1, :, :]
+    zero = _zeros_rows(bound, 1)
+    a_left = torch.cat([zero, bound[..., :-1, :, :].mT], -3)  # [..., C, d, d]
+    c_right = torch.cat([bound[..., :-1, :, :], zero], -3)
+    fac = block_tridiag_factor(diag.reshape(*lead, c_n, m, d, d), up[..., :, :m - 1, :, :])
+    rhs = diag.new_zeros((*lead, c_n, m, d, 2 * d))
+    rhs[..., 0, :, :d] = a_left
+    rhs[..., m - 1, :, d:] = c_right
+    sol = block_tridiag_apply(fac, rhs)
+    w, v = sol[..., :d], sol[..., d:]
+
+    # the interface system over z = [x_0^top, x_0^bot, ..., x_{C-1}^bot]:
+    # x_c^top + w_c[0] x_{c-1}^bot + v_c[0] x_{c+1}^top = g_c[0], the bottom
+    # row alike with w_c[m-1], v_c[m-1]; rows grouped by chunk [C, 2d], columns
+    # by unknown [2C, d]
+    mat = diag.new_zeros((*lead, c_n, 2 * d, 2 * c_n, d))
+    flat = mat.view(*lead, 2 * c_n * d, 2 * c_n * d)
+    flat.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    if c_n > 1:
+        k = torch.arange(1, c_n, device=diag.device)
+        tips = lambda s: torch.cat([s[..., 0, :, :], s[..., m - 1, :, :]], -2)  # noqa: E731
+        # advanced indices around a slice put their axis first
+        mat[..., k, :, 2 * k - 1, :] = tips(w)[..., 1:, :, :].movedim(-3, 0)
+        mat[..., k - 1, :, 2 * k, :] = tips(v)[..., :-1, :, :].movedim(-3, 0)
+    return ChunkedFactor(fac, w, v, *_lu_factor(flat), n)
+
+
+def chunked_tridiag_apply(factor: ChunkedFactor, rhs):
+    """Apply T⁻¹ to rhs [..., n, d, r] with a `chunked_tridiag_factor`
+    result: the chunks' ladder applies as one batch, one interface solve,
+    then the spike correction x_c = g_c − w_c x_{c-1}^bot − v_c x_{c+1}^top."""
+    c_n, m, d = factor.w.shape[-4:-1]
+    n = factor.n
+    lead, r = rhs.shape[:-3], rhs.shape[-1]
+    mm = _mm_for(d)
+    if c_n * m > n:
+        rhs = torch.cat([rhs, _zeros_rows(rhs, c_n * m - n)], -3)
+    g = block_tridiag_apply(factor.fac, rhs.reshape(*lead, c_n, m, d, r))
+    ends = torch.stack([g[..., 0, :, :], g[..., m - 1, :, :]], -3)  # [..., C, 2, d, r]
+    z = _lu_solve(factor.lu, factor.perm, ends.reshape(*lead, 2 * c_n * d, r))
+    z = z.reshape(*lead, c_n, 2, d, r)
+    zero = _zeros_rows(g[..., 0, :, :], 1)
+    bot_left = torch.cat([zero, z[..., :-1, 1, :, :]], -3)  # [..., C, d, r]
+    top_right = torch.cat([z[..., 1:, 0, :, :], zero], -3)
+    x = g - mm(factor.w, bot_left[..., None, :, :]) - mm(factor.v, top_right[..., None, :, :])
+    return x.reshape(*lead, c_n * m, d, r)[..., :n, :, :]
 
 
 def _map_edges(fn, xi, xj, meas):
@@ -429,6 +540,20 @@ def _u_columns(n, ji, jj, ef, et):
     return u.reshape(*ji.shape[:-3], n, t, cs * r)
 
 
+def woodbury_edge_chunk(n, num_l, rdim, budget, chunks=0):
+    """Loop edges a Woodbury edge chunk holds: `budget` bytes over the bytes
+    an edge costs, by the JAX package's formulas (tridiag.py:688-704). The
+    plain ladder counts 3·2·pow2(n) rows; the chunked one C·L·pow2(m)/2,
+    m = ⌈n/C⌉ and L = log2 pow2(m) levels, with no factor 3."""
+    if chunks and chunks > 1:
+        m_p2 = _pow2(-(-n // chunks))
+        eff_rows = chunks * max((m_p2 - 1).bit_length(), 1) * max(m_p2 // 2, 1)
+        bytes_per_edge = eff_rows * 8 * 4 * rdim
+    else:
+        bytes_per_edge = 3 * 2 * _pow2(n) * 8 * 4 * rdim
+    return max(1, min(num_l, budget // bytes_per_edge))
+
+
 def chain_woodbury_solve(bd, c, jac_loop, loop_from, loop_to, w_inv, rhs_vec, w_blocks=None,
                          refine=0, chunk_bytes=None, chunks=0, spd=True):
     """x = (T + U W Uᵀ)⁻¹ rhs_vec for an assembled chain system.
@@ -441,17 +566,20 @@ def chain_woodbury_solve(bd, c, jac_loop, loop_from, loop_to, w_inv, rhs_vec, w_
 
     refine: iterative-refinement passes x += H⁻¹(b − Hx), which need the
     loop information blocks `w_blocks` [L, r, r] when loops are present.
+    chunks > 1: T⁻¹ by the SPIKE-chunked ladder (`chunked_tridiag_factor`),
+    and the edge chunks sized by the JAX package's chunked footprint.
     spd: see `capacitance_solver`. A graph whose capacitance factorisation
     is rejected gets a NaN solution."""
-    if chunks and chunks > 1:
-        raise NotImplementedError(
-            "chunks > 1 (the SPIKE-chunked ladder) is not ported; ROADMAP.md A10 "
-            "leaves it out: the plain ladder serves every n on the GPU")
     n, tdim = bd.shape[-3], bd.shape[-1]
-    fac = block_tridiag_factor(bd, c)
+    if chunks and chunks > 1:
+        fac = chunked_tridiag_factor(bd, c, chunks)
+        ladder_apply = chunked_tridiag_apply
+    else:
+        fac = block_tridiag_factor(bd, c)
+        ladder_apply = block_tridiag_apply
 
     def t_apply(v):
-        return block_tridiag_apply(fac, v[..., None])[..., 0]
+        return ladder_apply(fac, v[..., None])[..., 0]
 
     if jac_loop is None:
         x = t_apply(rhs_vec)
@@ -461,9 +589,8 @@ def chain_woodbury_solve(bd, c, jac_loop, loop_from, loop_to, w_inv, rhs_vec, w_
     ji_l, jj_l = jac_loop
     num_l, rdim = loop_from.shape[0], ji_l.shape[-2]
     k_w = num_l * rdim
-    bytes_per_edge = 3 * 2 * _pow2(n) * 8 * 4 * rdim
     budget = WOODBURY_CHUNK_BYTES if chunk_bytes is None else chunk_bytes
-    cs = max(1, min(num_l, budget // bytes_per_edge))
+    cs = woodbury_edge_chunk(n, num_l, rdim, budget, chunks)
 
     def ut_apply(z):
         """Uᵀ z for z [..., n, t, k] -> [..., K, k] (U's only non-zero rows
@@ -480,7 +607,7 @@ def chain_woodbury_solve(bd, c, jac_loop, loop_from, loop_to, w_inv, rhs_vec, w_
 
     # S = W⁻¹ + Uᵀ T⁻¹ U, its columns chunk by chunk of edges
     uty = torch.cat([
-        ut_apply(block_tridiag_apply(fac, _u_columns(
+        ut_apply(ladder_apply(fac, _u_columns(
             n, ji_l[..., e0:e0 + cs, :, :], jj_l[..., e0:e0 + cs, :, :],
             loop_from[e0:e0 + cs], loop_to[e0:e0 + cs])))
         for e0 in range(0, num_l, cs)], -1)
@@ -714,7 +841,7 @@ lm_run.steps = 0
 
 def _chain_lm_ops(chain_meas, chain_info, loop_from, loop_to, loop_meas, loop_info, fixed, *,
                   residual_fn, retract_fn, tdim, refine, woodbury_chunk_bytes, rdim,
-                  nested_part=None, spd=True):
+                  nested_part=None, spd=True, chunks=0):
     """(linearize, lin_solve, apply_step, cost_only) of a chain problem for
     values [G, n, dim]."""
     num_l = loop_from.shape[0]
@@ -752,7 +879,7 @@ def _chain_lm_ops(chain_meas, chain_info, loop_from, loop_to, loop_meas, loop_in
                                       w_blocks=w_blocks, spd=spd)
         return chain_woodbury_solve(bd, c, jac_loop, loop_from, loop_to, w_inv, -grad,
                                     w_blocks=w_blocks, refine=refine,
-                                    chunk_bytes=woodbury_chunk_bytes, spd=spd)
+                                    chunk_bytes=woodbury_chunk_bytes, chunks=chunks, spd=spd)
 
     return linearize, lin_solve, _step_applier(fixed, retract_fn), cost_only
 
@@ -787,27 +914,77 @@ def chain_lm_start(values0, chain_meas, chain_info, loop_from, loop_to, loop_mea
                    gradient_tolerance: float = 1e-10, step_tolerance: float = 1e-10,
                    cost_tolerance: float = 1e-12, initial_damping: float = 1e-3,
                    refine: int = 0, woodbury_chunk_bytes: int | None = None, chunks: int = 0,
-                   rdim: int | None = None, nested: bool | None = None, spd: bool = True):
+                   rdim: int | None = None, nested: bool | None = None, spd: bool = True,
+                   graphed: bool | None = None):
     """The chain LM's first state and its step, for values0 [G, n, dim]
     (arguments as `solve_chain_lm`). Returns (LMState, step): step(state)
-    is one LM iteration of every graph and reads nothing back."""
-    chunked = bool(chunks and chunks > 1)
+    is one LM iteration of every graph and reads nothing back. graphed
+    (default: values0 on a CUDA device): the step replays a CUDA graph
+    (`_graphed_chain_step`); False runs it eagerly."""
+    chunks = chunks if chunks and chunks > 1 else 0
     n = values0.shape[-2]
     part = None
-    if _use_nested(n, loop_from, loop_to, nested, chunked):
+    if _use_nested(n, loop_from, loop_to, nested, bool(chunks)):
         part = nested_partition(n, loop_from, loop_to, device=values0.device)
-    if chunked:
-        raise NotImplementedError(
-            "chunks > 1 (the SPIKE-chunked ladder) is not ported; ROADMAP.md A10 leaves it "
-            "out: the plain ladder serves every n on the GPU")
-    linearize, lin_solve, apply_step, cost_only = _chain_lm_ops(
-        chain_meas, chain_info, loop_from, loop_to, loop_meas, loop_info, fixed_mask,
-        residual_fn=residual_fn, retract_fn=retract_fn, tdim=tdim, refine=refine,
-        woodbury_chunk_bytes=woodbury_chunk_bytes, rdim=rdim, nested_part=part, spd=spd)
+    problem = (chain_meas, chain_info, loop_from, loop_to, loop_meas, loop_info, fixed_mask)
+    config = dict(residual_fn=residual_fn, retract_fn=retract_fn, tdim=tdim, refine=refine,
+                  woodbury_chunk_bytes=(WOODBURY_CHUNK_BYTES if woodbury_chunk_bytes is None
+                                        else woodbury_chunk_bytes),
+                  rdim=rdim, spd=spd, chunks=chunks)
+    tolerances = (gradient_tolerance, step_tolerance, cost_tolerance)
+
+    def make_step(problem, part):
+        linearize, lin_solve, apply_step, cost_only = _chain_lm_ops(*problem, nested_part=part,
+                                                                    **config)
+        return lm_step(linearize, lin_solve, apply_step, cost_only, *tolerances), cost_only
+
+    step, cost_only = make_step(problem, part)
     with full_fp32_matmul():
         state = lm_state(values0, cost_only(values0), initial_damping)
-    return state, lm_step(linearize, lin_solve, apply_step, cost_only, gradient_tolerance,
-                          step_tolerance, cost_tolerance)
+    if values0.is_cuda if graphed is None else graphed:
+        key = (tuple(config.items()), tolerances, *map(meta, (*state, *problem, *(part or ()))))
+        step = _graphed_chain_step(key, make_step, problem, part, state)
+    return state, step
+
+
+# the CUDA graphs of the chain LM's step, least recently used first
+_CHAIN_STEPS = collections.OrderedDict()
+CHAIN_STEPS_KEPT = 8
+
+
+def _graphed_chain_step(key, make_step, problem, part, state: LMState):
+    """make_step(problem, part)'s step as one replay of a CUDA graph. The
+    graph's inputs are the state, the problem's tensors and the nested
+    partition's, so the graph of one key (the settings, and the shapes,
+    dtypes and devices of every tensor) serves every problem of that
+    structure; the last CHAIN_STEPS_KEPT keys' graphs are kept. The edge
+    chunks, chunk count and partition are fixed on the host before the
+    capture. A replay counts one `chain_nested_solve` call where the step
+    makes one (the capture's own calls are not counted). Returns
+    step(state) -> state, whose result is the graph's output, rewritten by
+    the next replay; `step.graph` is the `Graphed`."""
+    data = [t for t in (*problem, *(part or ())) if t is not None]
+
+    def flat_step(*args):
+        it = iter(args[len(state):])
+        prob = tuple(None if t is None else next(it) for t in problem)
+        prt = None if part is None else NestedPartition(*it)
+        return tuple(make_step(prob, prt)[0](LMState(*args[:len(state)])))
+
+    def capture():
+        calls = chain_nested_solve.calls
+        graph = Graphed(flat_step, *state, *data)
+        chain_nested_solve.calls = calls
+        return graph
+
+    graph = kept(_CHAIN_STEPS, key, capture, CHAIN_STEPS_KEPT)
+
+    def step(s: LMState) -> LMState:
+        chain_nested_solve.calls += part is not None
+        return LMState(*graph(*s, *data))
+
+    step.graph = graph
+    return step
 
 
 def solve_chain_lm(values0, chain_meas, chain_info, loop_from, loop_to, loop_meas, loop_info,
@@ -830,12 +1007,15 @@ def solve_chain_lm(values0, chain_meas, chain_info, loop_from, loop_to, loop_mea
 
     residual_fn(xi, xj, meas) -> [rdim]; retract_fn(x, delta[tdim]) -> x'.
     woodbury_chunk_bytes: per-chunk budget of the streamed loop-closure
-    columns (default `WOODBURY_CHUNK_BYTES`). chunks > 1 raises
-    NotImplementedError (the SPIKE-chunked ladder is not ported). rdim: the
-    residual dimension where it differs from the measurement width.
-    nested: route the inner solve through `chain_nested_solve`; None
-    engages it for n >= 50 000, >= 64 closures and a separator set <= n/8
-    (the JAX package's rule). `refine` does not apply to the nested path.
+    columns (default `WOODBURY_CHUNK_BYTES`). chunks > 1: the SPIKE-chunked
+    ladder of `chunks` row chunks (`chunked_tridiag_factor`); 0 or 1 the
+    plain ladder. rdim: the residual dimension where it differs from the
+    measurement width. nested: route the inner solve through
+    `chain_nested_solve`; None engages it for n >= 50 000, >= 64 closures
+    and a separator set <= n/8 when not chunked (the JAX package's rule);
+    True with chunks > 1 raises ValueError. `refine` does not apply to the
+    nested path. On a CUDA device each step is a CUDA graph's replay
+    (`chain_lm_start`).
     spd: the capacitance system's factorisation (`capacitance_solver`):
     Cholesky, as the JAX package, or LU (spd=False), which the anchored
     SE(3) path takes (slam/pose_graph.py). Cholesky stays the default
@@ -857,7 +1037,10 @@ def solve_chain_lm(values0, chain_meas, chain_info, loop_from, loop_to, loop_mea
         cost_tolerance=cost_tolerance, initial_damping=initial_damping, refine=refine,
         woodbury_chunk_bytes=woodbury_chunk_bytes, chunks=chunks, rdim=rdim, nested=nested,
         spd=spd)
-    return finish(state, lm_run(state, step, max_iterations), batched)
+    last = lm_run(state, step, max_iterations)
+    if hasattr(step, "graph"):  # a graph's outputs are rewritten by its next replay
+        last = LMState(*(t.clone() for t in last))
+    return finish(state, last, batched)
 
 
 solve_chain_lm.calls = 0

@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from rust_robotics_tpu_torch._numeric import true_div
 from rust_robotics_tpu_torch.ops import _build
 
 _TILE_P = 512  # the JAX entry's tile: P > 1024 must be a multiple of it
@@ -166,7 +167,7 @@ def systematic_resample_gather_plain(weights, u, states):
     neff = 1.0 / torch.sum(wn * wn, dim=-1)
     cum = torch.cumsum(wn, dim=-1)
     cum = cum / cum[..., -1:]
-    pos = (torch.arange(p, dtype=weights.dtype, device=weights.device) + u[:, None]) / p
+    pos = true_div(torch.arange(p, dtype=weights.dtype, device=weights.device) + u[:, None], p)
     idx = torch.searchsorted(cum, pos, side="left").clamp(0, p - 1)
     new_states = torch.gather(states, 2, idx[:, None, :].expand(-1, d, -1))
     return new_states, idx.to(torch.int32), neff

@@ -37,6 +37,7 @@ import dataclasses
 
 import torch
 
+from rust_robotics_tpu_torch._numeric import true_div
 from rust_robotics_tpu_torch._device import resolve_device, to_tensor
 from rust_robotics_tpu_torch.nlls.tridiag import _tree_sum, small_mm
 from rust_robotics_tpu_torch.ops.smallmat import inv_spd_small
@@ -105,20 +106,26 @@ def _polar_rotation_3d(w, iters=12):
     (3-D Kabsch without a generic SVD)."""
     m = w.mT
     # normalise the scale for convergence
-    scale = torch.clamp(torch.sqrt(_sq_norm(m.flatten(-2)) / 3.0), min=1e-12)
+    scale = torch.clamp(torch.sqrt(true_div(_sq_norm(m.flatten(-2)), 3.0)), min=1e-12)
     r = m / scale[..., None, None]
     for _ in range(iters):
         r = 0.5 * (r + inv_spd_small(r).mT)  # the 3×3 inverse is the adjugate's: general
     return r
 
 
+def centroid(pts):
+    """The mean of pts [..., m, d] over its m points: halving sums, then a
+    true division, as `jnp.mean` divides (a CUDA `tensor / number`
+    multiplies by the reciprocal)."""
+    return true_div(_halving_sum(pts, -2), pts.shape[-2])
+
+
 def svd_motion_estimation(prev_pts, cur_pts):
     """(R, t) mapping current onto previous (icp_matching.rs:289-345):
     centroids, the cross-covariance W = c̃ᵀ p̃, R its polar factor,
     t = p̄ − R c̄. Over leading dims."""
-    m = cur_pts.shape[-2]
-    pm = _halving_sum(prev_pts, -2) / prev_pts.shape[-2]
-    cm = _halving_sum(cur_pts, -2) / m
+    pm = centroid(prev_pts)
+    cm = centroid(cur_pts)
     c_shift = cur_pts - cm[..., None, :]
     p_shift = prev_pts - pm[..., None, :]
     w = _halving_sum(c_shift[..., :, :, None] * p_shift[..., :, None, :], -3)  # [..., d, d]

@@ -34,7 +34,7 @@ from typing import Any
 
 import torch
 
-from rust_robotics_tpu_torch._numeric import filled
+from rust_robotics_tpu_torch._numeric import filled, true_div
 from rust_robotics_tpu_torch.core.lie import _safe_theta, skew, so3_exp, so3_log
 from rust_robotics_tpu_torch.nlls import (
     FactorBlock,
@@ -91,8 +91,8 @@ def _rodrigues(phi):
     theta2 = phi[..., 0] * phi[..., 0] + phi[..., 1] * phi[..., 1] + phi[..., 2] * phi[..., 2]
     small, theta = _safe_theta(theta2)
     k = skew(phi)
-    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / (theta * theta))
+    a = torch.where(small, 1.0 - true_div(theta2, 6.0), torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - true_div(theta2, 24.0), (1.0 - torch.cos(theta)) / (theta * theta))
     eye = torch.eye(3, dtype=phi.dtype, device=phi.device)
     return eye + a[..., None, None] * k + b[..., None, None] * _mm(k, k)
 

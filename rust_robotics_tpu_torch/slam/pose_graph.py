@@ -113,9 +113,10 @@ def optimize_pose_graph_2d(poses, edges_from, edges_to, measurements, informatio
     (i, i+1) pair has an edge, banded_direct otherwise.
 
     refine (chain_direct only): iterative-refinement passes of each linear
-    solve. chunks (chain_direct only): None or 0/1 runs the plain ladder at
-    any n; chunks > 1 (the SPIKE-chunked ladder) is not ported and
-    raises."""
+    solve. chunks (chain_direct only): > 1 runs the SPIKE-chunked ladder of
+    that many row chunks, 0 or 1 the plain ladder; None takes the JAX
+    package's rule (`_auto_chunks`): the plain ladder to 262,144 poses, the
+    chunked ladder above."""
     device = resolve_device(device)
     if linear_solver == "direct":
         linear_solver = ("chain_direct" if has_full_chain(len(poses), edges_from, edges_to)
@@ -167,7 +168,8 @@ def _optimize_chain_direct(poses, edges_from, edges_to, measurements, informatio
     out, summ = _chain_lm(poses, edges_from, edges_to, measurements, information,
                           _first_fixed(poses.shape[0], fix_first, device),
                           residual_fn or se2_edge_residual, retract_fn or se2_retract, tdim,
-                          max_iterations, tolerance, refine=refine, chunks=chunks or 0)
+                          max_iterations, tolerance, refine=refine,
+                          chunks=_auto_chunks(poses.shape[0], chunks))
     return out, _summary(summ)
 
 
@@ -260,9 +262,9 @@ def se3_anchored_edge_residual(li, lj, meas48):
 
 
 def _auto_chunks(n, chunks):
-    """The JAX package's SPIKE chunk rule: the plain ladder to 262,144 poses,
-    beyond it the smallest power of two keeping each chunk <= 131,072 rows
-    (`solve_chain_lm` raises NotImplementedError for chunks > 1)."""
+    """The JAX package's SPIKE chunk rule (slam/pose_graph.py:171-179): the
+    plain ladder to 262,144 poses, beyond it the smallest power of two
+    keeping each chunk <= 131,072 rows. An explicit `chunks` stands."""
     if chunks is not None:
         return chunks
     chunks = 0
@@ -353,8 +355,8 @@ def optimize_pose_graph_3d(pose_tangents, edges_from, edges_to, measurement_tang
     the f32 fix for a large workspace. The host composes the poses into
     per-edge anchor-relative transforms in f64; the device solves small
     local corrections only, `anchor_rounds + 1` times. Above 262,144 poses
-    it picks the SPIKE-chunked ladder as the JAX package does, which is not
-    ported and raises. chunks: see `optimize_pose_graph_2d`."""
+    it picks the SPIKE-chunked ladder as the JAX package does. chunks: see
+    `optimize_pose_graph_2d`."""
     device = resolve_device(device)
     if anchored:
         if linear_solver not in ("chain_direct", "direct"):

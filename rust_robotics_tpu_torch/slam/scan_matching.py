@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rust_robotics_tpu_torch._numeric import true_div
 from rust_robotics_tpu_torch.core.angles import normalize_angle
 from rust_robotics_tpu_torch.nlls.kernels import RobustKernel
 from rust_robotics_tpu_torch.nlls.tridiag import _tree_sum, small_mm
@@ -83,7 +84,7 @@ def _dp(pose, cur_pts):
 
 def _final_distance(prev_pts, cur_pts, pose):
     _, dist = nearest_neighbor(prev_pts, _apply_se2(pose, cur_pts))
-    return _point_sum(dist[..., None])[..., 0] / dist.shape[-1]
+    return true_div(_point_sum(dist[..., None])[..., 0], dist.shape[-1])
 
 
 def robust_icp(prev_pts, cur_pts, init_pose=None, iterations: int = 30,

@@ -318,13 +318,19 @@ def test_pose_graph_2d_chain_matches_jax(linear_solver):
 
 
 def test_pose_graph_routes_of_a_later_slice_raise():
-    """The chain routes are ported; the SPIKE-chunked ladder (chunks > 1)
-    is not, and `refine` belongs to chain_direct alone, as in JAX."""
+    """The chain routes take the SPIKE-chunked ladder (chunks > 1) as JAX's
+    do (poses within 1e-8, counts equal), and `refine` belongs to
+    chain_direct alone, as in JAX."""
     _, initial, ef, et, meas, _ = synthesize_chain(5)
     for solver in ("direct", "chain_direct"):
-        with pytest.raises(NotImplementedError, match="SPIKE"):
-            tpg.optimize_pose_graph_2d(initial, ef, et, meas, linear_solver=solver, chunks=2,
-                                       device="cpu")
+        kw = dict(linear_solver=solver, chunks=2)
+        want, js = jpg.optimize_pose_graph_2d(jnp.asarray(initial), ef, et, jnp.asarray(meas),
+                                              **kw)
+        got, ts = tpg.optimize_pose_graph_2d(initial, ef, et, meas, device="cpu", dtype=F64,
+                                             **kw)
+        assert (ts.termination, ts.iterations, ts.accepted_steps) == \
+            (js.termination, js.iterations, js.accepted_steps)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-8)
     for solver in ("banded_direct", "dense"):
         with pytest.raises(ValueError, match="refine"):
             tpg.optimize_pose_graph_2d(initial, ef, et, meas, linear_solver=solver, refine=1,

@@ -164,9 +164,13 @@ def test_se3_routes_raise_as_jax():
         with pytest.raises(ValueError, match="refine"):
             tpg.optimize_pose_graph_3d(initial, ef, et, meas, linear_solver=solver, refine=1,
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="SPIKE"):
-        tpg.optimize_pose_graph_3d(initial, ef, et, meas, linear_solver="chain_direct",
-                                   anchored=True, chunks=2, device="cpu")
+    # chunks=2, the SPIKE-chunked ladder, as JAX's (poses within 1e-8)
+    kw = dict(linear_solver="chain_direct", anchored=True, chunks=2)
+    want, js = jpg.optimize_pose_graph_3d(jnp.asarray(initial), ef, et, jnp.asarray(meas), **kw)
+    got, ts = tpg.optimize_pose_graph_3d(initial, ef, et, meas, device="cpu", dtype=F64, **kw)
+    assert (ts.termination, ts.iterations, ts.accepted_steps) == \
+        (js.termination, js.iterations, js.accepted_steps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-8)
     # the JAX package's chunk rule, which the anchored path follows
     sizes = (10, 262144, 262145, 524288, 524289)
     assert [tpg._auto_chunks(n, None) for n in sizes] == [0, 0, 4, 4, 8]

@@ -161,12 +161,11 @@ def test_no_launch_plan_exceeds_a_blocks_shared_memory():
 # element): one case a branch of `_launch_plan` (staged by TMA, copied by
 # cp.async where rows or pointers are not 16-byte aligned, states gathered
 # from global memory) and CDFs flat across runs of zero weights. P=1000 in f64 is
-# held to the f32 rule: the twin's `/ P` on cuda multiplies by the
-# reciprocal (ROADMAP C9), so a position may move by an ulp.
+# exact: the twin divides by P through `_numeric.true_div`, as the kernel does.
 CUDA_CASES = {
     "staged f64": (257, 1024, 4, np.float64, False, True, False),
     "staged f32 P=4096": (64, 4096, 4, np.float32, False, False, False),
-    "staged f64 P=1000": (33, 1000, 4, np.float64, False, False, False),
+    "staged f64 P=1000": (33, 1000, 4, np.float64, False, True, False),
     "copied f32 P=1001": (33, 1001, 4, np.float32, False, False, False),
     "copied f32 offset views": (64, 1024, 4, np.float32, False, False, True),
     "direct f64 D=8 P=4096": (16, 4096, 8, np.float64, False, True, False),
